@@ -1,0 +1,406 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`liquid_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py                  # full size, needs one CUDA card
+    python3 chip_smoke.py --hits-rows 400000 --sf 0.1    # a quicker run
+
+Phases (any failure raises and the script exits non-zero):
+1. device: name, count, `nvidia-smi` name and power limit;
+2. build the CUDA kernel K1 (`liquid_tpu_torch/ops/csrc/cmp_const_many.cu`)
+   with nvcc, timed;
+3. K1 against its plain PyTorch version on the card, bit-exact, over
+   every width bucket 1..64, B in {1, 3, 489, 4097} and constants 0, 1,
+   random, with bits at or above the width, and 2^64-1;
+4. the main path: 4,000,000 synthesized ClickBench `hits` rows and TPC-H
+   SF1 `lineitem` as parquet, a `LiquidCacheLocalBuilder` session on the
+   card, queries `cb_filter` and `tpch_q6`; answers checked against
+   pyarrow compute on the same parquet (count exact, revenue rtol 1e-9);
+   the fused scalar route and K1 launches checked through the port's
+   counters, which are set to 0 just before this phase and read after;
+5. K1 timed (CUDA events, L2 flushed before each launch) on the exact
+   inputs the main path gave it, against the plain version and the
+   kernel's byte bound;
+6. one warm run of each query under torch.profiler: device-busy time,
+   the device's idle share and the device operations that took longest.
+
+The last lines are the card's name and power limit, a {"kernels": [...]}
+JSON line, and {"ok": true, "device": {...}}.  Data is cached as parquet
+under the temporary directory; nothing else outside the checkout is
+touched.
+"""
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+#: H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, and the FP32
+#: non-tensor rate used as the rate of 32-bit integer word operations
+HBM_BYTES_PER_S = 3.35e12
+WORD_OPS_PER_S = 67e12
+
+CB_FILTER = 'SELECT COUNT(*) FROM hits WHERE "AdvEngineID" <> 0'
+TPCH_Q6 = """SELECT sum(l_extendedprice * l_discount) as revenue
+ FROM lineitem WHERE l_shipdate >= date '1994-01-01'
+ AND l_shipdate < date '1995-01-01'
+ AND l_discount between 0.05 and 0.07 AND l_quantity < 24"""
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def k1_bytes(bsz: int, width: int) -> int:
+    """Bytes K1 must move: planes and constants read once, lt/eq written."""
+    return bsz * width * 256 * 4 + bsz * 8 + 2 * bsz * 256 * 4
+
+
+def k1_bound_ms(bsz: int, width: int):
+    """(least time in ms, what bounds it): bytes over HBM bandwidth vs
+    ~5 word operations per plane per output word over the word rate."""
+    t_bytes = k1_bytes(bsz, width) / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * width * bsz * 256 / WORD_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_cold(torch, fn, flush, iters: int) -> float:
+    """Median ms of one call, L2 flushed (a 256 MB write) before each."""
+    for _ in range(3):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def time_warm(torch, fn, iters: int) -> float:
+    """Mean ms per call over back-to-back calls (inputs L2-resident)."""
+    for _ in range(3):
+        fn()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def _max_abs_err(torch, got, ref) -> int:
+    return max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
+               for g, r in zip(got, ref))
+
+
+def check_k1(torch, dev) -> int:
+    """Phase 3: kernel vs plain version, bit-exact -> max abs error (0)."""
+    import numpy as np
+    from liquid_tpu_torch.ops import bitpack as bp
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    rng = np.random.default_rng(1234)
+    worst = 0
+    for width in bp.WIDTH_BUCKETS[1:]:
+        top = (1 << width) - 1
+        for bsz in (1, 3, 489, 4097):
+            planes = torch.randint(-2 ** 31, 2 ** 31, (bsz, width, 256),
+                                   dtype=torch.int32, device=dev,
+                                   generator=gen)
+            pool = [0, 1, top, int(rng.integers(0, min(top, 1 << 62) + 1)),
+                    (1 << 64) - 1]
+            if width < 64:
+                pool += [1 << width, (1 << 63) | top]
+            cs = [pool[i] if i < len(pool)
+                  else pool[int(rng.integers(len(pool)))]
+                  for i in range(bsz)]
+            if bsz == 1:
+                cs = [pool[width % len(pool)]]
+            cs_t = torch.from_numpy(np.array(cs, np.uint64).view(np.int64)
+                                    ).to(dev)
+            got = k1.cmp_const_many(planes, cs_t)
+            ref = k1.cmp_const_many_ref(planes, cs_t)
+            torch.cuda.synchronize()
+            err = _max_abs_err(torch, got, ref)
+            if err:
+                raise AssertionError(f"K1 != plain at width {width}, "
+                                     f"B {bsz}: max abs err {err}")
+            worst = max(worst, err)
+    return worst
+
+
+def prepare_data(data_dir: str, hits_rows: int, sf: float) -> dict:
+    import pyarrow.parquet as pq
+    from liquid_tpu_torch.bench.hits import prepare_hits
+    from liquid_tpu_torch.bench.tpch_data import generate
+    os.makedirs(data_dir, exist_ok=True)
+    paths = {"hits": prepare_hits(hits_rows, data_dir)}
+    li = os.path.join(data_dir, f"liquid_bench_lineitem_{sf}.parquet")
+    if not os.path.exists(li):
+        t = generate(sf)["lineitem"]
+        pq.write_table(t, li + ".tmp", row_group_size=1 << 20)
+        os.replace(li + ".tmp", li)
+    paths["lineitem"] = li
+    return paths
+
+
+def expected_answers(paths: dict) -> dict:
+    """The same queries by pyarrow compute on the same parquet."""
+    import datetime
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    adv = pq.read_table(paths["hits"], columns=["AdvEngineID"])["AdvEngineID"]
+    li = pq.read_table(paths["lineitem"], columns=[
+        "l_extendedprice", "l_discount", "l_shipdate", "l_quantity"])
+    m = pc.and_(
+        pc.and_(pc.greater_equal(li["l_shipdate"],
+                                 pa.scalar(datetime.date(1994, 1, 1))),
+                pc.less(li["l_shipdate"],
+                        pa.scalar(datetime.date(1995, 1, 1)))),
+        pc.and_(pc.and_(pc.greater_equal(li["l_discount"], 0.05),
+                        pc.less_equal(li["l_discount"], 0.07)),
+                pc.less(li["l_quantity"], 24)))
+    f = li.filter(m)
+    return {"cb_filter": pc.sum(pc.not_equal(adv, 0)).as_py(),
+            "tpch_q6": pc.sum(pc.multiply(f["l_extendedprice"],
+                                          f["l_discount"])).as_py()}
+
+
+def run_main_path(torch, paths: dict, expect: dict, builder):
+    """Phase 4: build a session from `builder` and run both queries
+    -> (session, per-query report)."""
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    from liquid_tpu_torch.sql import fused_agg
+    queries = [("cb_filter", "hits", ["AdvEngineID"], CB_FILTER),
+               ("tpch_q6", "lineitem", ["l_extendedprice", "l_discount",
+                                        "l_shipdate", "l_quantity"], TPCH_Q6)]
+    ctx, _cache = builder.with_max_memory_bytes(16 << 30).build()
+    for name, p in paths.items():
+        ctx.register_parquet(name, p)
+    report = {}
+    for qname, table, cols, sql in queries:
+        pt = ctx._tables[table]
+        t0 = time.perf_counter()
+        for rg in range(pt.num_row_groups):
+            for c in cols:
+                pt.ensure_cached(rg, c)
+        t_transcode = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+
+        def run_once():
+            before = fused_agg.STATS["fused_scalar"]
+            launches = k1.LAUNCHES["cmp_const_many"]
+            out = ctx.sql(sql).to_arrow()
+            torch.cuda.synchronize()
+            if fused_agg.STATS["fused_scalar"] != before + 1:
+                raise AssertionError(f"{qname} left the fused scalar route")
+            return out, k1.LAUNCHES["cmp_const_many"] - launches
+
+        t0 = time.perf_counter()
+        out, _ = run_once()
+        t_first = time.perf_counter() - t0
+        warm, per_run = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out, per_run = run_once()
+            warm.append(time.perf_counter() - t0)
+        value = out.column(0)[0].as_py()
+        want = expect[qname]
+        if qname == "cb_filter":
+            ok = value == want
+        else:
+            ok = abs(value - want) <= 1e-9 * abs(want)
+        if not ok:
+            raise AssertionError(f"{qname}: port {value!r} != pyarrow {want!r}")
+        report[qname] = dict(
+            rows=pt.num_rows, blocks=sum(pt.num_batches(rg) for rg in
+                                         range(pt.num_row_groups)),
+            answer=value, expected=want, transcode_s=t_transcode,
+            first_run_s=t_first, warm_best_ms=min(warm) * 1e3,
+            warm_ms=[w * 1e3 for w in warm], k1_launches_per_run=per_run,
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        log(f"[main] {qname}: {json.dumps(report[qname])}")
+    return ctx, report
+
+
+def main_path_k1_inputs(ctx):
+    """(planes, lo, hi, query table) for every interval the main path's
+    cached plans fed to K1."""
+    out = []
+    for name, table in ctx._tables.items():
+        for hit in table._fused_plan_cache.values():
+            if isinstance(hit, str) or hit[1]:
+                continue
+            p = hit[0]
+            for grp in p.pred_groups:
+                for alt in grp:
+                    out.append((p.arrays[p.colmap[alt[1]]["planes"]],
+                                p.arrays[alt[2]], p.arrays[alt[3]],
+                                f"{name}.{alt[1]}"))
+    return out
+
+
+def time_k1(torch, ctx) -> dict:
+    """Phase 5: K1 vs plain on the main path's own inputs."""
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    rows, worst = [], 0
+    for planes, lo, hi, col in main_path_k1_inputs(ctx):
+        for cs in (lo, hi):
+            worst = max(worst, _max_abs_err(
+                torch, k1.cmp_const_many(planes, cs),
+                k1.cmp_const_many_ref(planes, cs)))
+        bsz, width, _ = planes.shape
+        bound, by = k1_bound_ms(bsz, width)
+        row = dict(column=col, B=bsz, w=width,
+                   bytes=k1_bytes(bsz, width),
+                   ms=time_cold(torch, lambda: k1.cmp_const_many(planes, lo),
+                                flush, 100),
+                   warm_ms=time_warm(
+                       torch, lambda: k1.cmp_const_many(planes, lo), 200),
+                   plain_ms=time_cold(
+                       torch, lambda: k1.cmp_const_many_ref(planes, lo),
+                       flush, 20),
+                   bound_ms=bound, bound_by=by)
+        rows.append(row)
+        log(f"[k1] {json.dumps(row)}")
+    if not rows:
+        raise AssertionError("the main path left no K1 inputs to time")
+    if worst:
+        raise AssertionError(f"K1 != plain on main-path inputs: {worst}")
+    return {"rows": rows, "max_abs_err": worst}
+
+
+def device_breakdown(torch, ctx, sql: str, warm_best_ms: float) -> dict:
+    """Phase 6: one warm run of `sql` under torch.profiler -> device-busy
+    ms (union of kernel and copy intervals), the idle share of the
+    unprofiled best warm time, the device operation count and the
+    device operations that took longest.  The profiler slows the host,
+    so its own wall time is reported but not used for the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ctx.sql(sql).to_arrow()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    by_name = {}
+    for e in dev:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.end - e.time_range.start, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(
+        profiled_wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+        idle_share=(1 - busy_us / 1e3 / warm_best_ms) if dev else None,
+        device_ops=len(dev),
+        top=[dict(name=n[:90], ms=us / 1e3, count=c)
+             for n, (us, c) in top])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--hits-rows", type=int, default=4_000_000)
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--data-dir", default=os.path.join(
+        tempfile.gettempdir(), "liquid_tpu_torch_smoke"))
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+
+    # 1. device
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    card = card_line()
+    log(f"[device] {kind} x{count}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}; nvidia-smi: {card}")
+
+    # 2. build K1 from the checkout's source
+    t0 = time.perf_counter()
+    lib = k1.build(verbose=True)
+    log(f"[build] {os.path.relpath(lib)} in {time.perf_counter() - t0:.2f} s")
+
+    # 3. K1 vs plain, every width and batch shape
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    err = check_k1(torch, dev)
+    log(f"[k1-check] bit-exact over widths 1..64 x B {{1,3,489,4097}} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 4. main path, counts reset just before and read just after
+    t0 = time.perf_counter()
+    paths = prepare_data(args.data_dir, args.hits_rows, args.sf)
+    expect = expected_answers(paths)
+    log(f"[data] {paths} ({time.perf_counter() - t0:.1f} s)")
+    for key in k1.LAUNCHES:
+        k1.LAUNCHES[key] = 0
+    from liquid_tpu_torch import LiquidCacheLocalBuilder
+    ctx, report = run_main_path(torch, paths, expect,
+                                LiquidCacheLocalBuilder())
+    launches = dict(k1.LAUNCHES)
+    if ctx.device.type != "cuda":
+        raise AssertionError(f"the session ran on {ctx.device}")
+    if launches["cmp_const_many"] <= 0 or any(
+            r["k1_launches_per_run"] <= 0 for r in report.values()):
+        raise AssertionError(f"the main path did not launch K1: {launches}")
+
+    # 5. K1 timed on the main path's own inputs
+    timing = time_k1(torch, ctx)
+    top = max(timing["rows"], key=lambda r: r["bytes"])
+
+    # 6. where a warm query's device time goes
+    for qname, sql in (("cb_filter", CB_FILTER), ("tpch_q6", TPCH_Q6)):
+        log(f"[profile] {qname}: " + json.dumps(device_breakdown(
+            torch, ctx, sql, report[qname]["warm_best_ms"])))
+    kernels = [{
+        "name": "cmp_const_many", "route": "cuda",
+        "source": "liquid_tpu_torch/ops/csrc/cmp_const_many.cu",
+        "replaces": "liquid_tpu/ops/bitpack_pallas.py:212",
+        "launches": launches["cmp_const_many"],
+        "max_abs_err": max(err, timing["max_abs_err"]), "tolerance": 0,
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": None,
+        "shape": [top["B"], top["w"], 256], "column": top["column"],
+        "matches_plain": True,
+    }]
+    log(f"[summary] {json.dumps(report)}")
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
