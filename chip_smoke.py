@@ -2,25 +2,42 @@
 """Smoke run of the PyTorch/CUDA port (`liquid_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py                  # full size, needs one CUDA card
-    python3 chip_smoke.py --hits-rows 400000 --sf 0.1    # a quicker run
+    python3 chip_smoke.py --hits-rows 400000 --sf 0.2    # a quicker run
 
 Phases (any failure raises and the script exits non-zero):
 1. device: name, count, `nvidia-smi` name and power limit;
-2. build the CUDA kernel K1 (`liquid_tpu_torch/ops/csrc/cmp_const_many.cu`)
-   with nvcc, timed;
+2. build both CUDA kernels from the checkout's sources with nvcc, one
+   process each, started together, timed: K1
+   (`liquid_tpu_torch/ops/csrc/cmp_const_many.cu`) and K2
+   (`liquid_tpu_torch/ops/csrc/group_accumulate.cu`);
 3. K1 against its plain PyTorch version on the card, bit-exact, over
    every width bucket 1..64, B in {1, 3, 489, 4097} and constants 0, 1,
    random, with bits at or above the width, and 2^64-1;
-4. the main path: 4,000,000 synthesized ClickBench `hits` rows and TPC-H
-   SF1 `lineitem` as parquet, a `LiquidCacheLocalBuilder` session on the
-   card, queries `cb_filter` and `tpch_q6`; answers checked against
-   pyarrow compute on the same parquet (count exact, revenue rtol 1e-9);
-   the fused scalar route and K1 launches checked through the port's
-   counters, which are set to 0 just before this phase and read after;
-5. K1 timed (CUDA events, L2 flushed before each launch) on the exact
+4. K2 against its plain version on the card, bit-exact, over m in {1,
+   63, 8889, 16385, 65535}, C in {1, 4, 7, 16}, n in {2048, 4,005,888},
+   uniform and zipf-skewed slots with negative and out-of-range slots
+   mixed in, values over the full i32 range;
+5. the scalar main path: 4,000,000 synthesized ClickBench `hits` rows and
+   TPC-H SF1 `lineitem` as parquet, a `LiquidCacheLocalBuilder` session
+   on the card, queries `cb_filter` and `tpch_q6`; answers checked
+   against pyarrow compute on the same parquet (count exact, revenue
+   rtol 1e-9); the fused scalar route and K1 launches checked through the
+   port's counters, which are set to 0 just before this phase and read
+   after;
+6. the grouped main path on the same session: `cb_groupby`, `cb_q15`,
+   `tpch_q15_revenue` and `tpch_supp_price`; answers checked against a
+   pyarrow group_by (counts and integer sums exact, averages, prices and
+   revenue rtol 1e-9); the
+   grouped route, K2 and its counter checked the same way, counts set to
+   0 just before this phase and read after; the inputs the path fed K2
+   are captured by wrapping the wrapper from here;
+7. K1 timed (CUDA events, L2 flushed before each launch) on the exact
    inputs the main path gave it, against the plain version and the
    kernel's byte bound;
-6. one warm run of each query under torch.profiler: device-busy time,
+8. K2 timed the same way on the inputs captured in phase 6, beside its
+   plain version, one `index_add_` call on the same inputs and its byte
+   bound;
+9. one warm run of each query under torch.profiler: device-busy time,
    the device's idle share and the device operations that took longest.
 
 The last lines are the card's name and power limit, a {"kernels": [...]}
@@ -43,6 +60,19 @@ HBM_BYTES_PER_S = 3.35e12
 WORD_OPS_PER_S = 67e12
 
 CB_FILTER = 'SELECT COUNT(*) FROM hits WHERE "AdvEngineID" <> 0'
+CB_GROUPBY = ('SELECT "RegionID", SUM("AdvEngineID"), COUNT(*) AS c, '
+              'AVG("ResolutionWidth") FROM hits GROUP BY "RegionID" '
+              'ORDER BY c DESC, "RegionID" LIMIT 10')
+CB_Q15 = ('SELECT "UserID", COUNT(*) FROM hits GROUP BY "UserID" '
+          'ORDER BY COUNT(*) DESC, "UserID" LIMIT 10')
+TPCH_Q15_REVENUE = """SELECT l_suppkey, sum(l_extendedprice * (1 - l_discount))
+ AS total_revenue FROM lineitem WHERE l_shipdate >= date '1996-01-01'
+ AND l_shipdate < date '1996-04-01' GROUP BY l_suppkey ORDER BY l_suppkey"""
+#: Q1's sum_base_price and count_order per supplier: the wide (hi/lo) K2
+#: form at SF1 (the revenue product's bound is too wide for the gates)
+TPCH_SUPP_PRICE = """SELECT l_suppkey, sum(l_extendedprice) AS sum_base_price,
+ count(*) AS count_order FROM lineitem WHERE l_shipdate <= date '1998-09-02'
+ GROUP BY l_suppkey ORDER BY l_suppkey"""
 TPCH_Q6 = """SELECT sum(l_extendedprice * l_discount) as revenue
  FROM lineitem WHERE l_shipdate >= date '1994-01-01'
  AND l_shipdate < date '1995-01-01'
@@ -146,6 +176,58 @@ def check_k1(torch, dev) -> int:
     return worst
 
 
+def k2_bytes(n: int, cols: int, m: int) -> int:
+    """Bytes K2 must move: slots and values read once, the table written."""
+    return 4 * n + 4 * n * cols + 8 * (m + 1) * cols
+
+
+def k2_bound_ms(n: int, cols: int, m: int):
+    """(least time in ms, what bounds it): bytes over HBM bandwidth vs one
+    64-bit add per value over the word rate."""
+    t_bytes = k2_bytes(n, cols, m) / HBM_BYTES_PER_S * 1e3
+    t_ops = n * cols / WORD_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_k2(torch, dev) -> int:
+    """Phase 4: K2 vs plain version, bit-exact -> max abs error (0)."""
+    import numpy as np
+    from liquid_tpu_torch.ops import grouphist as gh
+    from liquid_tpu_torch.ops import grouphist_cuda as k2
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rng = np.random.default_rng(4321)
+    worst = 0
+    for n in (2048, 4_005_888):
+        for m in (1, 63, 8889, 16385, 65535):
+            uniform = torch.randint(0, m + 1, (n,), dtype=torch.int32,
+                                    device=dev, generator=gen)
+            # zipf(1.3) as prepare_hits draws RegionID
+            skewed = torch.from_numpy(
+                (rng.zipf(1.3, n) % (m + 1)).astype(np.int32)).to(dev)
+            for slot in (uniform, skewed):
+                # 1 % negative slots (trash row), 1 % beyond m (clipped
+                # to mp - 1, dropped past m)
+                pick = torch.rand(n, device=dev, generator=gen)
+                odd = torch.randint(1, 40, (n,), dtype=torch.int32,
+                                    device=dev, generator=gen)
+                slot = torch.where(pick < 0.01, -odd, slot)
+                slot = torch.where(pick > 0.99, m + odd, slot).contiguous()
+                for cols in (1, 4, 7, 16):
+                    vals = torch.randint(-2 ** 31, 2 ** 31, (n, cols),
+                                         dtype=torch.int32, device=dev,
+                                         generator=gen)
+                    got = k2.group_accumulate(slot, vals, m)
+                    ref = gh.group_accumulate_ref(slot, vals, m)
+                    torch.cuda.synchronize()
+                    err = int((got - ref).abs().max())
+                    if err:
+                        raise AssertionError(
+                            f"K2 != plain at n {n}, m {m}, C {cols}: "
+                            f"max abs err {err}")
+                    worst = max(worst, err)
+    return worst
+
+
 def prepare_data(data_dir: str, hits_rows: int, sf: float) -> dict:
     import pyarrow.parquet as pq
     from liquid_tpu_torch.bench.hits import prepare_hits
@@ -184,8 +266,68 @@ def expected_answers(paths: dict) -> dict:
                                           f["l_discount"])).as_py()}
 
 
+def expected_grouped(paths: dict) -> dict:
+    """The grouped queries by pyarrow group_by on the same parquet, as
+    lists of columns in select order."""
+    import datetime
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    every = pc.CountOptions(mode="all")
+    hits = pq.read_table(paths["hits"], columns=[
+        "RegionID", "AdvEngineID", "ResolutionWidth", "UserID"])
+    g = hits.group_by("RegionID").aggregate([
+        ("AdvEngineID", "sum"), ("AdvEngineID", "count", every),
+        ("ResolutionWidth", "mean")]).sort_by([
+            ("AdvEngineID_count", "descending"),
+            ("RegionID", "ascending")]).slice(0, 10)
+    u = hits.group_by("UserID").aggregate([
+        ("UserID", "count", every)]).sort_by([
+            ("UserID_count", "descending"),
+            ("UserID", "ascending")]).slice(0, 10)
+    li = pq.read_table(paths["lineitem"], columns=[
+        "l_suppkey", "l_extendedprice", "l_discount", "l_shipdate"])
+    f = li.filter(pc.and_(
+        pc.greater_equal(li["l_shipdate"],
+                         pa.scalar(datetime.date(1996, 1, 1))),
+        pc.less(li["l_shipdate"], pa.scalar(datetime.date(1996, 4, 1)))))
+    rev = pc.multiply(f["l_extendedprice"],
+                      pc.subtract(1.0, f["l_discount"]))
+    r = pa.table({"l_suppkey": f["l_suppkey"], "rev": rev}).group_by(
+        "l_suppkey").aggregate([("rev", "sum")]).sort_by("l_suppkey")
+    f = li.filter(pc.less_equal(li["l_shipdate"],
+                                pa.scalar(datetime.date(1998, 9, 2))))
+    b = f.group_by("l_suppkey").aggregate([
+        ("l_extendedprice", "sum"),
+        ("l_suppkey", "count", every)]).sort_by("l_suppkey")
+    return {
+        "cb_groupby": [g["RegionID"], g["AdvEngineID_sum"],
+                       g["AdvEngineID_count"], g["ResolutionWidth_mean"]],
+        "cb_q15": [u["UserID"], u["UserID_count"]],
+        "tpch_q15_revenue": [r["l_suppkey"], r["rev_sum"]],
+        "tpch_supp_price": [b["l_suppkey"], b["l_extendedprice_sum"],
+                            b["l_suppkey_count"]]}
+
+
+def _same_table(out, want) -> bool:
+    """Port result vs pyarrow columns: integers exact, floats rtol 1e-9."""
+    import numpy as np
+    import pyarrow as pa
+    if out.num_columns != len(want) or out.num_rows != len(want[0]):
+        return False
+    for got, exp in zip(out.columns, want):
+        if pa.types.is_floating(got.type):
+            a = np.asarray(got.to_numpy(zero_copy_only=False), float)
+            b = np.asarray(exp.to_numpy(zero_copy_only=False), float)
+            if not np.allclose(a, b, rtol=1e-9, atol=0.0):
+                return False
+        elif got.to_pylist() != exp.to_pylist():
+            return False
+    return True
+
+
 def run_main_path(torch, paths: dict, expect: dict, builder):
-    """Phase 4: build a session from `builder` and run both queries
+    """Phase 5: build a session from `builder` and run both queries
     -> (session, per-query report)."""
     from liquid_tpu_torch.ops import bitpack_cuda as k1
     from liquid_tpu_torch.sql import fused_agg
@@ -241,13 +383,109 @@ def run_main_path(torch, paths: dict, expect: dict, builder):
     return ctx, report
 
 
+def run_grouped_path(torch, ctx, paths: dict, expect: dict):
+    """Phase 6: the grouped queries on the session -> (per-query report,
+    {query: (slot, vals, m)} as the path last fed K2)."""
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    from liquid_tpu_torch.ops import grouphist_cuda as k2
+    from liquid_tpu_torch.sql import fused_agg
+    # takes K2: True / False asserted; None reported only.  The revenue
+    # product's bound makes its K2 plan need seg = 8, and the TPU-era
+    # partials-bytes gate (nseg * (m + 8) * 512 <= 2 GiB, kept for route
+    # parity) then depends on the row count: SF1 (3.08 GB) keeps the
+    # scatter tier, smaller scales take K2.
+    queries = [("cb_groupby", "hits", ["RegionID", "AdvEngineID",
+                                       "ResolutionWidth"], CB_GROUPBY, True),
+               ("cb_q15", "hits", ["UserID"], CB_Q15, False),
+               ("tpch_q15_revenue", "lineitem",
+                ["l_suppkey", "l_extendedprice", "l_discount",
+                 "l_shipdate"], TPCH_Q15_REVENUE, None),
+               ("tpch_supp_price", "lineitem",
+                ["l_suppkey", "l_extendedprice", "l_shipdate"],
+                TPCH_SUPP_PRICE, True)]
+    captured = {}
+    wrapped = k2.group_accumulate
+
+    def capture(slot, vals, m):
+        captured["last"] = (slot, vals, m)
+        return wrapped(slot, vals, m)
+
+    k2.group_accumulate = capture
+    report, inputs = {}, {}
+    try:
+        for qname, table, cols, sql, takes_k2 in queries:
+            pt = ctx._tables[table]
+            t0 = time.perf_counter()
+            for rg in range(pt.num_row_groups):
+                for c in cols:
+                    pt.ensure_cached(rg, c)
+            t_transcode = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            captured.clear()
+
+            def run_once():
+                st = dict(fused_agg.STATS)
+                l1 = k1.LAUNCHES["cmp_const_many"]
+                l2 = k2.LAUNCHES["group_accumulate"]
+                out = ctx.sql(sql).to_arrow()
+                torch.cuda.synchronize()
+                if fused_agg.STATS["fused_grouped"] != st["fused_grouped"] + 1:
+                    raise AssertionError(f"{qname} left the grouped route")
+                pallas = fused_agg.STATS["fused_pallas"] - st["fused_pallas"]
+                launched = k2.LAUNCHES["group_accumulate"] - l2
+                if takes_k2 is not None and (
+                        (pallas == 1 and launched > 0) != takes_k2
+                        or pallas not in (0, 1)):
+                    raise AssertionError(f"{qname}: K2 route {pallas}, "
+                                         f"{launched} launches; expected "
+                                         f"{takes_k2}")
+                return out, dict(
+                    k1=k1.LAUNCHES["cmp_const_many"] - l1, k2=launched,
+                    pallas=pallas,
+                    retries=(fused_agg.STATS["fused_retries"]
+                             - st["fused_retries"]))
+
+            t0 = time.perf_counter()
+            out, first = run_once()
+            t_first = time.perf_counter() - t0
+            warm, per_run = [], None
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out, per_run = run_once()
+                warm.append(time.perf_counter() - t0)
+                if per_run["retries"]:
+                    raise AssertionError(f"{qname}: a warm run retried")
+            if not _same_table(out, expect[qname]):
+                raise AssertionError(f"{qname}: port {out.to_pylist()[:3]} "
+                                     f"!= pyarrow")
+            row = dict(
+                rows=pt.num_rows, groups_out=out.num_rows,
+                transcode_s=t_transcode, first_run_s=t_first,
+                first_run_retries=first["retries"],
+                warm_best_ms=min(warm) * 1e3, warm_ms=[w * 1e3 for w in warm],
+                k1_launches_per_run=per_run["k1"],
+                k2_launches_per_run=per_run["k2"],
+                k2_route=bool(per_run["pallas"]),
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+            if "last" in captured:
+                slot, vals, m = captured["last"]
+                inputs[qname] = captured["last"]
+                row.update(k2_n=int(slot.shape[0]), k2_C=int(vals.shape[1]),
+                           k2_m=int(m))
+            report[qname] = row
+            log(f"[grouped] {qname}: {json.dumps(row)}")
+    finally:
+        k2.group_accumulate = wrapped
+    return report, inputs
+
+
 def main_path_k1_inputs(ctx):
     """(planes, lo, hi, query table) for every interval the main path's
     cached plans fed to K1."""
     out = []
     for name, table in ctx._tables.items():
         for hit in table._fused_plan_cache.values():
-            if isinstance(hit, str) or hit[1]:
+            if isinstance(hit, str) or hit[2]:  # a bailout, an empty scan
                 continue
             p = hit[0]
             for grp in p.pred_groups:
@@ -259,7 +497,7 @@ def main_path_k1_inputs(ctx):
 
 
 def time_k1(torch, ctx) -> dict:
-    """Phase 5: K1 vs plain on the main path's own inputs."""
+    """Phase 7: K1 vs plain on the main path's own inputs."""
     from liquid_tpu_torch.ops import bitpack_cuda as k1
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     rows, worst = [], 0
@@ -289,14 +527,55 @@ def time_k1(torch, ctx) -> dict:
     return {"rows": rows, "max_abs_err": worst}
 
 
+def time_k2(torch, inputs: dict) -> dict:
+    """Phase 8: K2 vs its plain version and one index_add_ call, on the
+    inputs the grouped main path fed it."""
+    from liquid_tpu_torch.ops import grouphist as gh
+    from liquid_tpu_torch.ops import grouphist_cuda as k2
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    rows, worst = {}, 0
+    for qname, (slot, vals, m) in inputs.items():
+        worst = max(worst, int((k2.group_accumulate(slot, vals, m)
+                                - gh.group_accumulate_ref(slot, vals, m)
+                                ).abs().max()))
+        n, cols = vals.shape
+        bound, by = k2_bound_ms(n, cols, m)
+        # the library call: index_add_ on int64 copies of the same inputs
+        # (the main path's slots lie in [0, m] already)
+        s64, v64 = slot.to(torch.int64), vals.to(torch.int64)
+        table = torch.zeros((m + 1, cols), dtype=torch.int64, device="cuda")
+        row = dict(n=int(n), C=int(cols), m=int(m),
+                   bytes=k2_bytes(n, cols, m),
+                   ms=time_cold(torch, lambda: k2.group_accumulate(
+                       slot, vals, m), flush, 50),
+                   warm_ms=time_warm(torch, lambda: k2.group_accumulate(
+                       slot, vals, m), 100),
+                   plain_ms=time_cold(torch, lambda: gh.group_accumulate_ref(
+                       slot, vals, m), flush, 20),
+                   library_ms=time_cold(torch, lambda: table.index_add_(
+                       0, s64, v64), flush, 20),
+                   bound_ms=bound, bound_by=by)
+        rows[qname] = row
+        log(f"[k2] {qname}: {json.dumps(row)}")
+    if not rows:
+        raise AssertionError("the grouped path left no K2 inputs to time")
+    if worst:
+        raise AssertionError(f"K2 != plain on main-path inputs: {worst}")
+    return {"rows": rows, "max_abs_err": worst}
+
+
 def device_breakdown(torch, ctx, sql: str, warm_best_ms: float) -> dict:
-    """Phase 6: one warm run of `sql` under torch.profiler -> device-busy
+    """Phase 9: one warm run of `sql` under torch.profiler -> device-busy
     ms (union of kernel and copy intervals), the idle share of the
     unprofiled best warm time, the device operation count and the
     device operations that took longest.  The profiler slows the host,
-    so its own wall time is reported but not used for the idle share."""
+    so its own wall time is reported but not used for the idle share.
+    One unprofiled run first: a cache insert since the query's own warm
+    runs (a later phase transcoding its columns) makes its next run plan
+    and upload again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    ctx.sql(sql).to_arrow()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -323,6 +602,12 @@ def device_breakdown(torch, ctx, sql: str, warm_best_ms: float) -> dict:
              for n, (us, c) in top])
 
 
+def _reset(counters) -> None:
+    for c in counters:
+        for key in c:
+            c[key] = 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--hits-rows", type=int, default=4_000_000)
@@ -337,64 +622,109 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from liquid_tpu_torch.ops import bitpack_cuda as k1
+    from liquid_tpu_torch.ops import grouphist_cuda as k2
+    from liquid_tpu_torch.ops import nvcc
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
+    import numpy
+    import pyarrow
     log(f"[device] {kind} x{count}; torch {torch.__version__} "
-        f"cuda {torch.version.cuda}; nvidia-smi: {card}")
+        f"cuda {torch.version.cuda} numpy {numpy.__version__} pyarrow "
+        f"{pyarrow.__version__}; nvidia-smi: {card}")
 
-    # 2. build K1 from the checkout's source
+    # 2. build both kernels from the checkout's sources, in parallel
     t0 = time.perf_counter()
-    lib = k1.build(verbose=True)
-    log(f"[build] {os.path.relpath(lib)} in {time.perf_counter() - t0:.2f} s")
+    libs = nvcc.build_many([k1.SOURCE, k2.SOURCE], verbose=True)
+    log(f"[build] {sorted(os.path.relpath(v) for v in libs.values())} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # 3. K1 vs plain, every width and batch shape
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    err = check_k1(torch, dev)
+    err1 = check_k1(torch, dev)
     log(f"[k1-check] bit-exact over widths 1..64 x B {{1,3,489,4097}} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # 4. main path, counts reset just before and read just after
+    # 4. K2 vs plain, every slot count, width and skew
+    t0 = time.perf_counter()
+    err2 = check_k2(torch, dev)
+    log(f"[k2-check] bit-exact over m {{1,63,8889,16385,65535}} x C "
+        f"{{1,4,7,16}} x n {{2048,4005888}} x uniform/zipf slots "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 5. scalar main path, counts reset just before and read just after
     t0 = time.perf_counter()
     paths = prepare_data(args.data_dir, args.hits_rows, args.sf)
     expect = expected_answers(paths)
+    expect_grouped = expected_grouped(paths)
     log(f"[data] {paths} ({time.perf_counter() - t0:.1f} s)")
-    for key in k1.LAUNCHES:
-        k1.LAUNCHES[key] = 0
+    counters = (k1.LAUNCHES, k2.LAUNCHES)
+    _reset(counters)
     from liquid_tpu_torch import LiquidCacheLocalBuilder
     ctx, report = run_main_path(torch, paths, expect,
                                 LiquidCacheLocalBuilder())
-    launches = dict(k1.LAUNCHES)
+    scalar_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
     if ctx.device.type != "cuda":
         raise AssertionError(f"the session ran on {ctx.device}")
-    if launches["cmp_const_many"] <= 0 or any(
+    if scalar_launches["cmp_const_many"] <= 0 or any(
             r["k1_launches_per_run"] <= 0 for r in report.values()):
-        raise AssertionError(f"the main path did not launch K1: {launches}")
+        raise AssertionError(f"the scalar path did not launch K1: "
+                             f"{scalar_launches}")
 
-    # 5. K1 timed on the main path's own inputs
+    # 6. grouped main path, counts reset just before and read just after
+    _reset(counters)
+    greport, k2_inputs = run_grouped_path(torch, ctx, paths, expect_grouped)
+    grouped_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
+    if grouped_launches["group_accumulate"] <= 0:
+        raise AssertionError(f"the grouped path did not launch K2: "
+                             f"{grouped_launches}")
+    log(f"[launches] scalar path {json.dumps(scalar_launches)}; grouped "
+        f"path {json.dumps(grouped_launches)}")
+
+    # 7. K1 timed on the main path's own inputs
     timing = time_k1(torch, ctx)
     top = max(timing["rows"], key=lambda r: r["bytes"])
 
-    # 6. where a warm query's device time goes
-    for qname, sql in (("cb_filter", CB_FILTER), ("tpch_q6", TPCH_Q6)):
+    # 8. K2 timed on the grouped path's own inputs
+    k2_timing = time_k2(torch, k2_inputs)
+    k2_top = k2_timing["rows"]["cb_groupby"]
+
+    # 9. where a warm query's device time goes
+    warm = {q: r["warm_best_ms"] for q, r in {**report, **greport}.items()}
+    for qname, sql in (("cb_filter", CB_FILTER), ("tpch_q6", TPCH_Q6),
+                       ("cb_groupby", CB_GROUPBY), ("cb_q15", CB_Q15),
+                       ("tpch_q15_revenue", TPCH_Q15_REVENUE),
+                       ("tpch_supp_price", TPCH_SUPP_PRICE)):
         log(f"[profile] {qname}: " + json.dumps(device_breakdown(
-            torch, ctx, sql, report[qname]["warm_best_ms"])))
+            torch, ctx, sql, warm[qname])))
     kernels = [{
         "name": "cmp_const_many", "route": "cuda",
         "source": "liquid_tpu_torch/ops/csrc/cmp_const_many.cu",
         "replaces": "liquid_tpu/ops/bitpack_pallas.py:212",
-        "launches": launches["cmp_const_many"],
-        "max_abs_err": max(err, timing["max_abs_err"]), "tolerance": 0,
+        "launches": (scalar_launches["cmp_const_many"]
+                     + grouped_launches["cmp_const_many"]),
+        "max_abs_err": max(err1, timing["max_abs_err"]), "tolerance": 0,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None,
         "shape": [top["B"], top["w"], 256], "column": top["column"],
         "matches_plain": True,
+    }, {
+        "name": "group_accumulate", "route": "cuda",
+        "source": "liquid_tpu_torch/ops/csrc/group_accumulate.cu",
+        "replaces": "liquid_tpu/ops/grouphist_pallas.py:156",
+        "launches": grouped_launches["group_accumulate"],
+        "max_abs_err": max(err2, k2_timing["max_abs_err"]), "tolerance": 0,
+        "ms": k2_top["ms"], "plain_ms": k2_top["plain_ms"],
+        "bound_ms": k2_top["bound_ms"], "bound_by": k2_top["bound_by"],
+        "library_ms": k2_top["library_ms"],
+        "shape": {"n": k2_top["n"], "C": k2_top["C"], "m": k2_top["m"]},
+        "query": "cb_groupby", "matches_plain": True,
     }]
-    log(f"[summary] {json.dumps(report)}")
+    log(f"[summary] {json.dumps({**report, **greport})}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

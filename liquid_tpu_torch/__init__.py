@@ -14,10 +14,11 @@ copied here, not imported.
 
 Layer map (mirrors `liquid_tpu`):
   arrays/ - liquid encodings (bit-planes, linear, ALP floats)
-  ops/    - masks, bit-plane compares, the CUDA kernels and their twins
+  ops/    - masks, bit-plane compares, grouped reductions, the CUDA
+            kernels and their twins
   cache/  - cache runtime (memory tiers)
   io/     - parquet tables: row-group stats and zone-map pruning
-  sql/    - SQL frontend and the fused scalar device path
+  sql/    - SQL frontend and the fused scalar and grouped device paths
   bench/  - data generators for the smoke run and the tests
 """
 

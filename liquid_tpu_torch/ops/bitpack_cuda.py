@@ -20,81 +20,48 @@ kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from liquid_tpu_torch.device import FULL
+from liquid_tpu_torch.ops import nvcc
+from liquid_tpu_torch.ops.nvcc import BUILD_DIR, NVCC_FLAGS  # noqa: F401
 
 BLOCK_WORDS = 256  # words per 8192-row block
 
 #: kernel launches since the last reset (a plain integer per kernel)
 LAUNCHES = {"cmp_const_many": 0}
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "cmp_const_many.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = os.path.join(nvcc.CSRC, "cmp_const_many.cu")
 
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                       "build the cmp_const_many kernel")
+_fn = None
+_fn_lock = threading.Lock()
 
 
 def library_path() -> str:
     """Where the built kernel library lives (keyed by source + flags)."""
-    with open(SOURCE, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR,
-                        f"cmp_const_many_{h.hexdigest()[:16]}.so")
+    return nvcc.library_path(SOURCE)
 
 
 def build(verbose: bool = False) -> str:
     """Compile the kernel if this source has not been built yet; returns
     the library path.  Raises with nvcc's output if compilation fails."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, out)
-    return out
+    return nvcc.build(SOURCE, verbose)
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.cmp_const_many_launch
+def _load():
+    global _fn
+    with _fn_lock:
+        if _fn is None:
+            fn = nvcc.load(SOURCE).cmp_const_many_launch
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                                    ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+            _fn = fn
+    return _fn
 
 
 def _check(planes_stack: torch.Tensor, cs: torch.Tensor) -> None:
@@ -171,10 +138,10 @@ def cmp_const_many(planes_stack: torch.Tensor, cs: torch.Tensor
     eq = torch.empty_like(lt)
     if bsz == 0:
         return lt, eq
-    lib = _load()
+    launch = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.cmp_const_many_launch(
+        rc = launch(
             planes_stack.data_ptr(), cs.data_ptr(), lt.data_ptr(),
             eq.data_ptr(), bsz, width, stream)
     if rc != 0:

@@ -1,21 +1,24 @@
 """Query executor (port of `liquid_tpu/sql/exec.py`, aggregate routing).
 
 SQL -> parse -> qualify -> plan -> fused device aggregate -> pa.Table.
-A single-table aggregate without GROUP BY goes to the fused scalar path
-(`sql/fused_agg.py`); a COUNT(*) with no filter is answered from parquet
-metadata, as the reference does.  Every other statement shape -- GROUP
-BY, joins, plain SELECT, set operations, CTEs, windows, subqueries --
-belongs to slices of the port that are not done yet and raises
-NotImplementedError naming the shape.
+A single-table aggregate, with or without GROUP BY, goes to the fused
+path (`sql/fused_agg.py`); a COUNT(*) with no filter and no keys is
+answered from parquet metadata, as the reference does.  The projection,
+HAVING and ORDER BY / LIMIT then run over the small aggregate result with
+the host evaluator (`sql/eval.py`).  Every other statement shape --
+joins, grouping sets, plain SELECT, set operations, CTEs, windows,
+subqueries -- belongs to slices of the port that are not done yet and
+raises NotImplementedError naming the shape.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import pyarrow as pa
 import pyarrow.compute as pc
 
 from liquid_tpu_torch.sql import ast
+from liquid_tpu_torch.sql.eval import Batch, Evaluator
 from liquid_tpu_torch.sql.parser import parse_statement
 from liquid_tpu_torch.sql.physical import (
     collect_columns, find_aggs, make_slots, render, substitute,
@@ -46,32 +49,18 @@ def _contains(e, types) -> bool:
 _SUBQUERY = (ast.Subquery, ast.InSubquery, ast.Exists)
 
 
-_ARITH = {"+": pc.add, "-": pc.subtract, "*": pc.multiply}
-
-
-def _project(e: ast.Expr, final: pa.Table):
-    """Evaluate a select item over the one-row aggregate table (slot
-    columns and literals combined by arithmetic)."""
-    if isinstance(e, ast.Column):
-        return final.column(e.name).combine_chunks()
-    if isinstance(e, ast.Literal):
-        return pa.scalar(e.value)
-    if isinstance(e, ast.Unary) and e.op == "neg":
-        return pc.negate(_project(e.operand, final))
-    if isinstance(e, ast.Binary) and e.op in _ARITH:
-        return _ARITH[e.op](_project(e.left, final),
-                            _project(e.right, final))
-    if isinstance(e, ast.Binary) and e.op == "/":
-        l, r = _project(e.left, final), _project(e.right, final)
-        if pa.types.is_integer(l.type) and pa.types.is_integer(r.type):
-            raise _not_ported("integer division in a select item")
-        return pc.divide(pc.cast(l, pa.float64()), pc.cast(r, pa.float64()))
-    raise _not_ported(f"select item {render(e)!r} over aggregates")
+def _extend(result: pa.Table, internal: pa.Table) -> pa.Table:
+    cols = {n: result.column(n) for n in result.column_names}
+    for n in internal.column_names:
+        if n not in cols:
+            cols[n] = internal.column(n)
+    return pa.table(cols)
 
 
 class QueryExecutor:
-    def __init__(self, catalog: Dict[str, object]):
+    def __init__(self, catalog: Dict[str, object], device="cpu"):
         self.catalog = catalog       # name -> ParquetTable
+        self.device = device         # where the engine's tensors live
 
     def _base_columns(self, name: str):
         if name in self.catalog:
@@ -103,33 +92,59 @@ class QueryExecutor:
             find_aggs(q.having, aggs)
         for o in q.order_by:
             find_aggs(o.expr, aggs)
-        if q.group_by:
-            raise _not_ported("GROUP BY (the grouped fused path)")
-        if not aggs:
+        if not (aggs or q.group_by):
             raise _not_ported("SELECT without aggregates (the classic path)")
-        return self._exec_scalar_aggregate(q, aggs)
+        return self._exec_aggregate(q, aggs)
 
-    def _exec_scalar_aggregate(self, q: ast.Select,
-                               aggs: List[ast.Func]) -> pa.Table:
+    def _resolve_group_exprs(self, q: ast.Select
+                             ) -> List[Tuple[ast.Expr, str]]:
+        """(key expression, output name) per GROUP BY item: ordinals and
+        aliases resolve to their select items."""
+        alias_map = {it.alias: it.expr for it in q.items if it.alias}
+        out = []
+        for g in q.group_by:
+            if isinstance(g, ast.Literal) and isinstance(g.value, int):
+                it = q.items[g.value - 1]
+                out.append((it.expr, it.alias or render(it.expr)))
+                continue
+            if isinstance(g, ast.Column) and g.name in alias_map:
+                out.append((alias_map[g.name], g.name))
+                continue
+            name = None
+            for it in q.items:
+                if it.expr == g:
+                    name = it.alias or render(it.expr)
+                    break
+            out.append((g, name or render(g)))
+        return out
+
+    def _exec_aggregate(self, q: ast.Select,
+                        aggs: List[ast.Func]) -> pa.Table:
         rel = q.from_
         if not (isinstance(rel, ast.TableRef) and not rel.prefix
                 and rel.name in self.catalog):
             raise _not_ported("an aggregate over a join or derived table")
-        if any(_contains(it.expr, _SUBQUERY) for it in q.items) or (
-                q.where is not None and _contains(q.where, _SUBQUERY)):
+        if any(isinstance(g, ast.GroupingSpec) for g in q.group_by):
+            raise _not_ported("GROUPING SETS / ROLLUP / CUBE")
+        exprs = [it.expr for it in q.items] + list(q.group_by) + [
+            e for e in (q.where, q.having) if e is not None]
+        if any(_contains(e, _SUBQUERY) for e in exprs):
             raise _not_ported("subqueries")
-        if q.having is not None:
-            raise _not_ported("HAVING")
         slots = make_slots(aggs)
+        group = self._resolve_group_exprs(q)
+        key_names = [nm for _, nm in group]
+        rew_keys = [ge for ge, _ in group]
         rew_inputs = {s.name: s.input for s in slots if s.input is not None}
         table = self.catalog[rel.name]
         plan = plan_scan_filters(q.where)
         needed: set = set()
+        for ge in rew_keys:
+            collect_columns(ge, needed)
         for s in slots:
             if s.input is not None:
                 collect_columns(s.input, needed)
-        pure_count = (not needed and all(s.kind == "count_star"
-                                         for s in slots)
+        pure_count = (not needed and not group
+                      and all(s.kind == "count_star" for s in slots)
                       and not plan.pushdown and not plan.residual)
         if pure_count:
             # COUNT(*) without a filter: parquet metadata only
@@ -138,17 +153,82 @@ class QueryExecutor:
         else:
             from liquid_tpu_torch.sql.fused_agg import try_fused_aggregate
             with TRACER.span("sql.fused_aggregate"):
-                final = try_fused_aggregate(table, plan, column_hints(q),
-                                            slots, rew_inputs)
-        mapping = {s.func: s.name for s in slots}
-        out = {}
+                final = try_fused_aggregate(
+                    table, plan, column_hints(q), group, key_names, slots,
+                    rew_keys, rew_inputs, q)
+
+        # post-projection over keys and slots
+        mapping: Dict[ast.Expr, str] = {ge: nm for ge, nm in group}
+        for s in slots:
+            mapping[s.func] = s.name
+        batch = Batch.from_table(final)
+        ev = Evaluator(batch)
+        out_cols: Dict[str, pa.Array] = {}
         for it in q.items:
-            name = it.alias or render(it.expr)
-            v = _project(substitute(it.expr, mapping), final)
-            out[name] = (pa.array([v.as_py()], v.type)
-                         if isinstance(v, pa.Scalar) else v)
-        result = pa.table(out)
-        # ORDER BY over a single row changes nothing; OFFSET/LIMIT apply
+            arr = ev.eval(substitute(it.expr, mapping))
+            if isinstance(arr, pa.Scalar):
+                arr = pa.repeat(arr, batch.length)
+            out_cols[it.alias or render(it.expr)] = arr
+        result = pa.table(out_cols)
+
+        if q.having is not None:
+            hb = Batch.from_table(_extend(result, final))
+            m = Evaluator(hb).arr(substitute(q.having, mapping))
+            keep = pc.fill_null(m.cast(pa.bool_()), False)
+            result = result.filter(keep)
+            final = final.filter(keep)
+        return self._order_limit(q, result, final, mapping)
+
+    def _order_limit(self, q: ast.Select, result: pa.Table,
+                     internal: Optional[pa.Table], mapping) -> pa.Table:
+        if q.order_by and result.num_rows:
+            ns = _extend(result, internal) if internal is not None else result
+            batch = Batch.from_table(ns)
+            alias_map = {ast.Column(it.alias): it.alias for it in q.items
+                         if it.alias and it.alias in ns.column_names}
+            # an ORDER BY expr that IS a select item evaluates against the
+            # projected table, under the item's output name
+            item_map = {it.expr: (it.alias or render(it.expr))
+                        for it in q.items
+                        if not isinstance(it.expr, ast.Star)
+                        and (it.alias or render(it.expr)) in ns.column_names}
+            alias_map = {**item_map, **alias_map}
+            sort_arrays = []
+            for o in q.order_by:
+                e = o.expr
+                if isinstance(e, ast.Literal) and isinstance(e.value, int):
+                    arr = result.column(
+                        result.column_names[e.value - 1]).combine_chunks()
+                else:
+                    sub = substitute(e, {**(mapping or {}), **alias_map})
+                    arr = Evaluator(batch).arr(sub)
+                sort_arrays.append(arr)
+            # per-key NULL placement: NULLS LAST for ASC, FIRST for DESC
+            # unless stated
+            placements = [o.desc if o.nulls_first is None else o.nulls_first
+                          for o in q.order_by]
+            from liquid_tpu_torch.sql.device_sort import try_sort_indices
+            lim = (q.limit + (q.offset or 0)) if q.limit is not None else None
+            idx = try_sort_indices(
+                sort_arrays,
+                [(o.desc, nf) for o, nf in zip(q.order_by, placements)],
+                limit=lim, device=self.device)
+            if idx is not None:
+                result = result.take(pa.array(idx, pa.int64()))
+            else:  # the host sorts (an accelerator, or a key type)
+                # per-key NULL placement rides as a leading flag key:
+                # older pyarrow takes no per-key placement in sort_keys
+                cols, keys = {}, []
+                for i, (a, o, nf) in enumerate(zip(sort_arrays, q.order_by,
+                                                   placements)):
+                    isnull = pc.is_null(a)
+                    cols[f"__n{i}"] = pc.invert(isnull) if nf else isnull
+                    cols[f"__s{i}"] = a
+                    keys += [(f"__n{i}", "ascending"),
+                             (f"__s{i}", "descending" if o.desc
+                              else "ascending")]
+                result = result.take(pc.sort_indices(pa.table(cols),
+                                                     sort_keys=keys))
         if q.offset:
             result = result.slice(q.offset)
         if q.limit is not None:

@@ -1,14 +1,16 @@
-"""Fused device scan -> filter -> aggregate: the scalar half (port of
-`liquid_tpu/sql/fused_agg.py`).
+"""Fused device scan -> filter -> aggregate (port of
+`liquid_tpu/sql/fused_agg.py`, scalar and grouped halves).
 
-A single-table aggregate without GROUP BY runs as one device program
-straight from the cache's resident encodings:
+A single-table aggregate runs as one device program straight from the
+cache's resident encodings:
 
     bit-planes / ALP integer lanes / linear residuals (stacked per column)
         -> packed interval predicates on the planes (CUDA kernel K1)
         -> on-device value decode (unpack + reference add, ALP scale)
         -> null-aware expression evaluation in i64 / f64 lanes
-        -> reductions (sum / min / max / counts)
+        -> reductions: scalar, or grouped by direct addressing (exact
+           integer sums through CUDA kernel K2) or by the hash ladder
+        -> an optional in-program top-k for ORDER BY <agg> LIMIT k
 
 and ONE device -> host fetch returns the packed results.  The reference
 jit-compiles this program per query shape; the port runs it eagerly and
@@ -19,12 +21,15 @@ Supported shape (anything else raises NotImplementedError naming the
 reason -- the port has no classic path to fall back to yet):
 - single parquet source; WHERE a conjunction of column-vs-literal
   comparisons (OR groups allowed) plus numeric residual conditions,
+- GROUP BY numeric, date or bool columns and numeric expressions of
+  them,
 - aggregates count(*)/count/sum/avg/min/max/stddev/var over + - * /
   arithmetic of numeric columns and literals,
 - every touched block resident as MEMORY_LIQUID primitive / linear /
   float.
-The grouped half (hash and direct-address reduction, K2) is the next
-slice of the port.
+Not ported yet: string (dictionary or vocabulary) keys and columns,
+functional-dependency key reduction, star and existence probes, the
+sort-pair and chained count(DISTINCT) forms.
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ from liquid_tpu_torch.device import u64_to_i64, words_to_tensor, wrap_i64
 from liquid_tpu_torch.ops import bitpack as bp
 from liquid_tpu_torch.ops import bitpack_cuda
 from liquid_tpu_torch.ops import floatbits
+from liquid_tpu_torch.ops import grouphist as gh
+from liquid_tpu_torch.ops import hashagg as hops
 from liquid_tpu_torch.ops import mask as mops
 from liquid_tpu_torch.ops.groupby import scalar_reduce
 from liquid_tpu_torch.sql import ast
@@ -49,9 +56,17 @@ from liquid_tpu_torch.sql import ast
 _U64MAX = (1 << 64) - 1
 _W = BLOCK_ROWS // 32
 
-#: module counters (the reference's keys: tests and runs read the route)
+#: host-driven retry ladder for the grouped hash table: (slots, salt);
+#: every stage is exact, a dirty stage retries on the next
+_STAGES = ((1 << 13, 0x9E3779B97F4A7C15),
+           (1 << 17, 0xC2B2AE3D27D4EB4F),
+           (1 << 20, 0x165667B19E3779F9),
+           (1 << 22, 0x27D4EB2F165667C5))
+
+#: module counters (the reference's keys: tests and runs read the route);
+#: fused_pallas counts grouped runs routed through K2
 STATS = {"fused_queries": 0, "fused_grouped": 0, "fused_scalar": 0,
-         "fused_bailouts": 0, "fused_retries": 0}
+         "fused_bailouts": 0, "fused_retries": 0, "fused_pallas": 0}
 
 _AGG_KINDS = frozenset({"count_star", "count", "sum", "avg", "min", "max",
                         "stddev", "var"})
@@ -656,9 +671,13 @@ class _Decoders:
         return v
 
 
-def _fused_core(p: "_Plan") -> torch.Tensor:
-    """Run the scalar program -> int64[2 * n_slots]: per slot the reduced
-    value (f64 as its bit image) followed by the per-slot counts."""
+def _fused_core(p: "_Plan", grouped=None, tkspec=()):
+    """Run the program.  Scalar (`grouped` None) -> int64[2 * n_slots]:
+    per slot the reduced value (f64 as its bit image), then the per-slot
+    counts.  Grouped -> the reduction's (mat, clean, n_groups, cols), with
+    the top-k superset in place of cols when `tkspec` is set.
+    `grouped` is ("direct", spans, los, pallas_seg, having) or
+    ("hash", n_slots, salt, rounds)."""
     arrays = p.arrays
     sel = _selection_packed(p.colmap, p.pred_groups, arrays,
                             arrays[p.rv_ix])
@@ -684,17 +703,52 @@ def _fused_core(p: "_Plan") -> torch.Tensor:
         vals.append(v.expand(selb.shape))
         vnulls.append(vn.expand(selb.shape))
         kinds.append(kind)
-    outs, counts = scalar_reduce(selb, vals, vnulls, kinds)
-    packed = [floatbits.f64_bits(o.reshape(1)) if o.dtype == torch.float64
-              else o.to(torch.int64).reshape(1) for o in outs]
-    packed += [c.reshape(1) for c in counts]
-    return torch.cat(packed)
+    if grouped is None:
+        outs, counts = scalar_reduce(selb, vals, vnulls, kinds)
+        packed = [floatbits.f64_bits(o.reshape(1)) if o.dtype == torch.float64
+                  else o.to(torch.int64).reshape(1) for o in outs]
+        packed += [c.reshape(1) for c in counts]
+        return torch.cat(packed)
+
+    # grouped: key code images (f64 keys by their canonical bit image,
+    # -0.0 folded into +0.0); a NULL key codes as 0 beside its flag
+    codes, knulls = [], []
+    for name in p.keys:
+        if isinstance(name, tuple):  # ("expr", ir, dt)
+            _, ir, dt = name
+            v, nl = eval_ir_nulls(ir, env)
+            v, nl = v.expand(selb.shape), nl.expand(selb.shape)
+            code = (floatbits.f64_bits(v + 0.0) if dt == "f64"
+                    else v.to(torch.int64))
+        else:
+            if p.colmap[name]["kind"] == "float":
+                code = floatbits.f64_bits(env.decode(name, "f64") + 0.0)
+            else:
+                code = env.decode(name, "i64")
+            nl = env.nulls(name)
+        codes.append(torch.where(nl, torch.zeros_like(code), code))
+        knulls.append(nl)
+    if grouped[0] == "direct":
+        _, spans, los, pseg, having = grouped
+        res = hops.direct_reduce_packed(codes, knulls, selb, vals, vnulls,
+                                        kinds, los, spans, pseg, having)
+    else:
+        _, n_slots, salt, rounds = grouped
+        res = hops.hash_rounds_reduce_packed(codes, knulls, selb, vals,
+                                             vnulls, kinds, n_slots, salt,
+                                             rounds)
+    if tkspec:
+        # top-k inside the program: only the k2 gathered rows are fetched
+        mat, clean, ng, cols = res
+        return (mat, clean, ng,
+                _topk_gather_core(cols, tkspec, len(p.keys), len(p.rslots)))
+    return res
 
 
 # -- planning ----------------------------------------------------------------------
 
 class _Plan:
-    """Everything needed to run and decode one fused scalar aggregate."""
+    """Everything needed to run and decode one fused aggregate."""
 
     def __init__(self):
         self.arrays: List[torch.Tensor] = []
@@ -705,6 +759,12 @@ class _Plan:
         self.rv_ix = -1
         self.slot_map: List[tuple] = []   # per AggSlot: (kind, rslot indices)
         self.slot_types: Dict[str, pa.DataType] = {}
+        self.keys: List[object] = []      # column names or ("expr", ir, dt)
+        self.key_out: List[str] = []      # output column names
+        self.key_codecs: List[object] = []    # KeyCodec per key
+        self.key_payloads: Dict[str, list] = {}  # planes keys: span bound
+        self.rslot_maxabs: List[Optional[int]] = []  # |value| bounds
+        self.having = None                # (rslot, op, literal) on device
 
 
 def _add(plan: _Plan, arr: torch.Tensor) -> int:
@@ -853,9 +913,19 @@ def payload_bounds(prep: _ColPrep):
     return None
 
 
-def _plan_query(table, plan_scan, hints, slots, rew_inputs
-                ) -> Tuple[_Plan, bool]:
-    """Plan a scalar aggregate -> (plan, empty).  Raises _Bail."""
+def _expr_key_type(ge: ast.Expr, dt: str) -> pa.DataType:
+    """Arrow type of an expression group key (the classic evaluator's
+    typing)."""
+    if isinstance(ge, ast.Cast) and ge.type_name == "date":
+        return pa.date32()
+    return pa.float64() if dt == "f64" else pa.int64()
+
+
+def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
+                rew_inputs) -> Tuple[_Plan, str, bool]:
+    """Plan an aggregate -> (plan, "scalar" | "grouped", empty).  Raises
+    _Bail."""
+    from liquid_tpu_torch.sql.device_agg import KeyCodec
     p = _Plan()
     for s in slots:
         if s.kind not in _AGG_KINDS:
@@ -884,8 +954,9 @@ def _plan_query(table, plan_scan, hints, slots, rew_inputs
         if c not in col_kinds:
             if c not in table.column_names:
                 raise _Bail(f"unknown column {c}")
-            k = (_schema_kind(table.field(c).type) if empty
-                 else prep_of(c).kind)
+            k = _schema_kind(table.field(c).type)  # no IO for strings
+            if not empty:
+                k = prep_of(c).kind
             col_kinds[c] = "planes" if k == "linear" else k
         return col_kinds[c]
 
@@ -946,9 +1017,29 @@ def _plan_query(table, plan_scan, hints, slots, rew_inputs
                 needed |= cols
                 skip_groups.add(gi)
 
+    # group keys: plain columns key by their decoded value, other
+    # expressions compile to IR evaluated in the program
+    mode = "grouped" if key_names else "scalar"
+    for ge in rew_keys:
+        if isinstance(ge, ast.Column):
+            c = ge.name
+            kind_of(c)
+            p.keys.append(c)
+            p.key_codecs.append(KeyCodec(table.field(c).type))
+            if not empty and prep_of(c).kind == "planes":
+                p.key_payloads[c] = prep_of(c).payloads
+            needed.add(c)
+        else:
+            ir, cols = _compile_expr(ge, kinds_view)
+            dt = _ir_dtype(ir)
+            p.keys.append(("expr", ir, dt))
+            p.key_codecs.append(KeyCodec(_expr_key_type(ge, dt)))
+            needed |= cols
+    p.key_out = list(key_names)
+
     if empty:
         _plan_slots(p, slots, slot_irs, rew_inputs, table)
-        return p, True
+        return p, mode, True
 
     for c in sorted(needed):
         pr = prep_of(c)
@@ -1013,7 +1104,7 @@ def _plan_query(table, plan_scan, hints, slots, rew_inputs
 
     _plan_slots(p, slots, slot_irs, rew_inputs, table, bounds_of, scaledres,
                 n_upper)
-    return p, False
+    return p, mode, False
 
 
 def _scaled_col_info(p: _Plan, name: str, pr: _ColPrep):
@@ -1056,33 +1147,47 @@ def _scaled_col_info(p: _Plan, name: str, pr: _ColPrep):
 
 def _plan_slots(p, slots, slot_irs, rew_inputs, table,
                 bounds_of=None, scaledres=None, n_upper=0) -> None:
+    """Reduction slots per aggregate, with each sum's |value| bound in
+    `rslot_maxabs` (None = unbounded): the K2 gate and the f64-exact
+    HAVING and top-k checks read it."""
+    def maxabs_of(ir, dt):
+        if dt != "i64" or bounds_of is None or ir[0] != "col":
+            return None
+        b = bounds_of(ir[1])
+        return None if b is None else max(abs(b[0]), abs(b[1]), 1)
+
     for s in slots:
         base = len(p.rslots)
         if s.kind == "count_star":
             p.rslots.append(("sum", "i64", ("ones",), ()))
+            p.rslot_maxabs.append(1)
         elif s.kind == "count":
             ir, cols = slot_irs[s.name]
             if ir[0] == "col":
                 p.rslots.append(("sum", "i64", ("ones",), tuple(sorted(cols))))
             else:  # count(expr): rows where the expr is non-NULL
                 p.rslots.append(("sum", "i64", ("nncount", ir), ()))
+            p.rslot_maxabs.append(1)
         elif s.kind in ("sum", "avg", "min", "max"):
             ir, cols = slot_irs[s.name]
             dt = _ir_dtype(ir)
             red = s.kind if s.kind in ("min", "max") else "sum"
+            sums = s.kind in ("sum", "avg")
             scaled = None
             if dt == "f64" and scaledres is not None:
                 # exact i64 at a decimal scale; min/max too, so the host
                 # division reproduces the exact decoded value
                 scaled = _scaled_int_ir(ir, scaledres, bounds_of)
-                if scaled is not None and s.kind in ("sum", "avg") \
+                if scaled is not None and sums \
                         and scaled[2] * max(n_upper, 1) >= (1 << 62):
                     scaled = None
             if scaled is not None:
-                ir2, sc, _ma = scaled
+                ir2, sc, ma = scaled
                 p.rslots.append((red, f"i64s{sc}", ir2, tuple(sorted(cols))))
+                p.rslot_maxabs.append(ma if sums else None)
             else:
                 p.rslots.append((red, dt, ir, tuple(sorted(cols))))
+                p.rslot_maxabs.append(maxabs_of(ir, dt) if sums else None)
             p.slot_types.setdefault(s.name, _slot_out_type(
                 s, ir, rew_inputs.get(s.name), table))
         elif s.kind in ("stddev", "var"):
@@ -1091,6 +1196,7 @@ def _plan_slots(p, slots, slot_irs, rew_inputs, table,
             p.rslots.append(("sum", "f64", ir, tuple(sorted(cols))))
             p.rslots.append(("sum", "f64", ("bin", "*", "f64", ir, ir),
                              tuple(sorted(cols))))
+            p.rslot_maxabs += [None, None]
             p.slot_map.append((s.kind, (base, base + 1)))
             continue
         else:  # guarded in _plan_query
@@ -1186,49 +1292,430 @@ def _finalize_scalar(p: _Plan, slots, outs: np.ndarray,
     return pa.table(cols)
 
 
-def execute_plan(p: _Plan, empty: bool, slots) -> pa.Table:
-    """Run a planned scalar aggregate: the empty-scan shortcut, else the
-    device program and one fetch."""
-    STATS["fused_scalar"] += 1
+def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
+                 topk=None) -> Optional[pa.Table]:
+    """Run a planned aggregate: the empty-scan shortcut, else the scalar
+    program, the direct-address program or the hash ladder, and one
+    fetch.  Returns the partial result (key columns + slot columns), or
+    None when the ladder did not converge."""
     nv = len(p.rslots)
     if empty:
         # every block pruned by stats/zones: typed result, zero data IO
-        return _finalize_scalar(p, slots, np.zeros(nv, np.int64),
-                                np.zeros(nv, np.int64))
-    packed = _fused_core(p).cpu().numpy()
-    return _finalize_scalar(p, slots, packed[:nv], packed[nv:])
+        if mode == "scalar":
+            STATS["fused_scalar"] += 1
+            return _finalize_scalar(p, slots, np.zeros(nv, np.int64),
+                                    np.zeros(nv, np.int64))
+        STATS["fused_grouped"] += 1
+        nk = len(p.keys)
+        return _build_result(p, slots, 0, [np.zeros(0, np.int64)] * nk,
+                             [np.zeros(0, bool)] * nk,
+                             [np.zeros(0, np.int64)] * nv,
+                             [np.zeros(0, np.int64)] * nv)
+    if mode == "scalar":
+        STATS["fused_scalar"] += 1
+        packed = _fused_core(p).cpu().numpy()
+        return _finalize_scalar(p, slots, packed[:nv], packed[nv:])
+
+    STATS["fused_grouped"] += 1
+    n_rows = int(p.arrays[p.rv_ix].shape[0]) * BLOCK_ROWS
+    domains = _key_domains(p)
+    if domains is not None:
+        m = 1
+        for _, span in domains:
+            m *= span + 2
+        ncols = 1 + 2 * nv + 2 * len(p.keys)
+        cap = min(1 << 27, (3 << 30) // (8 * ncols))
+        if 0 < m <= cap:
+            grouped = ("direct", tuple(span for _, span in domains),
+                       torch.tensor([lo for lo, _ in domains],
+                                    dtype=torch.int64,
+                                    device=p.arrays[p.rv_ix].device),
+                       _k2_plan(p, m, n_rows), p.having or ())
+            tkspec = _mk_topk_spec(topk, m)
+            out = _fused_core(p, grouped, tkspec)
+            if tkspec:
+                r = _finish_topk(p, slots, topk, out[3].cpu().numpy())
+                if r is not None:
+                    return r
+                out = _fused_core(p, grouped)  # boundary tie: full fetch
+            return _fetch_result(p, slots, out)
+
+    hint_key = ("stage", tuple(p.keys))
+    if not hasattr(table, "_fused_stage_hint"):
+        table._fused_stage_hint = {}
+    stage_hint = table._fused_stage_hint
+    # a static cardinality bound (int domain spans), capped by the row
+    # count, picks a stage the ladder converges in without a retry; a
+    # stage proven clean for this key set beats it
+    bound = _cardinality_bound(p)
+    bound = n_rows if bound is None else min(bound, n_rows)
+    start = stage_hint.get(hint_key)
+    if start is None:
+        start = next((si for si, (ns, _) in enumerate(_STAGES)
+                      if ns >= 2 * bound), len(_STAGES) - 1)
+    for si in range(start, len(_STAGES)):
+        n_slots, salt = _STAGES[si]
+        # a birthday-safe table needs one scatter round
+        rounds = 1 if bound * bound <= n_slots else 3
+        grouped = ("hash", n_slots, salt, rounds)
+        tkspec = _mk_topk_spec(topk, rounds * n_slots)
+        out = _fused_core(p, grouped, tkspec)
+        # with top-k only the clean flag is fetched first
+        mat = None if tkspec else out[0].cpu().numpy()
+        if not (bool(out[1]) if tkspec else mat[0, 0]):
+            STATS["fused_retries"] += 1
+            continue
+        stage_hint[hint_key] = si
+        if tkspec:
+            r = _finish_topk(p, slots, topk, out[3].cpu().numpy())
+            if r is not None:
+                return r
+            out = _fused_core(p, grouped)
+        return _fetch_result(p, slots, out, mat)
+    return None
+
+
+def _k2_plan(p: _Plan, m: int, n_rows: int):
+    """The reference's gates for K2 (`group_accumulate`): every slot an
+    exact integer sum with a proven bound, the table within MAX_SLOTS,
+    above the streaming crossover, each column's i32 plan feasible.
+    -> (seg, ntab, wide) or ().  The crossover (6144) and the segment
+    limits are TPU measurements, kept so the same queries take K2; the
+    TPU-only backend check is the one gate dropped."""
+    if not p.rslot_maxabs or any(b is None for b in p.rslot_maxabs) \
+            or not all(r[0] == "sum" and (r[1] == "i64"
+                                          or r[1].startswith("i64s"))
+                       for r in p.rslots):
+        return ()
+    ntab = gh.plan_tables(m)
+    if not (ntab and m + 1 <= gh.MAX_SLOTS
+            and m * (1 + 2 * len(p.rslots)) > hops.STREAM_ELEMS):
+        return ()
+    plans = [gh.plan_hilo(n_rows, b) for b in p.rslot_maxabs]
+    if any(pl is None for pl in plans) or n_rows % gh.TILE:
+        return ()
+    seg = min(pl[0] for pl in plans)
+    wide = tuple(pl[1] > 0 for pl in plans)
+    ncols = 1 + len(p.rslots) + sum(2 if w else 1 for w in wide)
+    nseg = -(-(n_rows // gh.TILE) // seg)
+    if ncols > gh.MAX_COLS or nseg > gh.MAX_SEGS \
+            or nseg * (m + 8) * 512 > (2 << 30):
+        return ()
+    STATS["fused_pallas"] += 1
+    return (seg, ntab, wide)
+
+
+def _fetch_result(p: _Plan, slots, out, mat=None) -> pa.Table:
+    """The packed matrix (fetched here unless given), or the slot-ordered
+    columns re-packed when the groups overflow it."""
+    if mat is None:
+        mat = out[0].cpu().numpy()
+    g = int(mat[0, 1])
+    if g <= mat.shape[1]:
+        return _parse_packed(p, slots, mat, g)
+    return _fetch_full(p, slots, g, out[3])
+
+
+def _key_domains(p: _Plan):
+    """Per-key (lo, span) when every key's value domain is densely
+    bounded (integer references and widths); None otherwise.  Enables
+    direct addressing: bijective slots, no collision passes."""
+    out = []
+    for name in p.keys:
+        payloads = p.key_payloads.get(name) if isinstance(name, str) \
+            else None
+        if not payloads or any(pp.width > 44 for pp in payloads):
+            return None  # spans beyond ~17T are never direct-addressable
+        lo = min(pp.reference_value for pp in payloads)
+        hi = max(pp.reference_value + (1 << pp.width) - 1
+                 for pp in payloads)
+        out.append((lo, hi - lo))
+    return out
+
+
+def _cardinality_bound(p: _Plan) -> Optional[int]:
+    """Upper bound on distinct key tuples from integer domain spans; None
+    when a key is unbounded (floats, linear columns, expressions)."""
+    total = 1
+    for name in p.keys:
+        payloads = p.key_payloads.get(name) if isinstance(name, str) \
+            else None
+        if not payloads:
+            return None
+        lo = min(pp.reference_value for pp in payloads)
+        hi = max(pp.reference_value + (1 << min(pp.width, 62)) - 1
+                 for pp in payloads)
+        total = min(total * max(min(hi - lo + 1, 1 << 62), 1), 1 << 62)
+    return total
+
+
+def _parse_packed(p: _Plan, slots, mat: np.ndarray, g: int) -> pa.Table:
+    nk, nv = len(p.keys), len(p.rslots)
+    r = 1
+    ukeys = [mat[r + i][:g] for i in range(nk)]
+    r += nk
+    uknulls = [mat[r + i][:g].astype(bool) for i in range(nk)]
+    r += nk
+    outs = [mat[r + j][:g] for j in range(nv)]
+    r += nv
+    vcounts = [mat[r + j][:g] for j in range(nv)]
+    return _build_result(p, slots, g, ukeys, uknulls, outs, vcounts)
+
+
+def _fetch_full(p: _Plan, slots, g: int, cols) -> pa.Table:
+    """More groups than the packed matrix holds: re-pack the slot-ordered
+    outputs at the next power-of-two width and fetch them bit-packed."""
+    from liquid_tpu_torch.ops import packfetch
+    nk, nv = len(p.keys), len(p.rslots)
+    w2 = 1
+    while w2 < g:
+        w2 <<= 1
+    ukeys, uknulls, outs, vcounts = hops.repack_groups(cols, nk, nv, w2)
+    return _parse_full(p, slots, g, packfetch.fetch_columns(
+        list(ukeys) + list(uknulls) + list(outs) + list(vcounts), g))
+
+
+def _parse_full(p: _Plan, slots, g: int, cols) -> pa.Table:
+    nk, nv = len(p.keys), len(p.rslots)
+    return _build_result(
+        p, slots, g, [c[:g] for c in cols[:nk]],
+        [c[:g] for c in cols[nk:2 * nk]],
+        [c[:g] for c in cols[2 * nk:2 * nk + nv]],
+        [c[:g] for c in cols[2 * nk + nv:]])
+
+
+def _build_result(p: _Plan, slots, g, ukeys, uknulls, outs,
+                  vcounts) -> pa.Table:
+    """Key columns decoded by their codecs, then the slot columns."""
+    cols: Dict[str, pa.Array] = {}
+    for name, codec, codes, nulls in zip(p.key_out, p.key_codecs, ukeys,
+                                         uknulls):
+        cols[name] = codec.decode(np.ascontiguousarray(codes, np.int64),
+                                  np.ascontiguousarray(nulls, bool))
+    for s, (kind, idxs) in zip(slots, p.slot_map):
+        j = idxs[0]
+        acc = np.ascontiguousarray(outs[j])
+        cnt = np.ascontiguousarray(vcounts[j], np.int64)
+        if kind in ("stddev", "var"):
+            ss = acc.view(np.float64) if acc.dtype == np.int64 else acc
+            q = np.ascontiguousarray(outs[idxs[1]])
+            qq = q.view(np.float64) if q.dtype == np.int64 else q
+            cc = cnt.astype(np.float64)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                var = np.maximum((qq - ss * ss / cc) / (cc - 1.0), 0.0)
+            mask = cnt <= 1
+            cols[s.name] = pa.array(
+                np.sqrt(var) if kind == "stddev" else var, pa.float64(),
+                mask=mask if mask.any() else None)
+            continue
+        cols[s.name] = _decode_slot_value(
+            kind, p.slot_types.get(s.name, pa.int64()), acc, cnt,
+            p.rslots[j][1])
+    if g == 0:
+        return pa.table({k: v.slice(0, 0) for k, v in cols.items()})
+    return pa.table(cols)
+
+
+# -- device top-k and HAVING -----------------------------------------------
+#
+# ORDER BY <aggregate> [DESC] LIMIT k: the program gathers the top
+# k2 = 4k + 64 occupied slots by the first order key and only those rows
+# are fetched; the host finishes the full multi-key sort over them.  The
+# answer is exact unless the k-th value ties the last fetched one -- then
+# the full fetch runs (rare, never wrong).
+
+TOPK_MARGIN = 64
+TOPK_MAX = 4096
+
+
+class TopKSpec:
+    __slots__ = ("slot_index", "desc", "nulls_first", "k")
+
+    def __init__(self, slot_index, desc, nulls_first, k):
+        self.slot_index = slot_index
+        self.desc = desc
+        self.nulls_first = nulls_first
+        self.k = k
+
+
+_HAVING_OPS = {">": "gt", ">=": "ge", "<": "lt", "<=": "le",
+               "=": "eq", "<>": "ne", "!=": "ne"}
+_HAVING_FLIP = {"gt": "lt", "ge": "le", "lt": "gt", "le": "ge",
+                "eq": "eq", "ne": "ne"}
+
+
+def plan_having(q, slots, p: _Plan):
+    """-> (rslot index, op, literal) when HAVING is one comparison of a
+    sum/count aggregate with a numeric literal, exact in f64 by proven
+    bounds; the host re-applies the predicate, so this only cuts the
+    fetch."""
+    if q is None or q.having is None:
+        return None
+    e = q.having
+    if not (isinstance(e, ast.Binary) and e.op in _HAVING_OPS):
+        return None
+    l, r = e.left, e.right
+    op = _HAVING_OPS[e.op]
+    if isinstance(l, ast.Literal):
+        l, r = r, l
+        op = _HAVING_FLIP[op]
+    if not (isinstance(r, ast.Literal) and isinstance(r.value, (int, float))
+            and not isinstance(r.value, bool)):
+        return None
+    for si, s in enumerate(slots):
+        if s.func != l:
+            continue
+        kind, idxs = p.slot_map[si]
+        if kind not in ("sum", "count_star", "count"):
+            return None
+        j = idxs[0]
+        dtj = p.rslots[j][1]
+        lit = float(r.value)
+        if (dtj == "i64" or dtj.startswith("i64s")) and kind == "sum":
+            b = p.rslot_maxabs[j]
+            n_upper = int(p.arrays[p.rv_ix].shape[0]) * BLOCK_ROWS
+            if b is None or b * n_upper >= (1 << 53):
+                return None  # the f64 compare could misorder
+            if dtj.startswith("i64s"):
+                lit = lit * (10 ** int(dtj[4:]))  # the scaled space
+                if abs(lit) >= (1 << 53):
+                    return None
+        return (j, op, lit)
+    return None
+
+
+def plan_topk(q, slots, p: _Plan) -> Optional[TopKSpec]:
+    """ORDER BY <aggregate> ... LIMIT k without HAVING -> TopKSpec: the
+    first order key selects on the device, the host sorts the superset."""
+    if q.limit is None or not q.order_by or q.having is not None:
+        return None
+    k = q.limit + (q.offset or 0)
+    if k * 4 + TOPK_MARGIN > TOPK_MAX:
+        return None
+    o = q.order_by[0]
+    e = o.expr
+    alias_map = {it.alias: it.expr for it in q.items if it.alias}
+    if isinstance(e, ast.Column) and e.name in alias_map:
+        e = alias_map[e.name]
+    for si, s in enumerate(slots):
+        if s.func != e:
+            continue
+        kind, idxs = p.slot_map[si]
+        if kind in ("stddev", "var"):
+            return None
+        j = idxs[0]
+        dtj = p.rslots[j][1]
+        if (dtj == "i64" or dtj.startswith("i64s")) \
+                and kind in ("sum", "avg", "min", "max") \
+                and p.rslot_maxabs[j] is None:
+            return None  # i64 ranks ride f64: exact only within 2^53
+        nf = o.desc if o.nulls_first is None else o.nulls_first
+        return TopKSpec((kind, idxs), bool(o.desc), bool(nf), k)
+    return None
+
+
+def _topk_gather_core(cols, spec, nk: int, nv: int) -> torch.Tensor:
+    """The top-k2 occupied slot rows by the order value, packed into one
+    int64 matrix [occ (+ nan flag << 32 in column 0), rank value, keys,
+    key nulls, outs, counts] x k2."""
+    kind, j_acc, _j_cnt, desc, nulls_first, k2 = spec
+    occ = cols[0]
+    acc = cols[1 + 2 * nk + j_acc]
+    cnt = cols[1 + 2 * nk + nv + j_acc]
+    val = acc if acc.dtype == torch.float64 else acc.to(torch.float64)
+    if kind == "avg":
+        val = val / cnt.clamp(min=1).to(torch.float64)
+    # SQL NULL placement folded into the rank as huge FINITE sentinels:
+    # -inf stays exclusive to unoccupied slots, so occupied rows stay a
+    # prefix of the top k2
+    null_rank = 1.7e308 if nulls_first == desc else -1.7e308
+    val = torch.where(cnt == 0, torch.full_like(val, null_rank), val)
+    nanflag = torch.isnan(val).any() | torch.isinf(
+        torch.where(occ, val, torch.zeros_like(val))).any()
+    rank = torch.where(occ, val if desc else -val,
+                       torch.full_like(val, float("-inf")))
+    _, idx = torch.topk(rank, k2)
+    head = occ[idx].to(torch.int64)
+    head[0] += nanflag.to(torch.int64) << 32
+    return torch.stack([head, hops.as_i64(val)[idx]]
+                       + [hops.as_i64(c)[idx] for c in cols[1:]])
+
+
+def _mk_topk_spec(topk: Optional[TopKSpec], m: int) -> tuple:
+    if topk is None:
+        return ()
+    kind, idxs = topk.slot_index
+    k2 = min(topk.k * 4 + TOPK_MARGIN, int(m))
+    return (kind, idxs[0], idxs[0], topk.desc, topk.nulls_first, k2)
+
+
+def _finish_topk(p: _Plan, slots, topk: TopKSpec,
+                 mini: np.ndarray) -> Optional[pa.Table]:
+    """The fetched superset as a partial result, or None when exactness
+    can't be certified (NaN ranks, or the k-th value ties the last)."""
+    nk, nv = len(p.keys), len(p.rslots)
+    if (mini[0, 0] >> 32) & 1:
+        return None
+    occ = (mini[0] & 0xFFFFFFFF).astype(bool)
+    k2 = mini.shape[1]
+    g2 = int(occ.sum())
+    vals = mini[1].view(np.float64)
+    if g2 == k2 and k2 > topk.k:
+        # more groups exist beyond the fetch: exact iff the k-th value
+        # beats the boundary strictly
+        vk, vlast = vals[topk.k - 1], vals[g2 - 1]
+        if not (vk > vlast if topk.desc else vk < vlast):
+            return None
+    rows = mini[2:, :g2]
+    return _build_result(p, slots, g2, [rows[i] for i in range(nk)],
+                         [rows[nk + i].astype(bool) for i in range(nk)],
+                         [rows[2 * nk + j] for j in range(nv)],
+                         [rows[2 * nk + nv + j] for j in range(nv)])
 
 
 #: cached fused plans kept per table (plans pin their prep stacks)
 _PLAN_CACHE_CAP = 8
 
 
-def _plan_cache_key(plan_scan, hints, slots, rew_inputs):
-    """Textual identity of everything _plan_query consumes (renders carry
-    the literals); paired with the cache epoch it keys a built plan."""
+def _plan_cache_key(plan_scan, hints, group, key_names, slots, rew_keys,
+                    rew_inputs, q):
+    """Textual identity of everything _plan_query and the top-k / HAVING
+    planning consume (renders carry the literals); paired with the cache
+    epoch it keys a built plan."""
     from liquid_tpu_torch.sql.physical import render
-    return (tuple((s.name, s.kind, render(s.func)) for s in slots),
-            tuple((s.name, render(rew_inputs[s.name])) for s in slots
-                  if s.name in rew_inputs),
-            tuple(render(g.source) for g in plan_scan.pushdown),
-            tuple(render(e) for e in plan_scan.residual),
-            tuple(sorted((c, repr(h)) for c, h in (hints or {}).items())))
+    parts = [tuple(key_names), bool(group),
+             tuple(render(e) for e in rew_keys),
+             tuple((s.name, s.kind, render(s.func)) for s in slots),
+             tuple((s.name, render(rew_inputs[s.name])) for s in slots
+                   if s.name in rew_inputs),
+             tuple(render(g.source) for g in plan_scan.pushdown),
+             tuple(render(e) for e in plan_scan.residual),
+             tuple(sorted((c, repr(h)) for c, h in (hints or {}).items()))]
+    if q is not None:
+        parts.append((q.limit, q.offset,
+                      tuple((render(o.expr), bool(o.desc), o.nulls_first)
+                            for o in (q.order_by or ())),
+                      render(q.having) if q.having is not None else None))
+    return tuple(parts)
 
 
-def try_fused_aggregate(table, plan_scan, hints, slots, rew_inputs
-                        ) -> pa.Table:
-    """Run a single-table aggregate without GROUP BY on the fused device
-    path -> one-row table of slot columns.  An unsupported shape raises
-    NotImplementedError naming the reason (no classic path yet)."""
+def try_fused_aggregate(table, plan_scan, hints, group, key_names, slots,
+                        rew_keys, rew_inputs, q=None) -> pa.Table:
+    """Run a single-table aggregate on the fused device path -> the
+    partial result: key columns then slot columns (one row without GROUP
+    BY).  An unsupported shape, or a key cardinality the hash ladder does
+    not resolve, raises NotImplementedError naming the reason (no classic
+    path yet)."""
     cache = getattr(table, "_fused_plan_cache", None)
     if cache is None:
         cache = table._fused_plan_cache = {}
-    ck = (table.cache.epoch, _plan_cache_key(plan_scan, hints, slots,
-                                             rew_inputs))
+    ck = (table.cache.epoch, _plan_cache_key(
+        plan_scan, hints, group, key_names, slots, rew_keys, rew_inputs, q))
     hit = cache.get(ck)
     if hit is None:
         try:
-            hit = _plan_query(table, plan_scan, hints, slots, rew_inputs)
+            hit = _plan_query(table, plan_scan, hints, key_names, slots,
+                              rew_keys, rew_inputs)
         except _Bail as e:
             hit = str(e)
         if len(cache) >= _PLAN_CACHE_CAP:
@@ -1238,8 +1725,19 @@ def try_fused_aggregate(table, plan_scan, hints, slots, rew_inputs
         STATS["fused_bailouts"] += 1
         STATS["last_bail"] = hit
         raise NotImplementedError(
-            f"fused scalar path cannot run this query ({hit}); the classic "
-            f"path is not ported yet")
+            f"fused path cannot run this query ({hit}); the classic path "
+            f"is not ported yet")
     STATS["fused_queries"] += 1
-    p, empty = hit
-    return execute_plan(p, empty, slots)
+    p, mode, empty = hit
+    topk = None
+    if q is not None and mode == "grouped" and not empty:
+        topk = plan_topk(q, slots, p)
+        p.having = plan_having(q, slots, p)
+    result = execute_plan(p, mode, empty, slots, table, topk)
+    if result is None:
+        STATS["fused_bailouts"] += 1
+        STATS["last_bail"] = "hash ladder did not converge"
+        raise NotImplementedError(
+            "the grouped hash ladder did not converge for this key "
+            "cardinality; the classic path is not ported yet")
+    return result

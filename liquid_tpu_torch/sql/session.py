@@ -46,7 +46,7 @@ class SessionContext:
         self.cache = cache
         self._tables: Dict[str, ParquetTable] = {}
         self._next_file_id = 0
-        self._exec = QueryExecutor(self._tables)
+        self._exec = QueryExecutor(self._tables, cache.device)
 
     @property
     def device(self):

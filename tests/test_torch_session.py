@@ -59,7 +59,7 @@ QUERIES = [
 ]
 
 UNSUPPORTED = [
-    'SELECT "RegionID", COUNT(*) FROM hits GROUP BY "RegionID"',
+    'SELECT "SearchPhrase", COUNT(*) FROM hits GROUP BY "SearchPhrase"',
     'SELECT COUNT(*) FROM hits WHERE "URL" LIKE \'%yandex%\'',
     'SELECT COUNT(DISTINCT "UserID") FROM hits',
     'SELECT "UserID" FROM hits WHERE "AdvEngineID" <> 0 LIMIT 3',
