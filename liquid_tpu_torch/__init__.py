@@ -13,13 +13,17 @@ anything of `liquid_tpu`.  Host logic (parser, planner, generators) is
 copied here, not imported.
 
 Layer map (mirrors `liquid_tpu`):
-  arrays/ - liquid encodings (bit-planes, linear, ALP floats)
-  ops/    - masks, bit-plane compares, grouped reductions, the CUDA
-            kernels and their twins
-  cache/  - cache runtime (memory tiers)
-  io/     - parquet tables: row-group stats and zone-map pruning
-  sql/    - SQL frontend and the fused scalar and grouped device paths
-  bench/  - data generators for the smoke run and the tests
+  arrays/  - liquid encodings (bit-planes, linear, ALP floats, FSST-backed
+             string dictionaries)
+  ops/     - masks, bit-plane compares, grouped reductions, the CUDA
+             kernels and their twins
+  cache/   - cache runtime (memory tiers)
+  io/      - parquet tables: row-group stats and zone-map pruning
+  sql/     - SQL frontend and the fused scalar and grouped device paths
+  bench/   - the benchmark entry point (`python -m
+             liquid_tpu_torch.bench.main`), its pyarrow oracle, and the
+             data generators
+  _native/ - ctypes binding of the native FSST codec (built with g++)
 """
 
 __version__ = "0.1.0"

@@ -9,7 +9,9 @@ ported yet, so an insert that does not fit the memory budget raises
 NotImplementedError instead of spilling.
 
 The cache owns the `device` its queries run on; encoded blocks stay on
-the host until the fused path stacks them into device tensors.
+the host until the fused path stacks them into device tensors.  A string
+column trains one FSST compressor on its first block and shares it with
+the column's later blocks (`DefaultCacheMetadata`).
 """
 from __future__ import annotations
 
@@ -48,6 +50,23 @@ def _arrow_memory_bytes(arr: pa.Array) -> int:
     return sum(b.size for b in arr.buffers() if b is not None) + 64
 
 
+class DefaultCacheMetadata:
+    """Per-column shared state: FSST compressors keyed by the entry id
+    with its 16-bit batch field stripped."""
+
+    def __init__(self):
+        self._compressors: Dict[int, object] = {}
+
+    def column_key(self, entry_id: int) -> int:
+        return entry_id >> 16
+
+    def compressor_for(self, entry_id: int):
+        return self._compressors.get(self.column_key(entry_id))
+
+    def store_compressor(self, entry_id: int, comp) -> None:
+        self._compressors.setdefault(self.column_key(entry_id), comp)
+
+
 class LiquidCache:
     """insert / get over encoded column blocks."""
 
@@ -60,6 +79,7 @@ class LiquidCache:
         self.cache_policy = cache_policy or pol.LiquidPolicy()
         self.transcode_on_insert = transcode_on_insert
         self.observer = Observer(trace_events=trace_events)
+        self.metadata = DefaultCacheMetadata()
         self._entries: Dict[int, CacheEntry] = {}
         self._hints: Dict[int, HintVote] = {}
         self._lock = _sync.RLock()
@@ -89,10 +109,17 @@ class LiquidCache:
         if hint is not None:
             self.record_hint(entry_id, hint)
         hint = hint if hint is not None else self._hint_for(entry_id)
-        liquid = tc.transcode(arr) if self.transcode_on_insert else None
+        liquid = None
+        if self.transcode_on_insert:
+            liquid = tc.transcode(
+                arr, hint, compressor=self.metadata.compressor_for(entry_id))
         if liquid is not None:
             obs.stats.bump("transcodes")
             obs.event("Transcode", entry_id)
+            fsst = getattr(liquid, "fsst", None)
+            if fsst is not None:
+                # share the trained compressor with the column's blocks
+                self.metadata.store_compressor(entry_id, fsst.compressor)
             state, payload, nbytes = (MEMORY_LIQUID, liquid,
                                       liquid.memory_bytes())
         else:

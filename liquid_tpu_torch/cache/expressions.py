@@ -2,9 +2,9 @@
 
 The planner tells the cache how a column is consumed: only through
 EXTRACT(field) of a date, or only through LIKE '%x%'.  The cache records
-the hints per entry with a majority vote.  In the reference they steer
-squeezing and string fingerprints; in the memory tiers ported so far
-they change no encoding.
+the hints per entry with a majority vote.  A SubstringSearch hint makes a
+string block carry substring fingerprints; in the reference the hints
+also steer squeezing, which is not ported yet.
 """
 from __future__ import annotations
 

@@ -2,9 +2,12 @@
 `liquid_tpu/cache/transcode.py`).
 
 Integers, dates, timestamps and bools become bit-plane blocks (linear
-when a line fits the block much better); floats become ALP blocks.
-Strings and decimals have liquid encodings in the reference (dictionary
-+ FSST, decimal planes) that are not ported yet: transcoding one raises
+when a line fits the block much better); floats become ALP blocks;
+strings and binaries become dictionary blocks (FSST-backed when the
+dictionary is large), with substring fingerprints when the column is
+read through LIKE '%x%' (a SubstringSearch hint) and the column's shared
+FSST compressor passed in.  Decimals have a liquid encoding in the
+reference that is not ported yet: transcoding one raises
 NotImplementedError.  Other types return None and stay in arrow form.
 """
 from __future__ import annotations
@@ -14,18 +17,10 @@ from typing import Optional
 import numpy as np
 import pyarrow as pa
 
-from liquid_tpu_torch.arrays import float_alp, linear, primitive
+from liquid_tpu_torch.arrays import byteview, float_alp, linear, primitive
 from liquid_tpu_torch.arrays.base import LiquidArray
+from liquid_tpu_torch.cache.expressions import SubstringSearch
 from liquid_tpu_torch.ops import bitpack as bp
-
-
-def _is_string_like(t: pa.DataType) -> bool:
-    if pa.types.is_dictionary(t):
-        t = t.value_type
-    return (pa.types.is_string(t) or pa.types.is_large_string(t)
-            or pa.types.is_binary(t) or pa.types.is_large_binary(t)
-            or pa.types.is_string_view(t) or pa.types.is_binary_view(t)
-            or pa.types.is_fixed_size_binary(t))
 
 
 def _try_linear(arr: pa.Array):
@@ -54,9 +49,11 @@ def _try_linear(arr: pa.Array):
     return linear.LiquidLinearArray.from_arrow(arr)
 
 
-def transcode(arr: pa.Array) -> Optional[LiquidArray]:
+def transcode(arr: pa.Array, hint=None,
+              compressor=None) -> Optional[LiquidArray]:
     """-> LiquidArray, or None when the type has no liquid encoding
-    (the caller keeps the arrow form)."""
+    (the caller keeps the arrow form).  `compressor` is the column's
+    shared FSST compressor; with None a string block trains its own."""
     t = arr.type
     if pa.types.is_boolean(t):
         # 1-bit primitive; the logical type is preserved
@@ -72,7 +69,8 @@ def transcode(arr: pa.Array) -> Optional[LiquidArray]:
     if pa.types.is_decimal(t):
         raise NotImplementedError(
             f"transcoding a decimal column ({t}) is not ported yet")
-    if _is_string_like(t):
-        raise NotImplementedError(
-            f"transcoding a string column ({t}) is not ported yet")
+    if byteview.is_supported_type(t):
+        return byteview.LiquidByteViewArray.from_arrow(
+            arr, with_fingerprints=isinstance(hint, SubstringSearch),
+            compressor=compressor)
     return None

@@ -1,6 +1,6 @@
-"""K1: the batched bit-plane compare kernel and its plain twin.
+"""K1, K3 and K4: the bit-plane compare kernels and their plain twins.
 
-Replaces `liquid_tpu/ops/bitpack_pallas.py::cmp_const_many_pallas`.
+K1 replaces `liquid_tpu/ops/bitpack_pallas.py::cmp_const_many_pallas`.
 `cmp_const_many(planes_stack, cs) -> (lt, eq)` takes planes int32[B, w,
 256] (the reference's uint32 words, one 8192-row block per b) and
 per-block constants int64[B] (u64 bit images).
@@ -13,6 +13,16 @@ per-block constants int64[B] (u64 bit images).
 - w = 0 has no planes to read: the result follows the constant alone and
   no kernel runs (as in the reference, `bitpack.py:171-177`).
 
+K3 `count_gt(planes, c)` and K4 `cmp_const_planes(planes, c)` replace
+`count_gt` and `cmp_const_planes` of the same TPU module: one column of
+planes int32[w, W] (or `prep`'s zero-copy [w, W/128, 128] view) against
+ONE constant c, a Python or numpy integer in [0, 2^64) that the launch
+passes by value.  K3 returns the count of rows whose value is > c as an
+int32 0-d tensor without a host sync; K4 returns (lt, eq) int32[W].  Both
+build from `csrc/cmp_planes.cu`; CPU tensors take `count_gt_ref` /
+`cmp_const_planes_ref`.  w = 0, and for K3 a constant with a bit at or
+above w, are decided on the host with no launch.
+
 Anything else (dtype, shape, layout, device) raises.  `LAUNCHES` counts
 kernel launches, so a run can show that its path went through the
 kernel.
@@ -24,21 +34,26 @@ import os
 import threading
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from liquid_tpu_torch.device import FULL
+from liquid_tpu_torch.device import FULL, wrap_i64
+from liquid_tpu_torch.ops import mask as mops
 from liquid_tpu_torch.ops import nvcc
 from liquid_tpu_torch.ops.nvcc import BUILD_DIR, NVCC_FLAGS  # noqa: F401
 
 BLOCK_WORDS = 256  # words per 8192-row block
+LANES = 128  # last dimension of `prep`'s view
 
 #: kernel launches since the last reset (a plain integer per kernel)
-LAUNCHES = {"cmp_const_many": 0}
+LAUNCHES = {"cmp_const_many": 0, "count_gt": 0, "cmp_const_planes": 0}
 
 SOURCE = os.path.join(nvcc.CSRC, "cmp_const_many.cu")
+PLANES_SOURCE = os.path.join(nvcc.CSRC, "cmp_planes.cu")
 
 _fn = None
 _fn_lock = threading.Lock()
+_planes_fns = {}
 
 
 def library_path() -> str:
@@ -147,4 +162,137 @@ def cmp_const_many(planes_stack: torch.Tensor, cs: torch.Tensor
     if rc != 0:
         raise RuntimeError(f"cmp_const_many launch failed: CUDA error {rc}")
     LAUNCHES["cmp_const_many"] += 1
+    return lt, eq
+
+
+# -- K3 / K4: one column against one constant ---------------------------------
+
+def _load_planes(name: str, n_out: int):
+    with _fn_lock:
+        fn = _planes_fns.get(name)
+        if fn is None:
+            fn = getattr(nvcc.load(PLANES_SOURCE), f"{name}_launch")
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                            ctypes.c_uint64] + [ctypes.c_void_p] * n_out
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _planes_fns[name] = fn
+    return fn
+
+
+def prep(planes: torch.Tensor) -> torch.Tensor:
+    """[w, W] planes -> the [w, W/128, 128] view K3 and K4 also take (no
+    copy; W must be a multiple of 128)."""
+    if planes.dim() != 2 or planes.shape[1] % LANES:
+        raise ValueError(f"prep needs [w, W] planes with W % {LANES} == 0, "
+                         f"got {tuple(planes.shape)}")
+    return planes.view(planes.shape[0], planes.shape[1] // LANES, LANES)
+
+
+def _flat_planes(planes: torch.Tensor) -> torch.Tensor:
+    """Check one column's planes (flat or prepped) -> the [w, W] view."""
+    if planes.dtype != torch.int32:
+        raise TypeError(f"planes must be int32 words, got {planes.dtype}")
+    if planes.dim() not in (2, 3) or (planes.dim() == 3
+                                      and planes.shape[2] != LANES):
+        raise ValueError(f"planes must be [w, W] or [w, W/{LANES}, {LANES}],"
+                         f" got {tuple(planes.shape)}")
+    if planes.shape[0] > 64:
+        raise ValueError(f"width {planes.shape[0]} > 64")
+    # before the view: a reshape would copy a strided input silently
+    if not planes.is_contiguous():
+        raise ValueError("planes must be contiguous")
+    if planes.dim() == 3:
+        planes = planes.view(planes.shape[0], planes.shape[1] * LANES)
+    return planes
+
+
+def _const(c) -> int:
+    """The constant as a Python int in [0, 2^64)."""
+    if isinstance(c, torch.Tensor) or not isinstance(c, (int, np.integer)) \
+            or isinstance(c, (bool, np.bool_)):
+        raise TypeError(f"the constant must be a Python or numpy integer, "
+                        f"got {type(c).__name__}")
+    c = int(c)
+    if not 0 <= c < (1 << 64):
+        raise ValueError(f"constant {c} outside [0, 2^64)")
+    return c
+
+
+def cmp_const_planes_ref(planes: torch.Tensor, c
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4 (same contract, any device): K1's
+    word-wise loop over the column as one block."""
+    flat = _flat_planes(planes)
+    c = _const(c)
+    if flat.shape[0] == 0:  # every stored value is 0
+        lt = torch.full((flat.shape[1],), FULL if c else 0,
+                        dtype=torch.int32, device=flat.device)
+        return lt, ~lt
+    cs = torch.tensor([wrap_i64(c)], dtype=torch.int64, device=flat.device)
+    lt, eq = cmp_const_many_ref(flat[None], cs)
+    return lt[0], eq[0]
+
+
+def count_gt_ref(planes: torch.Tensor, c) -> torch.Tensor:
+    """Plain PyTorch version of K3: popcount of ~(lt | eq) -> int32 0-d."""
+    lt, eq = cmp_const_planes_ref(planes, c)
+    return mops.count(~(lt | eq)).to(torch.int32)
+
+
+def _device(flat: torch.Tensor, name: str) -> torch.device:
+    dev = flat.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def count_gt(planes: torch.Tensor, c) -> torch.Tensor:
+    """Rows whose value is > c, as an int32 0-d tensor on the planes'
+    device (no host sync).  CUDA tensors run K3; CPU tensors the plain
+    version."""
+    flat = _flat_planes(planes)
+    c = _const(c)
+    dev = _device(flat, "count_gt")
+    width, n_words = flat.shape
+    if n_words * 32 >= (1 << 31):
+        raise ValueError(f"{n_words * 32} rows: the int32 count would "
+                         f"overflow (at most 2^31 - 1 rows)")
+    if width == 0 or (width < 64 and c >> width) or n_words == 0:
+        return torch.zeros((), dtype=torch.int32, device=dev)
+    if dev.type == "cpu":
+        return count_gt_ref(flat, c)
+    out = torch.zeros((), dtype=torch.int32, device=dev)
+    launch = _load_planes("count_gt", 1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(flat.data_ptr(), n_words, width, c, out.data_ptr(),
+                    stream)
+    if rc != 0:
+        raise RuntimeError(f"count_gt launch failed: CUDA error {rc}")
+    LAUNCHES["count_gt"] += 1
+    return out
+
+
+def cmp_const_planes(planes: torch.Tensor, c
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lt, eq) int32[W] of every row against c.  CUDA tensors run K4;
+    CPU tensors, and w = 0 (the result follows c alone), the plain
+    version."""
+    flat = _flat_planes(planes)
+    c = _const(c)
+    dev = _device(flat, "cmp_const_planes")
+    width, n_words = flat.shape
+    if dev.type == "cpu" or width == 0 or n_words == 0:
+        return cmp_const_planes_ref(flat, c)
+    lt = torch.empty(n_words, dtype=torch.int32, device=dev)
+    eq = torch.empty_like(lt)
+    launch = _load_planes("cmp_const_planes", 2)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(flat.data_ptr(), n_words, width, c, lt.data_ptr(),
+                    eq.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"cmp_const_planes launch failed: CUDA error {rc}")
+    LAUNCHES["cmp_const_planes"] += 1
     return lt, eq

@@ -20,26 +20,35 @@ planning and every upload.
 Supported shape (anything else raises NotImplementedError naming the
 reason -- the port has no classic path to fall back to yet):
 - single parquet source; WHERE a conjunction of column-vs-literal
-  comparisons (OR groups allowed) plus numeric residual conditions,
-- GROUP BY numeric, date or bool columns and numeric expressions of
-  them,
+  comparisons (OR groups allowed; a string column's comparison becomes a
+  per-block verdict LUT over its dictionary codes) plus residual
+  conditions, numeric or string (=, <>, IN, LIKE on a dictionary column
+  resolve to sets of ids in the column's sorted global vocabulary),
+- GROUP BY numeric, date, bool or string columns, numeric expressions
+  of them, and string-valued expressions of ONE string column
+  (evaluated over its vocabulary on the host),
 - aggregates count(*)/count/sum/avg/min/max/stddev/var over + - * /
-  arithmetic of numeric columns and literals,
+  arithmetic of numeric columns and literals; count and min/max of a
+  string column,
 - every touched block resident as MEMORY_LIQUID primitive / linear /
-  float.
-Not ported yet: string (dictionary or vocabulary) keys and columns,
-functional-dependency key reduction, star and existence probes, the
-sort-pair and chained count(DISTINCT) forms.
+  float / byte-view.
+Not ported yet: functional-dependency key reduction, CASE and temporal
+expressions, star and existence probes, the sort-pair and chained
+count(DISTINCT) forms.
 """
 from __future__ import annotations
 
+import numbers
+import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 
 from liquid_tpu_torch.arrays.base import BLOCK_ROWS, Predicate
+from liquid_tpu_torch.arrays.byteview import LiquidByteViewArray
 from liquid_tpu_torch.arrays.float_alp import LiquidFloatArray
 from liquid_tpu_torch.arrays.linear import LiquidLinearArray, linear_term
 from liquid_tpu_torch.arrays.primitive import LiquidPrimitiveArray
@@ -82,15 +91,31 @@ class _Bail(NotImplementedError):
 # Nodes carry their dtype ("i64" | "f64"); casts are explicit.
 #   ("col", name, dtype)   ("lit", value, dtype)   ("bin", op, dtype, l, r)
 #   ("neg", dtype, x)      ("cast", dtype, x)
+#   ("lut", col, aix, dtype)  arrays[aix][gid]: a value computed on the
+#                             host over a string column's vocabulary
 # Boolean nodes (residual conditions):
 #   ("cmp", op, l, r)  ("inints", col, values, dtype)
+#   ("incodes", col, gids)   string column membership by vocabulary id
 #   ("band"/"bor", l, r)  ("bnot", x)
 
 _INT_CASTS = ("int", "integer", "bigint", "smallint")
 
 
-def _compile_expr(e: ast.Expr, col_kinds) -> Tuple[tuple, set]:
-    """-> (ir, cols_used).  Raises _Bail on unsupported shapes."""
+def _one_dict_column(e: ast.Expr, col_kinds) -> Optional[str]:
+    """The single string (dictionary) column `e` reads, or None."""
+    from liquid_tpu_torch.sql.physical import collect_columns
+    cols: set = set()
+    collect_columns(e, cols)
+    if len(cols) != 1:
+        return None
+    c = next(iter(cols))
+    return c if col_kinds.get(c) == "dict" else None
+
+
+def _compile_expr(e: ast.Expr, col_kinds, dictres=None) -> Tuple[tuple, set]:
+    """-> (ir, cols_used).  Raises _Bail on unsupported shapes.
+    `dictres(col, op, literal)` resolves a string comparison on a
+    dictionary column to the matching vocabulary ids."""
     if isinstance(e, ast.Column):
         k = col_kinds.get(e.name)
         if k == "planes":
@@ -104,15 +129,15 @@ def _compile_expr(e: ast.Expr, col_kinds) -> Tuple[tuple, set]:
             raise _Bail(f"literal {v!r}")
         return ("lit", v, "f64" if isinstance(v, float) else "i64"), set()
     if isinstance(e, ast.Unary) and e.op == "neg":
-        x, cols = _compile_expr(e.operand, col_kinds)
+        x, cols = _compile_expr(e.operand, col_kinds, dictres)
         return ("neg", _ir_dtype(x), x), cols
     if isinstance(e, ast.Cast) and e.type_name in (
             "double", "float", "real", "decimal", "numeric"):
-        x, cols = _compile_expr(e.operand, col_kinds)
+        x, cols = _compile_expr(e.operand, col_kinds, dictres)
         return _as_f64(x), cols
     if isinstance(e, ast.Cast) and e.type_name in _INT_CASTS:
         # ::INT over an integer image is a passthrough; float->int bails
-        x, cols = _compile_expr(e.operand, col_kinds)
+        x, cols = _compile_expr(e.operand, col_kinds, dictres)
         if _ir_dtype(x) == "i64":
             return x, cols
         raise _Bail("float->int cast")
@@ -123,7 +148,7 @@ def _compile_expr(e: ast.Expr, col_kinds) -> Tuple[tuple, set]:
             root = root.operand
         if not isinstance(root, ast.Column):
             raise _Bail("::date over non-column")
-        x, cols = _compile_expr(e.operand, col_kinds)
+        x, cols = _compile_expr(e.operand, col_kinds, dictres)
         t = col_kinds.arrow_type(root.name)
         if _ir_dtype(x) == "i64" and t is not None and (
                 pa.types.is_date32(t) or pa.types.is_integer(t)
@@ -131,8 +156,8 @@ def _compile_expr(e: ast.Expr, col_kinds) -> Tuple[tuple, set]:
             return x, cols
         raise _Bail(f"::date over {t}")
     if isinstance(e, ast.Binary) and e.op in ("+", "-", "*", "/"):
-        l, lc = _compile_expr(e.left, col_kinds)
-        r, rc = _compile_expr(e.right, col_kinds)
+        l, lc = _compile_expr(e.left, col_kinds, dictres)
+        r, rc = _compile_expr(e.right, col_kinds, dictres)
         ldt, rdt = _ir_dtype(l), _ir_dtype(r)
         if e.op == "/":
             if ldt == "i64" and rdt == "i64":
@@ -143,6 +168,15 @@ def _compile_expr(e: ast.Expr, col_kinds) -> Tuple[tuple, set]:
         else:
             dt = "i64"
         return ("bin", e.op, dt, l, r), lc | rc
+    lutres = getattr(col_kinds, "lutres", None)
+    c = _one_dict_column(e, col_kinds) if lutres is not None else None
+    if c is not None:
+        # a numeric function of one string column (length(URL)),
+        # evaluated once per vocabulary entry
+        got = lutres(e, c)
+        if got is not None:
+            aix, vdt = got
+            return ("lut", c, aix, vdt), {c}
     raise _Bail(f"expression {type(e).__name__}")
 
 
@@ -152,25 +186,49 @@ _FLIP = {"=": "=", "<>": "<>", "!=": "!=", "<": ">", "<=": ">=", ">": "<",
          ">=": "<="}
 
 
-def _compile_bool(e: ast.Expr, col_kinds) -> Tuple[tuple, set]:
+def _compile_bool(e: ast.Expr, col_kinds, dictres=None) -> Tuple[tuple, set]:
     """Boolean IR of a residual condition.  NULL inputs make it FALSE
     (a WHERE drops NULL and FALSE alike); `_bool_nonnull` implements it."""
     if isinstance(e, ast.Binary) and e.op in ("and", "or"):
-        l, lc = _compile_bool(e.left, col_kinds)
-        r, rc = _compile_bool(e.right, col_kinds)
+        l, lc = _compile_bool(e.left, col_kinds, dictres)
+        r, rc = _compile_bool(e.right, col_kinds, dictres)
         return ("band" if e.op == "and" else "bor", l, r), lc | rc
     if isinstance(e, ast.Unary) and e.op == "not":
-        x, cols = _compile_bool(e.operand, col_kinds)
+        x, cols = _compile_bool(e.operand, col_kinds, dictres)
         return ("bnot", x), cols
     if isinstance(e, ast.Between):
         ir, cols = _compile_bool(ast.Binary(
             "and", ast.Binary(">=", e.operand, e.low),
-            ast.Binary("<=", e.operand, e.high)), col_kinds)
+            ast.Binary("<=", e.operand, e.high)), col_kinds, dictres)
         return (("bnot", ir) if e.negated else ir), cols
     if isinstance(e, ast.InList):
         if not isinstance(e.operand, ast.Column):
-            raise _Bail("IN over non-column")
+            # substring(c, 1, 2) IN ('13', ...): the operand evaluated over
+            # the string column's vocabulary -> id membership
+            vocab_eval = getattr(col_kinds, "vocab_eval", None)
+            cn = _one_dict_column(e.operand, col_kinds)
+            if vocab_eval is None or cn is None or any(
+                    not isinstance(it, ast.Literal) for it in e.items):
+                raise _Bail("IN over non-column")
+            vals = vocab_eval(e.operand, cn)
+            if vals is None:
+                raise _Bail("IN over non-column")
+            want = {it.value for it in e.items}
+            ir = ("incodes", cn, tuple(i for i, v in enumerate(vals)
+                                       if v is not None and v in want))
+            return (("bnot", ir) if e.negated else ir), {cn}
         name = e.operand.name
+        if col_kinds.get(name) == "dict":
+            gids: set = set()
+            for it in e.items:
+                got = (dictres(name, "=", it.value)
+                       if dictres is not None and isinstance(it, ast.Literal)
+                       else None)
+                if got is None:
+                    raise _Bail(f"IN over {name}")
+                gids.update(got)
+            ir = ("incodes", name, tuple(sorted(gids)))
+            return (("bnot", ir) if e.negated else ir), {name}
         vals = []
         has_null = any_float = False
         for it in e.items:
@@ -199,12 +257,29 @@ def _compile_bool(e: ast.Expr, col_kinds) -> Tuple[tuple, set]:
         dt = "f64" if any_float or kind == "float" else "i64"
         ir = ("inints", name, tuple(vals), dt)
         return (("bnot", ir) if e.negated else ir), {name}
+    if isinstance(e, ast.Binary) and e.op == "like":
+        got = None
+        if isinstance(e.left, ast.Column) and isinstance(e.right, ast.Literal) \
+                and dictres is not None:
+            got = dictres(e.left.name, "like", e.right.value)
+        if got is None:
+            raise _Bail("LIKE shape")
+        return ("incodes", e.left.name, tuple(got)), {e.left.name}
     if isinstance(e, ast.Binary) and e.op in _BOOL_CMP:
         l, r, op = e.left, e.right, e.op
         if isinstance(r, ast.Column) and not isinstance(l, ast.Column):
             l, r, op = r, l, _FLIP[op]
-        li, lc = _compile_expr(l, col_kinds)
-        ri, rc = _compile_expr(r, col_kinds)
+        if isinstance(l, ast.Column) and isinstance(r, ast.Literal) \
+                and col_kinds.get(l.name) == "dict":
+            if op not in ("=", "<>", "!="):
+                raise _Bail("string ordering comparison")
+            got = dictres(l.name, "=", r.value) if dictres else None
+            if got is None:
+                raise _Bail(f"string comparison over {l.name}")
+            ir = ("incodes", l.name, tuple(got))
+            return (("bnot", ir) if op != "=" else ir), {l.name}
+        li, lc = _compile_expr(l, col_kinds, dictres)
+        ri, rc = _compile_expr(r, col_kinds, dictres)
         if _ir_dtype(li) != _ir_dtype(ri):
             li, ri = _as_f64(li), _as_f64(ri)
         return ("cmp", _BOOL_CMP[op], li, ri), lc | rc
@@ -214,7 +289,7 @@ def _compile_bool(e: ast.Expr, col_kinds) -> Tuple[tuple, set]:
 def bool_ir_columns(ir) -> set:
     """Column names referenced by a boolean/value IR tree."""
     tag = ir[0]
-    if tag in ("col", "inints"):
+    if tag in ("col", "inints", "incodes", "lut"):
         return {ir[1]}
     if tag == "lit":
         return set()
@@ -242,6 +317,8 @@ def eval_ir_nulls(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
     tag = ir[0]
     if tag == "col":
         return env.decode(ir[1], ir[2]), env.nulls(ir[1])
+    if tag == "lut":
+        return env.decode(ir[1], ("lut", ir[2], ir[3])), env.nulls(ir[1])
     if tag == "lit":
         return _lit(env, ir[1], ir[2]), torch.zeros((), dtype=torch.bool,
                                                     device=env.device)
@@ -251,7 +328,7 @@ def eval_ir_nulls(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
     if tag == "neg":
         v, n = eval_ir_nulls(ir[2], env)
         return -v, n
-    if tag in ("cmp", "inints", "band", "bor", "bnot"):
+    if tag in ("cmp", "inints", "incodes", "band", "bor", "bnot"):
         return _bool_nonnull(ir, env), torch.zeros(
             (), dtype=torch.bool, device=env.device)
     _, op, _, l, r = ir
@@ -279,6 +356,12 @@ def _bool_nonnull(ir, env) -> torch.Tensor:
         v = env.decode(ir[1], ir[3])
         want = torch.tensor(ir[2], dtype=v.dtype, device=env.device)
         return torch.isin(v, want) & ~env.nulls(ir[1])
+    if tag == "incodes":
+        gids = env.decode(ir[1], "i64")
+        if not ir[2]:
+            return torch.zeros_like(gids, dtype=torch.bool)
+        want = torch.tensor(ir[2], dtype=torch.int64, device=env.device)
+        return torch.isin(gids, want) & ~env.nulls(ir[1])
     if tag == "band":
         return _bool_nonnull(ir[1], env) & _bool_nonnull(ir[2], env)
     if tag == "bor":
@@ -296,6 +379,8 @@ def _bool_nonnull(ir, env) -> torch.Tensor:
 def _ir_dtype(ir) -> str:
     if ir[0] in ("col", "lit", "bin"):
         return ir[2]
+    if ir[0] == "lut":
+        return ir[3]
     return ir[1]  # neg / cast
 
 
@@ -413,7 +498,13 @@ class _ColPrep:
 
     __slots__ = ("kind", "arrow_type", "payloads", "planes_stack", "refs",
                  "inv", "valid_stack", "lin_stack", "patch_rows",
-                 "patch_vals")
+                 "patch_vals", "codes_stack", "dmax", "vocab_list",
+                 "remap_stack", "gid_stack")
+
+    def __init__(self):
+        self.planes_stack = self.refs = self.inv = self.lin_stack = None
+        self.patch_rows = self.patch_vals = self.codes_stack = None
+        self.vocab_list = self.remap_stack = self.gid_stack = None
 
 
 def _stack_planes(payloads, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -447,7 +538,6 @@ def _prep_column(payloads, arrow_type, device) -> _ColPrep:
     prep = _ColPrep()
     prep.arrow_type = arrow_type
     prep.payloads = list(payloads)
-    prep.inv = prep.lin_stack = prep.patch_rows = prep.patch_vals = None
     p0 = payloads[0]
     if isinstance(p0, (LiquidLinearArray, LiquidPrimitiveArray)) and any(
             isinstance(p, LiquidLinearArray) for p in payloads):
@@ -486,11 +576,105 @@ def _prep_column(payloads, arrow_type, device) -> _ColPrep:
             prep.patch_rows = np.concatenate(rows)
             prep.patch_vals = np.concatenate(
                 [p.patch_vals for p in payloads if p.num_patches])
+    elif isinstance(p0, LiquidByteViewArray):
+        if any(not isinstance(p, LiquidByteViewArray) for p in payloads):
+            raise _Bail("mixed payload classes")
+        prep.kind = "dict"
+        prep.codes_stack = torch.from_numpy(
+            np.stack([p.codes_np for p in payloads])).to(device)
+        prep.valid_stack = _stack_validity(payloads, device)
+        prep.dmax = max(max(p.dict_size for p in payloads), 1)
+        return prep
     else:
         raise _Bail(f"payload {type(p0).__name__}")
     prep.planes_stack, prep.refs = _stack_planes(payloads, device)
     prep.valid_stack = _stack_validity(payloads, device)
     return prep
+
+
+def _build_vocab(prep: _ColPrep) -> None:
+    """The column's global vocabulary and per-block remap, built once
+    when the column is a key or in expression IR.  The vocabulary is
+    SORTED (str order is code-point order, which UTF-8 byte order keeps),
+    with NULL last, so id order is value order: min/max over ids decode
+    to the min/max string."""
+    if prep.vocab_list is not None:
+        return
+    per_block = [p.dictionary.to_pylist() for p in prep.payloads]
+    values = set()
+    for vals in per_block:
+        values.update(vals)
+    vocab_list = sorted(v for v in values if v is not None)
+    if None in values:
+        vocab_list.append(None)
+    vocab = {v: i for i, v in enumerate(vocab_list)}
+    remaps = np.zeros((len(prep.payloads), prep.dmax), np.int64)
+    for b, vals in enumerate(per_block):
+        remaps[b, : len(vals)] = [vocab[v] for v in vals]
+    prep.vocab_list = vocab_list
+    prep.remap_stack = torch.from_numpy(remaps).to(prep.codes_stack.device)
+
+
+def _gid_stack(prep: _ColPrep) -> torch.Tensor:
+    """int32 [nb, 8192] global vocabulary ids: the remap gathered on the
+    device once per column and cached, so no query pays the per-row
+    gather (it depends on the stored data only)."""
+    if prep.gid_stack is None:
+        remap = prep.remap_stack
+        codes = prep.codes_stack.clamp(0, remap.shape[1] - 1)
+        prep.gid_stack = torch.gather(remap, 1, codes.to(torch.int64)
+                                      ).to(torch.int32)
+    return prep.gid_stack
+
+
+def vocab_eval_expr(e: ast.Expr, col: str, vocab: list) -> Optional[list]:
+    """Evaluate a one-column string expression over the column's
+    vocabulary with the host evaluator (distinct values only, once per
+    plan) -> one Python value per vocabulary id, or None when the
+    evaluator cannot run it."""
+    from liquid_tpu_torch.sql.eval import Batch, Evaluator
+    try:
+        out = Evaluator(Batch({col: pa.array(vocab, pa.string())},
+                              len(vocab))).arr(e)
+    except (NotImplementedError, KeyError, TypeError, ValueError,
+            pa.ArrowException):
+        return None
+    if isinstance(out, pa.ChunkedArray):
+        out = out.combine_chunks()
+    return out.to_pylist()
+
+
+def _string_key_lut(ge: ast.Expr, kinds_view, p: "_Plan", dev):
+    """A string-valued group key over ONE string column -> (IR ("lut",
+    col, aix, "i64") of ids in the mapped vocabulary, columns, the mapped
+    vocabulary), or None when not applicable."""
+    c = _one_dict_column(ge, kinds_view)
+    if c is None:
+        return None
+    vals = kinds_view.vocab_eval(ge, c)
+    if vals is None or not all(v is None or isinstance(v, str)
+                               for v in vals):
+        return None
+    uniq = sorted({v for v in vals if v is not None})
+    idx = {v: i for i, v in enumerate(uniq)}
+    if any(v is None for v in vals):
+        uniq.append(None)  # keyed by the trailing NULL id
+    lut = np.array([idx.get(v, len(idx)) for v in vals], np.int64)
+    aix = _add(p, torch.from_numpy(lut).to(dev))
+    return ("lut", c, aix, "i64"), {c}, uniq
+
+
+def _dict_lut(payloads, pred: Predicate, dmax: int) -> Optional[np.ndarray]:
+    """bool [nb, dmax]: each block's verdict per dictionary entry (prefix
+    keys / fingerprints / pyarrow kernels, cached per block), or None
+    when the predicate has no verdict form."""
+    luts = np.zeros((len(payloads), dmax), bool)
+    for b, pp in enumerate(payloads):
+        vd = pp.dict_verdict(pred)
+        if vd is None:
+            return None
+        luts[b, : len(vd)] = vd
+    return luts
 
 
 # -- predicate lowering ----------------------------------------------------------
@@ -607,12 +791,18 @@ def _selection_packed(colmap, pred_groups, arrays, sel: torch.Tensor
         gm = None
         for alt in grp:
             cix = colmap[alt[1]]
-            m = _in_interval_many(arrays[cix["planes"]], arrays[alt[2]],
-                                  arrays[alt[3]])
-            if alt[4]:
-                m = ~m
-            if alt[0] == "ivp":  # ALP exception-patch overlay
-                m = (m & arrays[alt[5]]) | arrays[alt[6]]
+            if alt[0] == "lut":  # per-block verdicts over dictionary codes
+                lut = arrays[alt[2]]
+                codes = arrays[cix["codes"]].clamp(0, lut.shape[1] - 1)
+                m = mops.pack_bools(torch.gather(lut, 1,
+                                                 codes.to(torch.int64)))
+            else:
+                m = _in_interval_many(arrays[cix["planes"]], arrays[alt[2]],
+                                      arrays[alt[3]])
+                if alt[4]:
+                    m = ~m
+                if alt[0] == "ivp":  # ALP exception-patch overlay
+                    m = (m & arrays[alt[5]]) | arrays[alt[6]]
             if "valid" in cix:
                 m = m & arrays[cix["valid"]]
             gm = m if gm is None else (gm | m)
@@ -641,12 +831,26 @@ class _Decoders:
             self._nulls[name] = out
         return out
 
-    def decode(self, name: str, dt: str) -> torch.Tensor:
+    def decode(self, name: str, dt) -> torch.Tensor:
         out = self._vals.get((name, dt))
         if out is not None:
             return out
         a = self.arrays
         cix = self.colmap[name]
+        if isinstance(dt, tuple):  # ("lut", aix, dtype): table[gid]
+            table = a[dt[1]]
+            v = table[self.decode(name, "i64").clamp(0, table.shape[0] - 1)]
+            if dt[2] == "f64":
+                v = v.to(torch.float64)
+            self._vals[(name, dt)] = v
+            return v
+        if cix["kind"] == "dict":
+            # global vocabulary ids where the plan registered them, raw
+            # per-block codes otherwise (only their nullness is read)
+            v = a[cix["gids" if "gids" in cix else "codes"]].reshape(-1)
+            v = v.to(torch.int64)
+            self._vals[(name, dt)] = v
+            return v
         off = bp.unpack_bitplanes_many(a[cix["planes"]])
         enc = off + a[cix["refs"]][:, None]
         if cix["kind"] == "float":
@@ -761,8 +965,12 @@ class _Plan:
         self.slot_types: Dict[str, pa.DataType] = {}
         self.keys: List[object] = []      # column names or ("expr", ir, dt)
         self.key_out: List[str] = []      # output column names
-        self.key_codecs: List[object] = []    # KeyCodec per key
+        #: per key: ("codec", KeyCodec) or ("vocab", values, arrow type),
+        #: the latter for keys coded by vocabulary id
+        self.key_decoders: List[tuple] = []
         self.key_payloads: Dict[str, list] = {}  # planes keys: span bound
+        #: min/max over a string column: its sorted vocabulary
+        self.slot_vocabs: Dict[str, list] = {}
         self.rslot_maxabs: List[Optional[int]] = []  # |value| bounds
         self.having = None                # (rslot, op, literal) on device
 
@@ -817,7 +1025,8 @@ _PREP_VARIANTS = 4
 def _prep_nbytes(prep: _ColPrep) -> int:
     """Device bytes a cached prep holds (charged to the cache budget)."""
     n = 0
-    for slot in ("planes_stack", "refs", "inv", "valid_stack", "lin_stack"):
+    for slot in ("planes_stack", "refs", "inv", "valid_stack", "lin_stack",
+                 "codes_stack"):
         a = getattr(prep, slot)
         if a is not None:
             n += a.numel() * a.element_size()
@@ -887,6 +1096,10 @@ def _schema_kind(t: pa.DataType) -> str:
         return "planes"
     if pa.types.is_floating(t):
         return "float"
+    if (pa.types.is_string(t) or pa.types.is_large_string(t)
+            or pa.types.is_binary(t) or pa.types.is_large_binary(t)
+            or pa.types.is_string_view(t) or pa.types.is_binary_view(t)):
+        return "dict"
     raise _Bail(f"column type {t}")
 
 
@@ -960,6 +1173,19 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
             col_kinds[c] = "planes" if k == "linear" else k
         return col_kinds[c]
 
+    #: string columns whose vocabulary ids the program reads
+    remap_cols: set = set()
+
+    def vocab_of(c) -> list:
+        """The sorted global vocabulary of string column c ([] when the
+        scan is empty)."""
+        if empty:
+            return []
+        pr = prep_of(c)
+        _build_vocab(pr)
+        remap_cols.add(c)
+        return pr.vocab_list
+
     class _Kinds:
         def get(self, c, default=None):
             try:
@@ -972,13 +1198,63 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
                 return table.field(c).type
             return None
 
+        def vocab_eval(self, e, c):
+            if empty or self.get(c) != "dict":
+                return None
+            return vocab_eval_expr(e, c, vocab_of(c))
+
+        def lutres(self, e, c):
+            """A numeric function of string column c, tabulated per
+            vocabulary id -> (array index, dtype) or None."""
+            vals = self.vocab_eval(e, c)
+            if vals is None:
+                return None
+            if all(v is None or (isinstance(v, numbers.Integral)
+                                 and not isinstance(v, bool)) for v in vals):
+                arr = np.array([0 if v is None else int(v) for v in vals],
+                               np.int64)
+                return _add(p, torch.from_numpy(arr).to(dev)), "i64"
+            if all(v is None or isinstance(v, numbers.Real) for v in vals):
+                arr = np.array([0.0 if v is None else float(v)
+                                for v in vals], np.float64)
+                return _add(p, torch.from_numpy(arr).to(dev)), "f64"
+            return None
+
+    def dictres(c, op, lit):
+        """String comparison on column c over its sorted vocabulary ->
+        the matching ids, or None when c is not a string column."""
+        if kinds_view.get(c) != "dict":
+            return None
+        vocab = vocab_of(c)
+        if op == "=":
+            return tuple(i for i, v in enumerate(vocab) if v == lit)
+        if op == "like":
+            pat = re.compile("^" + re.escape(str(lit)).replace("%", ".*")
+                             .replace("_", ".") + "$", re.DOTALL)
+            return tuple(i for i, v in enumerate(vocab)
+                         if v is not None and pat.match(str(v)))
+        return None
+
     kinds_view = _Kinds()
     slot_irs: Dict[str, Tuple[tuple, set]] = {}
     for s in slots:
         if s.input is None:
             continue
         e = rew_inputs[s.name]
-        slot_irs[s.name] = _compile_expr(e, kinds_view)
+        is_dict = isinstance(e, ast.Column) and kind_of(e.name) == "dict"
+        if is_dict and s.kind == "count":
+            # count(string column): only its nullness is read
+            slot_irs[s.name] = (("col", e.name, "i64"), {e.name})
+        elif is_dict and s.kind in ("min", "max"):
+            # sorted-vocabulary ids are value-ordered
+            vocab = vocab_of(e.name)
+            if vocab and vocab[-1] is None:
+                raise _Bail("min/max over a NULL dictionary entry")
+            p.slot_vocabs[s.name] = vocab
+            slot_irs[s.name] = (("col", e.name, "i64"), {e.name})
+            p.slot_types[s.name] = _value_type(table.field(e.name).type)
+        else:
+            slot_irs[s.name] = _compile_expr(e, kinds_view, dictres)
         needed |= slot_irs[s.name][1]
         if s.kind in ("min", "max") and isinstance(e, ast.Column) \
                 and pa.types.is_uint64(table.field(e.name).type):
@@ -1002,7 +1278,7 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
 
     # residual conditions: boolean IR evaluated in the program
     for e in plan_scan.residual:
-        ir, cols = _compile_bool(e, kinds_view)
+        ir, cols = _compile_bool(e, kinds_view, dictres)
         p.resids.append(ir)
         needed |= cols
 
@@ -1012,7 +1288,7 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
     if not empty:
         for gi, g in enumerate(plan_scan.pushdown):
             if any(prep_of(c).kind == "linear" for c, _ in g.alternatives):
-                ir, cols = _compile_bool(g.source, kinds_view)
+                ir, cols = _compile_bool(g.source, kinds_view, dictres)
                 p.resids.append(ir)
                 needed |= cols
                 skip_groups.add(gi)
@@ -1023,17 +1299,32 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
     for ge in rew_keys:
         if isinstance(ge, ast.Column):
             c = ge.name
-            kind_of(c)
             p.keys.append(c)
-            p.key_codecs.append(KeyCodec(table.field(c).type))
-            if not empty and prep_of(c).kind == "planes":
-                p.key_payloads[c] = prep_of(c).payloads
+            if kind_of(c) == "dict":
+                p.key_decoders.append(
+                    ("vocab", vocab_of(c), _value_type(table.field(c).type)))
+            else:
+                p.key_decoders.append(("codec",
+                                       KeyCodec(table.field(c).type)))
+                if not empty and prep_of(c).kind == "planes":
+                    p.key_payloads[c] = prep_of(c).payloads
             needed.add(c)
         else:
-            ir, cols = _compile_expr(ge, kinds_view)
+            try:
+                ir, cols = _compile_expr(ge, kinds_view, dictres)
+                skey = None
+            except _Bail:
+                # a string function of ONE string column: evaluated over
+                # its vocabulary, keyed by the id in the mapped vocabulary
+                skey = _string_key_lut(ge, kinds_view, p, dev)
+                if skey is None:
+                    raise
+                ir, cols, mapped = skey
             dt = _ir_dtype(ir)
             p.keys.append(("expr", ir, dt))
-            p.key_codecs.append(KeyCodec(_expr_key_type(ge, dt)))
+            p.key_decoders.append(
+                ("vocab", mapped, pa.string()) if skey is not None
+                else ("codec", KeyCodec(_expr_key_type(ge, dt))))
             needed |= cols
     p.key_out = list(key_names)
 
@@ -1043,8 +1334,13 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
 
     for c in sorted(needed):
         pr = prep_of(c)
-        ix = {"kind": pr.kind, "planes": _add(p, pr.planes_stack),
-              "refs": _add(p, pr.refs)}
+        if pr.kind == "dict":
+            ix = {"kind": "dict", "codes": _add(p, pr.codes_stack)}
+            if c in remap_cols:
+                ix["gids"] = _add(p, _gid_stack(pr))
+        else:
+            ix = {"kind": pr.kind, "planes": _add(p, pr.planes_stack),
+                  "refs": _add(p, pr.refs)}
         if pr.kind == "float":
             ix["inv"] = _add(p, pr.inv)
             if pr.patch_rows is not None:
@@ -1086,8 +1382,11 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
                         _add(p, words_to_tensor(clear, dev)),
                         _add(p, words_to_tensor(setw, dev)))
                 alts.append(alt)
-            else:
-                raise _Bail(f"predicate on {pr.kind} column {c}")
+            else:  # dict: a per-block verdict LUT over the codes
+                lut = _dict_lut(pr.payloads, pred, pr.dmax)
+                if lut is None:
+                    raise _Bail(f"string predicate {pred.op} on {c}")
+                alts.append(("lut", c, _add(p, torch.from_numpy(lut).to(dev))))
         p.pred_groups.append(tuple(alts))
 
     p.rv_ix = _add(p, _rowvalid(table, blocks))
@@ -1266,6 +1565,31 @@ def _decode_slot_value(kind, t: pa.DataType, acc: np.ndarray,
     raise AssertionError(kind)
 
 
+def _take_vocab(vocab: list, t: pa.DataType, ids: np.ndarray,
+                mask: np.ndarray) -> pa.Array:
+    """Vocabulary ids -> values of type t; masked rows are NULL."""
+    if not len(vocab):
+        return pa.nulls(len(ids), t)
+    safe = np.clip(np.where(mask, 0, ids), 0, len(vocab) - 1)
+    vals = pa.array(vocab, type=t).take(pa.array(safe.astype(np.int64)))
+    if mask.any():
+        vals = pc.if_else(pa.array(~mask), vals, pa.scalar(None, t))
+    return vals
+
+
+def _decode_slot(p: _Plan, name: str, kind, acc, cnt, j: int) -> pa.Array:
+    t = p.slot_types.get(name, pa.int64())
+    vocab = p.slot_vocabs.get(name)
+    if vocab is not None and kind in ("min", "max"):
+        # the extreme vocabulary id decodes to the extreme string
+        return _take_vocab(vocab, t, np.asarray(acc, np.int64), cnt == 0)
+    return _decode_slot_value(kind, t, acc, cnt, p.rslots[j][1])
+
+
+def _value_type(t: pa.DataType) -> pa.DataType:
+    return t.value_type if pa.types.is_dictionary(t) else t
+
+
 def _finalize_scalar(p: _Plan, slots, outs: np.ndarray,
                      counts: np.ndarray) -> pa.Table:
     cols: Dict[str, pa.Array] = {}
@@ -1286,9 +1610,7 @@ def _finalize_scalar(p: _Plan, slots, outs: np.ndarray,
                 v = var ** 0.5 if kind == "stddev" else var
             cols[s.name] = pa.array([v], pa.float64())
             continue
-        cols[s.name] = _decode_slot_value(
-            kind, p.slot_types.get(s.name, pa.int64()), acc, cnt,
-            p.rslots[j][1])
+        cols[s.name] = _decode_slot(p, s.name, kind, acc, cnt, j)
     return pa.table(cols)
 
 
@@ -1418,10 +1740,14 @@ def _fetch_result(p: _Plan, slots, out, mat=None) -> pa.Table:
 
 def _key_domains(p: _Plan):
     """Per-key (lo, span) when every key's value domain is densely
-    bounded (integer references and widths); None otherwise.  Enables
-    direct addressing: bijective slots, no collision passes."""
+    bounded (integer references and widths, vocabulary sizes); None
+    otherwise.  Enables direct addressing: bijective slots, no collision
+    passes."""
     out = []
-    for name in p.keys:
+    for name, dec in zip(p.keys, p.key_decoders):
+        if dec[0] == "vocab":
+            out.append((0, max(len(dec[1]), 1) - 1))
+            continue
         payloads = p.key_payloads.get(name) if isinstance(name, str) \
             else None
         if not payloads or any(pp.width > 44 for pp in payloads):
@@ -1437,7 +1763,10 @@ def _cardinality_bound(p: _Plan) -> Optional[int]:
     """Upper bound on distinct key tuples from integer domain spans; None
     when a key is unbounded (floats, linear columns, expressions)."""
     total = 1
-    for name in p.keys:
+    for name, dec in zip(p.keys, p.key_decoders):
+        if dec[0] == "vocab":
+            total = min(total * max(len(dec[1]), 1), 1 << 62)
+            continue
         payloads = p.key_payloads.get(name) if isinstance(name, str) \
             else None
         if not payloads:
@@ -1488,10 +1817,14 @@ def _build_result(p: _Plan, slots, g, ukeys, uknulls, outs,
                   vcounts) -> pa.Table:
     """Key columns decoded by their codecs, then the slot columns."""
     cols: Dict[str, pa.Array] = {}
-    for name, codec, codes, nulls in zip(p.key_out, p.key_codecs, ukeys,
-                                         uknulls):
-        cols[name] = codec.decode(np.ascontiguousarray(codes, np.int64),
-                                  np.ascontiguousarray(nulls, bool))
+    for name, dec, codes, nulls in zip(p.key_out, p.key_decoders, ukeys,
+                                       uknulls):
+        codes = np.ascontiguousarray(codes, np.int64)
+        nulls = np.ascontiguousarray(nulls, bool)
+        if dec[0] == "vocab":
+            cols[name] = _take_vocab(dec[1], dec[2], codes, nulls)
+        else:
+            cols[name] = dec[1].decode(codes, nulls)
     for s, (kind, idxs) in zip(slots, p.slot_map):
         j = idxs[0]
         acc = np.ascontiguousarray(outs[j])
@@ -1508,9 +1841,7 @@ def _build_result(p: _Plan, slots, g, ukeys, uknulls, outs,
                 np.sqrt(var) if kind == "stddev" else var, pa.float64(),
                 mask=mask if mask.any() else None)
             continue
-        cols[s.name] = _decode_slot_value(
-            kind, p.slot_types.get(s.name, pa.int64()), acc, cnt,
-            p.rslots[j][1])
+        cols[s.name] = _decode_slot(p, s.name, kind, acc, cnt, j)
     if g == 0:
         return pa.table({k: v.slice(0, 0) for k, v in cols.items()})
     return pa.table(cols)

@@ -59,8 +59,10 @@ QUERIES = [
 ]
 
 UNSUPPORTED = [
-    'SELECT "SearchPhrase", COUNT(*) FROM hits GROUP BY "SearchPhrase"',
-    'SELECT COUNT(*) FROM hits WHERE "URL" LIKE \'%yandex%\'',
+    # string shapes the port does not take yet (count of distinct strings;
+    # a string ordering inside a residual condition)
+    'SELECT COUNT(DISTINCT "SearchPhrase") FROM hits',
+    'SELECT COUNT(*) FROM hits WHERE "URL" < \'b\' OR "AdvEngineID" + 1 = 3',
     'SELECT COUNT(DISTINCT "UserID") FROM hits',
     'SELECT "UserID" FROM hits WHERE "AdvEngineID" <> 0 LIMIT 3',
     'SELECT SUM(l_quantity) FROM lineitem, orders WHERE l_orderkey = '
