@@ -10,14 +10,19 @@ Phases (any failure raises and the script exits non-zero):
    all started together with g++ for the native FSST library
    (`native/*.cpp` into `liquid_tpu_torch/_build/`), timed: K1
    (`ops/csrc/cmp_const_many.cu`), K2 (`ops/csrc/group_accumulate.cu`),
-   K3 and K4 (`ops/csrc/cmp_planes.cu`);
+   K3 and K4 (`ops/csrc/cmp_planes.cu`); K2's shared-memory atomics read
+   from its SASS (`cuobjdump -sass`), failing on a CAS loop;
 3. K1 against its plain PyTorch version on the card, bit-exact, over
    every width bucket 1..64, B in {1, 3, 489, 4097} and constants 0, 1,
-   random, with bits at or above the width, and 2^64-1;
+   random, with bits at or above the width, and 2^64-1: the single form,
+   and the interval form (`in_interval_many`) with lo <= hi, lo > hi and
+   bounds beyond the width;
 4. K2 against its plain version on the card, bit-exact, over m in {1,
-   63, 8889, 16385, 65535}, C in {1, 4, 7, 16}, n in {2048, 4,005,888},
-   uniform and zipf-skewed slots with negative and out-of-range slots
-   mixed in, values over the full i32 range;
+   63, 8889, 16385, 65535}, C in {1, 4, 7, 16}, n in {2048, 4097,
+   4,005,888, 4,005,891}, uniform and zipf-skewed slots with negative and
+   out-of-range slots mixed in, values over the full i32 range (m =
+   65535 splits the slot range across CTAs; 4097 and 4,005,891 leave a
+   ragged tail);
    4b. K3 (`count_gt`) and K4 (`cmp_const_planes`) against their plain
    versions, bit-exact, over every width 0..64, W in {256, 4096, 2^22}
    words, constants 0, 1, random, 2^w-1, with bits at or above w, and
@@ -27,24 +32,28 @@ Phases (any failure raises and the script exits non-zero):
    on the card, queries `cb_filter`, `cb_like` (a string LIKE: verdicts
    over FSST dictionaries, gathered by code) and `tpch_q6`; answers
    checked against pyarrow on the same parquet (`bench/oracle.py`:
-   integers exact, floats rtol 1e-9); the fused scalar route and K1
-   launches checked through the port's counters, which are set to 0 just
-   before this phase and read after;
+   integers exact, floats rtol 1e-9); the fused scalar route and one K1
+   launch per interval predicate (`K1_PER_RUN`) checked through the
+   port's counters, which are set to 0 just before this phase and read
+   after;
 6. the grouped main path on the same session: `cb_groupby`, `cb_q15`,
    `tpch_q15_revenue`, `tpch_supp_price` and `tpch_q1` (string group
    keys by vocabulary id); answers checked the same way; the grouped
-   route, K1 (at least 2 launches per `tpch_q1` run), K2 and their
-   counters checked, counts set to 0 just before this phase and read
-   after; the inputs the path fed K2 are captured by wrapping the
+   route, K1 (one launch per interval predicate), K2 and their counters
+   checked, counts set to 0 just before this phase and read after; the
+   slot and column list the path fed K2 are captured by wrapping the
    wrapper from here;
-7. K1 timed (CUDA events, L2 flushed before each launch) on the exact
-   inputs the main path gave it, against the plain version and the
-   kernel's byte bound;
+7. K1's interval form timed (CUDA events, L2 flushed before each timed
+   call) on the exact (planes, lo, hi) the main path gave it, beside the
+   two single-constant launches it replaces (as a pair after one flush,
+   and one alone), the plain version and the byte bound;
 8. K2 timed the same way on the inputs captured in phase 6, beside its
-   plain version, one `index_add_` call on the same inputs and its byte
-   bound;
+   plain version, one `index_add_` call on the same
+   inputs (stacked to int64 outside the timing) and its byte bound, with
+   the bytes its CTAs' flush adds into the output;
 9. one warm run of each query under torch.profiler: device-busy time,
-   the device's idle share and the device operations that took longest;
+   the device's idle share, the device operations that took longest and
+   the concatenation copies (`Cat` kernels, the form `torch.stack` takes);
    9b. the port's benchmark entry point (`liquid_tpu_torch.bench.main`)
    in this process at this run's sizes, counts set to 0 just before and
    read after: five queries answered and checked against pyarrow, routes
@@ -106,6 +115,13 @@ TPCH_Q6 = """SELECT sum(l_extendedprice * l_discount) as revenue
  AND l_discount between 0.05 and 0.07 AND l_quantity < 24"""
 
 
+#: K1 launches per warm run: one per interval predicate on a bit-plane
+#: column (string predicates are verdict LUTs and launch none)
+K1_PER_RUN = {"cb_filter": 1, "cb_like": 0, "tpch_q6": 5, "cb_groupby": 0,
+              "cb_q15": 0, "tpch_q15_revenue": 2, "tpch_supp_price": 1,
+              "tpch_q1": 1}
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -119,25 +135,46 @@ def card_line() -> str:
 
 
 def k1_bytes(bsz: int, width: int) -> int:
-    """Bytes K1 must move: planes and constants read once, lt/eq written."""
-    return bsz * width * 256 * 4 + bsz * 8 + 2 * bsz * 256 * 4
+    """Bytes K1's interval form must move: planes and both constants read
+    once, the mask written."""
+    return bsz * width * 256 * 4 + 2 * bsz * 8 + bsz * 256 * 4
 
 
 def k1_bound_ms(bsz: int, width: int):
     """(least time in ms, what bounds it): bytes over HBM bandwidth vs
-    ~5 word operations per plane per output word over the word rate."""
+    ~10 word operations per plane per output word (two compares) over
+    the word rate."""
     t_bytes = k1_bytes(bsz, width) / HBM_BYTES_PER_S * 1e3
-    t_ops = 5 * width * bsz * 256 / WORD_OPS_PER_S * 1e3
+    t_ops = 10 * width * bsz * 256 / WORD_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k2_sass_atomics(lib: str) -> list:
+    """Phase 2: the shared-memory atomic opcodes in K2's SASS; raises on
+    a CAS loop (ATOMS.CAS / ATOMS.CAST.SPIN), which would mean the
+    kernel's table adds are emulated."""
+    import re
+    from liquid_tpu_torch.ops import nvcc
+    cuobjdump = os.path.join(os.path.dirname(nvcc._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    ops = sorted(set(re.findall(r"\b(ATOMS\.[A-Z0-9.]+)", sass)))
+    if not ops or any("CAS" in op for op in ops):
+        raise AssertionError(f"K2's shared atomics are not native: {ops}")
+    return ops
+
+
 def time_cold(torch, fn, flush, iters: int) -> float:
-    """Median ms of one call, L2 flushed (a 256 MB write) before each."""
+    """Median ms of one call, L2 flushed (a 256 MB write) before each.
+    A device-side wait of about 0.5 ms after the flush lets the host
+    enqueue the call before the start event is reached, so host time
+    between launches (a call of two launches) is not timed."""
     for _ in range(3):
         fn()
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -194,8 +231,14 @@ def check_k1(torch, dev) -> int:
                                     ).to(dev)
             got = k1.cmp_const_many(planes, cs_t)
             ref = k1.cmp_const_many_ref(planes, cs_t)
+            # interval form: hi is lo's constants in another order, so
+            # lo <= hi, lo > hi and bounds beyond the width all occur
+            hi_t = cs_t[torch.randperm(bsz, device=dev, generator=gen)]
+            ref_iv = k1.in_interval_many_ref(planes, cs_t, hi_t)
+            got_iv = k1.in_interval_many(planes, cs_t, hi_t)
             torch.cuda.synchronize()
-            err = _max_abs_err(torch, got, ref)
+            err = max(_max_abs_err(torch, got, ref),
+                      _max_abs_err(torch, [got_iv], [ref_iv]))
             if err:
                 raise AssertionError(f"K1 != plain at width {width}, "
                                      f"B {bsz}: max abs err {err}")
@@ -206,6 +249,25 @@ def check_k1(torch, dev) -> int:
 def k2_bytes(n: int, cols: int, m: int) -> int:
     """Bytes K2 must move: slots and values read once, the table written."""
     return 4 * n + 4 * n * cols + 8 * (m + 1) * cols
+
+
+def k2_flush_bytes(torch, slot, cols, m: int) -> tuple:
+    """(bytes, most bytes) K2's CTAs add into the output at their end
+    under the wrapper's plan: 8 per non-zero table entry, counted from
+    each row chunk's own sums; at most 8 (m + 1) per (chunk, column)."""
+    from liquid_tpu_torch.ops import grouphist as gh
+    from liquid_tpu_torch.ops import grouphist_cuda as k2
+    n = slot.shape[0]
+    p = k2.plan(n, len(cols), m, torch.cuda.get_device_properties(
+        slot.device).multi_processor_count)
+    nz = 0
+    for q in range(p.chunks):
+        r0 = 4 * q * p.quads_per_chunk
+        r1 = n if q == p.chunks - 1 else 4 * (q + 1) * p.quads_per_chunk
+        part = gh.group_accumulate_ref(slot[r0:r1], [c[r0:r1] for c in cols],
+                                       m)
+        nz += int((part != 0).sum())
+    return 8 * nz, 8 * (m + 1) * len(cols) * p.chunks
 
 
 def k2_bound_ms(n: int, cols: int, m: int):
@@ -224,7 +286,7 @@ def check_k2(torch, dev) -> int:
     gen = torch.Generator(device=dev).manual_seed(4321)
     rng = np.random.default_rng(4321)
     worst = 0
-    for n in (2048, 4_005_888):
+    for n in (2048, 4097, 4_005_888, 4_005_891):
         for m in (1, 63, 8889, 16385, 65535):
             uniform = torch.randint(0, m + 1, (n,), dtype=torch.int32,
                                     device=dev, generator=gen)
@@ -239,17 +301,27 @@ def check_k2(torch, dev) -> int:
                                     device=dev, generator=gen)
                 slot = torch.where(pick < 0.01, -odd, slot)
                 slot = torch.where(pick > 0.99, m + odd, slot).contiguous()
-                for cols in (1, 4, 7, 16):
-                    vals = torch.randint(-2 ** 31, 2 ** 31, (n, cols),
-                                         dtype=torch.int32, device=dev,
-                                         generator=gen)
-                    got = k2.group_accumulate(slot, vals, m)
-                    ref = gh.group_accumulate_ref(slot, vals, m)
+                for ncols in (1, 4, 7, 16):
+                    cols = [torch.randint(-2 ** 31, 2 ** 31, (n,),
+                                          dtype=torch.int32, device=dev,
+                                          generator=gen)
+                            for _ in range(ncols)]
+                    ref = gh.group_accumulate_ref(slot, cols, m)
+                    got = k2.group_accumulate(slot, cols, m)
                     torch.cuda.synchronize()
                     err = int((got - ref).abs().max())
+                    if n == 4097 and ncols == 4:
+                        # a column 4 bytes off the 16-byte loads' alignment
+                        try:
+                            k2.group_accumulate(slot[1:], [c[1:] for c in cols],
+                                                m)
+                        except ValueError:
+                            pass
+                        else:
+                            raise AssertionError("K2 took a misaligned column")
                     if err:
                         raise AssertionError(
-                            f"K2 != plain at n {n}, m {m}, C {cols}: "
+                            f"K2 != plain at n {n}, m {m}, C {ncols}: "
                             f"max abs err {err}")
                     worst = max(worst, err)
     return worst
@@ -421,6 +493,9 @@ def run_main_path(torch, paths: dict, expect: dict, builder):
         want = expect[qname][0][0].as_py()
         if not oracle.same_table(out, expect[qname]):
             raise AssertionError(f"{qname}: port {value!r} != pyarrow {want!r}")
+        if per_run != K1_PER_RUN[qname]:
+            raise AssertionError(f"{qname}: {per_run} K1 launches per run, "
+                                 f"expected {K1_PER_RUN[qname]}")
         report[qname] = dict(
             rows=pt.num_rows, blocks=sum(pt.num_batches(rg) for rg in
                                          range(pt.num_row_groups)),
@@ -434,7 +509,7 @@ def run_main_path(torch, paths: dict, expect: dict, builder):
 
 def run_grouped_path(torch, ctx, paths: dict, expect: dict):
     """Phase 6: the grouped queries on the session -> (per-query report,
-    {query: (slot, vals, m)} as the path last fed K2)."""
+    {query: (slot, cols, m)} as the path last fed K2)."""
     from liquid_tpu_torch.bench import oracle
     from liquid_tpu_torch.ops import bitpack_cuda as k1
     from liquid_tpu_torch.ops import grouphist_cuda as k2
@@ -457,9 +532,9 @@ def run_grouped_path(torch, ctx, paths: dict, expect: dict):
     captured = {}
     wrapped = k2.group_accumulate
 
-    def capture(slot, vals, m):
-        captured["last"] = (slot, vals, m)
-        return wrapped(slot, vals, m)
+    def capture(slot, cols, m):
+        captured["last"] = (slot, list(cols), m)
+        return wrapped(slot, cols, m)
 
     k2.group_accumulate = capture
     report, inputs = {}, {}
@@ -509,6 +584,9 @@ def run_grouped_path(torch, ctx, paths: dict, expect: dict):
             if not oracle.same_table(out, expect[qname]):
                 raise AssertionError(f"{qname}: port {out.to_pylist()[:3]} "
                                      f"!= pyarrow")
+            if per_run["k1"] != K1_PER_RUN[qname]:
+                raise AssertionError(f"{qname}: {per_run['k1']} K1 launches "
+                                     f"per run, expected {K1_PER_RUN[qname]}")
             row = dict(
                 rows=pt.num_rows, groups_out=out.num_rows,
                 transcode_s=t_transcode, first_run_s=t_first,
@@ -519,9 +597,9 @@ def run_grouped_path(torch, ctx, paths: dict, expect: dict):
                 k2_route=bool(per_run["pallas"]),
                 max_memory_allocated=torch.cuda.max_memory_allocated())
             if "last" in captured:
-                slot, vals, m = captured["last"]
+                slot, cols, m = captured["last"]
                 inputs[qname] = captured["last"]
-                row.update(k2_n=int(slot.shape[0]), k2_C=int(vals.shape[1]),
+                row.update(k2_n=int(slot.shape[0]), k2_C=len(cols),
                            k2_m=int(m))
             report[qname] = row
             log(f"[grouped] {qname}: {json.dumps(row)}")
@@ -550,27 +628,45 @@ def main_path_k1_inputs(ctx):
 
 
 def time_k1(torch, ctx) -> dict:
-    """Phase 7: K1 vs plain on the main path's own inputs."""
+    """Phase 7: K1's interval form on the main path's own (planes, lo,
+    hi), beside the two single-constant launches
+    it replaces (a pair after one L2 flush, as the old path ran them, and
+    one alone), its plain version and its byte bound."""
     from liquid_tpu_torch.ops import bitpack_cuda as k1
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     rows, worst = [], 0
     for planes, lo, hi, col in main_path_k1_inputs(ctx):
+        worst = max(worst, _max_abs_err(
+            torch, [k1.in_interval_many(planes, lo, hi)],
+            [k1.in_interval_many_ref(planes, lo, hi)]))
         for cs in (lo, hi):
             worst = max(worst, _max_abs_err(
                 torch, k1.cmp_const_many(planes, cs),
                 k1.cmp_const_many_ref(planes, cs)))
         bsz, width, _ = planes.shape
         bound, by = k1_bound_ms(bsz, width)
-        row = dict(column=col, B=bsz, w=width,
-                   bytes=k1_bytes(bsz, width),
-                   ms=time_cold(torch, lambda: k1.cmp_const_many(planes, lo),
-                                flush, 100),
-                   warm_ms=time_warm(
-                       torch, lambda: k1.cmp_const_many(planes, lo), 200),
+
+        def interval():
+            return k1.in_interval_many(planes, lo, hi)
+
+        def pair():
+            k1.cmp_const_many(planes, lo)
+            k1.cmp_const_many(planes, hi)
+
+        row = dict(column=col, B=bsz, w=width, bytes=k1_bytes(bsz, width),
+                   ms=time_cold(torch, interval, flush, 100),
+                   two_single_ms=time_cold(torch, pair, flush, 100),
+                   single_ms=time_cold(
+                       torch, lambda: k1.cmp_const_many(planes, lo), flush,
+                       100),
+                   warm_ms=time_warm(torch, interval, 200),
+                   two_single_warm_ms=time_warm(torch, pair, 200),
                    plain_ms=time_cold(
-                       torch, lambda: k1.cmp_const_many_ref(planes, lo),
+                       torch, lambda: k1.in_interval_many_ref(planes, lo, hi),
                        flush, 20),
                    bound_ms=bound, bound_by=by)
+        row.update(over_two_single=row["ms"] / row["two_single_ms"],
+                   over_twice_single=row["ms"] / (2 * row["single_ms"]))
         rows.append(row)
         log(f"[k1] {json.dumps(row)}")
     if not rows:
@@ -582,32 +678,36 @@ def time_k1(torch, ctx) -> dict:
 
 def time_k2(torch, inputs: dict) -> dict:
     """Phase 8: K2 vs its plain version and one index_add_ call, on the
-    inputs the grouped main path fed it."""
+    slot and columns the grouped main path fed it, with the bytes its
+    flush adds into the output."""
     from liquid_tpu_torch.ops import grouphist as gh
     from liquid_tpu_torch.ops import grouphist_cuda as k2
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     rows, worst = {}, 0
-    for qname, (slot, vals, m) in inputs.items():
-        worst = max(worst, int((k2.group_accumulate(slot, vals, m)
-                                - gh.group_accumulate_ref(slot, vals, m)
+    for qname, (slot, cols, m) in inputs.items():
+        worst = max(worst, int((k2.group_accumulate(slot, cols, m)
+                                - gh.group_accumulate_ref(slot, cols, m)
                                 ).abs().max()))
-        n, cols = vals.shape
-        bound, by = k2_bound_ms(n, cols, m)
+        n, ncols = int(slot.shape[0]), len(cols)
+        bound, by = k2_bound_ms(n, ncols, m)
+        flush_bytes, flush_most = k2_flush_bytes(torch, slot, cols, m)
         # the library call: index_add_ on int64 copies of the same inputs
         # (the main path's slots lie in [0, m] already)
-        s64, v64 = slot.to(torch.int64), vals.to(torch.int64)
-        table = torch.zeros((m + 1, cols), dtype=torch.int64, device="cuda")
-        row = dict(n=int(n), C=int(cols), m=int(m),
-                   bytes=k2_bytes(n, cols, m),
+        s64 = slot.to(torch.int64)
+        v64 = torch.stack(cols, dim=1).to(torch.int64)
+        table = torch.zeros((m + 1, ncols), dtype=torch.int64, device="cuda")
+        row = dict(n=n, C=ncols, m=int(m), bytes=k2_bytes(n, ncols, m),
+                   flush_bytes=flush_bytes, flush_bytes_most=flush_most,
                    ms=time_cold(torch, lambda: k2.group_accumulate(
-                       slot, vals, m), flush, 50),
+                       slot, cols, m), flush, 50),
                    warm_ms=time_warm(torch, lambda: k2.group_accumulate(
-                       slot, vals, m), 100),
+                       slot, cols, m), 100),
                    plain_ms=time_cold(torch, lambda: gh.group_accumulate_ref(
-                       slot, vals, m), flush, 20),
+                       slot, cols, m), flush, 20),
                    library_ms=time_cold(torch, lambda: table.index_add_(
                        0, s64, v64), flush, 20),
                    bound_ms=bound, bound_by=by)
+        row["library_over_kernel"] = row["library_ms"] / row["ms"]
         rows[qname] = row
         log(f"[k2] {qname}: {json.dumps(row)}")
     if not rows:
@@ -647,12 +747,16 @@ def device_breakdown(torch, ctx, sql: str, warm_best_ms: float) -> dict:
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.end - e.time_range.start, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    cats = sorted(((n, v) for n, v in by_name.items() if "Cat" in n),
+                  key=lambda kv: -kv[1][0])
     return dict(
         profiled_wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
         idle_share=(1 - busy_us / 1e3 / warm_best_ms) if dev else None,
         device_ops=len(dev),
         top=[dict(name=n[:90], ms=us / 1e3, count=c)
-             for n, (us, c) in top])
+             for n, (us, c) in top],
+        cat=[dict(name=n[:90], ms=us / 1e3, count=c)
+             for n, (us, c) in cats])
 
 
 def _reset(counters) -> None:
@@ -702,20 +806,21 @@ def main(argv=None) -> int:
         native_lib = native.result()
     log(f"[build] {sorted(os.path.relpath(v) for v in libs.values())} + "
         f"{os.path.relpath(native_lib)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[sass] K2 shared atomics {k2_sass_atomics(libs[k2.SOURCE])}")
 
     # 3. K1 vs plain, every width and batch shape
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     err1 = check_k1(torch, dev)
-    log(f"[k1-check] bit-exact over widths 1..64 x B {{1,3,489,4097}} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"[k1-check] bit-exact over widths 1..64 x B {{1,3,489,4097}}, "
+        f"single and interval forms ({time.perf_counter() - t0:.1f} s)")
 
     # 4. K2 vs plain, every slot count, width and skew
     t0 = time.perf_counter()
     err2 = check_k2(torch, dev)
     log(f"[k2-check] bit-exact over m {{1,63,8889,16385,65535}} x C "
-        f"{{1,4,7,16}} x n {{2048,4005888}} x uniform/zipf slots "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"{{1,4,7,16}} x n {{2048,4097,4005888,4005891}} x uniform/zipf "
+        f"slots ({time.perf_counter() - t0:.1f} s)")
 
     # 4b. K3 and K4 vs plain, every width, three word counts, both forms
     t0 = time.perf_counter()
@@ -737,11 +842,9 @@ def main(argv=None) -> int:
     scalar_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
     if ctx.device.type != "cuda":
         raise AssertionError(f"the session ran on {ctx.device}")
-    # cb_like's only predicate is a verdict LUT over dictionary codes: no
-    # K1 launch is expected there (logged, not asserted)
-    if scalar_launches["cmp_const_many"] <= 0 or any(
-            r["k1_launches_per_run"] <= 0 for q, r in report.items()
-            if q != "cb_like"):
+    # one K1 launch per interval predicate and warm run is asserted in
+    # run_main_path (cb_like's only predicate is a verdict LUT: none)
+    if scalar_launches["cmp_const_many"] <= 0:
         raise AssertionError(f"the scalar path did not launch K1: "
                              f"{scalar_launches}")
 
@@ -752,16 +855,15 @@ def main(argv=None) -> int:
     if grouped_launches["group_accumulate"] <= 0:
         raise AssertionError(f"the grouped path did not launch K2: "
                              f"{grouped_launches}")
-    if greport["tpch_q1"]["k1_launches_per_run"] < 2:
-        raise AssertionError(f"tpch_q1 launched K1 "
-                             f"{greport['tpch_q1']['k1_launches_per_run']} "
-                             f"times per run")
     log(f"[launches] scalar path {json.dumps(scalar_launches)}; grouped "
         f"path {json.dumps(grouped_launches)}")
 
-    # 7. K1 timed on the main path's own inputs
+    # 7. K1's interval form timed on the main path's own inputs
     timing = time_k1(torch, ctx)
     top = max(timing["rows"], key=lambda r: r["bytes"])
+    log(f"[k1] largest input {top['column']}: interval / two single "
+        f"launches {top['over_two_single']:.3f}, / twice one single "
+        f"{top['over_twice_single']:.3f}")
 
     # 8. K2 timed on the grouped path's own inputs
     k2_timing = time_k2(torch, k2_inputs)
@@ -818,7 +920,9 @@ def main(argv=None) -> int:
         "max_abs_err": max(err1, timing["max_abs_err"]), "tolerance": 0,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "form": "interval",
+        "two_single_ms": top["two_single_ms"],
+        "single_ms": top["single_ms"],
         "shape": [top["B"], top["w"], 256], "column": top["column"],
         "matches_plain": True,
     }, {
@@ -831,6 +935,7 @@ def main(argv=None) -> int:
         "ms": k2_top["ms"], "plain_ms": k2_top["plain_ms"],
         "bound_ms": k2_top["bound_ms"], "bound_by": k2_top["bound_by"],
         "library_ms": k2_top["library_ms"],
+        "flush_bytes": k2_top["flush_bytes"],
         "shape": {"n": k2_top["n"], "C": k2_top["C"], "m": k2_top["m"]},
         "query": "cb_groupby", "matches_plain": True,
     }]
@@ -841,7 +946,7 @@ def main(argv=None) -> int:
             "source": "liquid_tpu_torch/ops/csrc/cmp_planes.cu",
             "replaces": f"liquid_tpu/ops/bitpack_pallas.py:{line}",
             "launches": launches(name),
-        "launches_by_phase": by_phase(name),
+            "launches_by_phase": by_phase(name),
             "max_abs_err": max(err34, row["max_abs_err"]), "tolerance": 0,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -228,7 +228,8 @@ def operator_rooflines(ctx):
         lo = torch.ones(st.shape[0], dtype=torch.int64, device=dev)
         hi = torch.full((st.shape[0],), 1 << 62, dtype=torch.int64,
                         device=dev)
-        nb = st.numel() * 4 * 2
+        # one interval launch: the planes read once, the mask written
+        nb = st.numel() * 4 + st.shape[0] * 256 * 4
         emit("encoded_filter", n, nb, _timed_ms(
             lambda: _in_interval_many(st, lo, hi), iters_for(nb)))
         nb = st.numel() * 4 + n * 4
@@ -241,7 +242,7 @@ def operator_rooflines(ctx):
         m = 1 << 14
         codes = (bp.unpack_bitplanes_many(st) + refs[:, None]).reshape(-1)
         slot = codes.clamp(0, m).to(torch.int32)
-        ones = torch.ones((n, 4), dtype=torch.int32, device=dev)
+        ones = [torch.ones(n, dtype=torch.int32, device=dev)] * 4
         per = _timed_ms(lambda: grouphist_cuda.group_accumulate(slot, ones, m),
                         20)
         # latency-bound: ns/row is the metric, not a roofline fraction

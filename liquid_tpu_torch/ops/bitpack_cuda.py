@@ -13,6 +13,13 @@ per-block constants int64[B] (u64 bit images).
 - w = 0 has no planes to read: the result follows the constant alone and
   no kernel runs (as in the reference, `bitpack.py:171-177`).
 
+`in_interval_many(planes_stack, lo, hi)` is K1's interval form: the
+packed int32[B, 256] mask of values in [lo[b], hi[b]] (inclusive u64
+bounds as int64 images), `~lt_lo & (lt_hi | eq_hi)`, from one launch
+that reads the planes once.  Its plain version `in_interval_many_ref`
+is that expression over two `cmp_const_many_ref` calls.  Both K1 forms
+count into `LAUNCHES["cmp_const_many"]`.
+
 K3 `count_gt(planes, c)` and K4 `cmp_const_planes(planes, c)` replace
 `count_gt` and `cmp_const_planes` of the same TPU module: one column of
 planes int32[w, W] (or `prep`'s zero-copy [w, W/128, 128] view) against
@@ -51,9 +58,8 @@ LAUNCHES = {"cmp_const_many": 0, "count_gt": 0, "cmp_const_planes": 0}
 SOURCE = os.path.join(nvcc.CSRC, "cmp_const_many.cu")
 PLANES_SOURCE = os.path.join(nvcc.CSRC, "cmp_planes.cu")
 
-_fn = None
 _fn_lock = threading.Lock()
-_planes_fns = {}
+_fns = {}
 
 
 def library_path() -> str:
@@ -67,16 +73,23 @@ def build(verbose: bool = False) -> str:
     return nvcc.build(SOURCE, verbose)
 
 
-def _load():
-    global _fn
+def _bind(source: str, symbol: str, argtypes):
+    """The launch function `symbol` of `source`'s library, built on first
+    use, with its ctypes signature (int return: a CUDA error code)."""
     with _fn_lock:
-        if _fn is None:
-            fn = nvcc.load(SOURCE).cmp_const_many_launch
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p]
+        fn = _fns.get(symbol)
+        if fn is None:
+            fn = getattr(nvcc.load(source), symbol)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _fn = fn
-    return _fn
+            _fns[symbol] = fn
+    return fn
+
+
+#: both K1 launches: planes and three arrays (single: cs, lt, eq;
+#: interval: lo, hi, mask), nblocks, width, stream
+_K1_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
 
 
 def _check(planes_stack: torch.Tensor, cs: torch.Tensor) -> None:
@@ -153,7 +166,7 @@ def cmp_const_many(planes_stack: torch.Tensor, cs: torch.Tensor
     eq = torch.empty_like(lt)
     if bsz == 0:
         return lt, eq
-    launch = _load()
+    launch = _bind(SOURCE, "cmp_const_many_launch", _K1_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
@@ -165,19 +178,47 @@ def cmp_const_many(planes_stack: torch.Tensor, cs: torch.Tensor
     return lt, eq
 
 
+def in_interval_many_ref(planes_stack: torch.Tensor, lo: torch.Tensor,
+                         hi: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K1's interval form (any device)."""
+    lt_lo, _ = cmp_const_many_ref(planes_stack, lo)
+    lt_hi, eq_hi = cmp_const_many_ref(planes_stack, hi)
+    return ~lt_lo & (lt_hi | eq_hi)
+
+
+def in_interval_many(planes_stack: torch.Tensor, lo: torch.Tensor,
+                     hi: torch.Tensor) -> torch.Tensor:
+    """Packed int32[B, 256] mask of the values in [lo[b], hi[b]] for
+    planes int32[B, w, 256].  CUDA tensors run one K1 launch; CPU
+    tensors, and w = 0, the plain version; anything else raises."""
+    _check(planes_stack, lo)
+    _check(planes_stack, hi)
+    dev = planes_stack.device
+    if dev.type == "cpu" or planes_stack.shape[1] == 0:
+        return in_interval_many_ref(planes_stack, lo, hi)
+    if dev.type != "cuda":
+        raise ValueError(f"in_interval_many: unsupported device {dev}")
+    bsz, width, _ = planes_stack.shape
+    mask = torch.empty((bsz, BLOCK_WORDS), dtype=torch.int32, device=dev)
+    if bsz == 0:
+        return mask
+    launch = _bind(SOURCE, "in_interval_many_launch", _K1_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(planes_stack.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                    mask.data_ptr(), bsz, width, stream)
+    if rc != 0:
+        raise RuntimeError(f"in_interval_many launch failed: CUDA error {rc}")
+    LAUNCHES["cmp_const_many"] += 1
+    return mask
+
+
 # -- K3 / K4: one column against one constant ---------------------------------
 
 def _load_planes(name: str, n_out: int):
-    with _fn_lock:
-        fn = _planes_fns.get(name)
-        if fn is None:
-            fn = getattr(nvcc.load(PLANES_SOURCE), f"{name}_launch")
-            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                            ctypes.c_uint64] + [ctypes.c_void_p] * n_out
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _planes_fns[name] = fn
-    return fn
+    return _bind(PLANES_SOURCE, f"{name}_launch",
+                 [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                  ctypes.c_uint64] + [ctypes.c_void_p] * (n_out + 1))
 
 
 def prep(planes: torch.Tensor) -> torch.Tensor:

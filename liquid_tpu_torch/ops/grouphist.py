@@ -5,13 +5,15 @@ The TPU kernel accumulates i32 payload columns into VMEM tables that
 rotate across rows (`ntab`) and flush to HBM every `seg` tiles, so the
 planner must prove that no i32 window overflows (`plan_segments`) or
 split wide values into hi/lo halves (`plan_hilo`, `split_hilo`).  The
-Hopper kernel (`grouphist_cuda.group_accumulate`) adds into i64 with
-native 64-bit atomics and needs neither cadence, but the planner still
+Hopper kernel (`grouphist_cuda.group_accumulate`) adds into exact i64
+tables in shared memory and needs neither cadence, but the planner still
 computes both: they decide whether a query takes the K2 route at all, so
 the port routes exactly the queries the reference does.  The hi/lo split
 stays in the contract, so the kernel reads 4 bytes per value.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -95,12 +97,14 @@ def clamp_slots(slot: torch.Tensor, m: int) -> torch.Tensor:
     return slot.clamp(0, padded_slots(m) - 1)
 
 
-def group_accumulate_ref(slot: torch.Tensor, vals: torch.Tensor,
+def group_accumulate_ref(slot: torch.Tensor, cols: Sequence[torch.Tensor],
                          m: int) -> torch.Tensor:
-    """Plain PyTorch version of K2: slot int32[n], vals int32[n, C] ->
-    exact int64[m + 1, C] per-slot sums (row m collects the trash)."""
+    """Plain PyTorch version of K2: slot int32[n] and C payload columns
+    int32[n] -> exact int64[m + 1, C] per-slot sums (row m collects the
+    trash).  It stacks the columns, as the kernel does not."""
+    vals = torch.stack([c.to(torch.int64) for c in cols], dim=1)
     s = clamp_slots(slot, m).to(torch.int64)
     out = torch.zeros((padded_slots(m), vals.shape[1]), dtype=torch.int64,
                       device=vals.device)
-    out.index_add_(0, s, vals.to(torch.int64))
+    out.index_add_(0, s, vals)
     return out[: m + 1]

@@ -177,17 +177,17 @@ def direct_reduce_packed(codes: Sequence[torch.Tensor],
             and list(add_cols) == [_I64]:
         # K2: one pass over the rows for every bound-safe sum column
         _seg, _ntab, wide = pallas_seg
-        parts, stack_cols = [], []
+        parts, k2_cols = [], []
         for tag, v in add_cols[_I64]:
             if tag[0] == "acc" and wide[tag[1]]:
                 hi, lo = gh.split_hilo(v)
-                stack_cols += [hi, lo]
+                k2_cols += [hi, lo]
                 parts += [(tag, "hi"), (tag, "lo")]
             else:
-                stack_cols.append(v.to(torch.int32))
+                k2_cols.append(v.to(torch.int32))
                 parts.append((tag, "plain"))
-        tb = grouphist_cuda.group_accumulate(
-            slot, torch.stack(stack_cols, dim=1), m)
+        # the kernel reads the columns in place: no [n, C] stack
+        tb = grouphist_cuda.group_accumulate(slot, k2_cols, m)
         acc_map: Dict[tuple, torch.Tensor] = {}
         for k2, (tag, part) in enumerate(parts):
             col = tb[:m, k2]

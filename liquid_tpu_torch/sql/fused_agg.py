@@ -777,10 +777,8 @@ def _float_interval(payloads, pred: Predicate):
 def _in_interval_many(planes_stack: torch.Tensor, lo: torch.Tensor,
                       hi: torch.Tensor) -> torch.Tensor:
     """Packed masks off in [lo, hi] (inclusive, per-block u64 bounds as
-    int64 images): two launches of K1 on the card."""
-    lt_lo, _ = bitpack_cuda.cmp_const_many(planes_stack, lo)
-    lt_hi, eq_hi = bitpack_cuda.cmp_const_many(planes_stack, hi)
-    return ~lt_lo & (lt_hi | eq_hi)
+    int64 images): one launch of K1's interval form on the card."""
+    return bitpack_cuda.in_interval_many(planes_stack, lo, hi)
 
 
 def _selection_packed(colmap, pred_groups, arrays, sel: torch.Tensor

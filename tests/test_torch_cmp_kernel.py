@@ -1,8 +1,10 @@
 """K1 (`cmp_const_many`) on the CPU: the port's plain version and its
 wrapper against the TPU kernel run in Pallas interpret mode and against
-`jax.vmap(bitpack.cmp_const)`.  Bit-exact (tolerance 0).  The CUDA kernel
-itself is held against the same plain version on the card by
-`chip_smoke.py`."""
+`jax.vmap(bitpack.cmp_const)`; K1's interval form (`in_interval_many`)
+and its plain version against the reference's
+`sql/fused_agg.py::_in_interval_many`.  Bit-exact (tolerance 0).  The
+CUDA kernel itself is held against the same plain versions on the card
+by `chip_smoke.py`."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -13,6 +15,7 @@ import numpy as np  # noqa: E402
 
 from liquid_tpu.ops import bitpack as jbp  # noqa: E402
 from liquid_tpu.ops import bitpack_pallas as jbpp  # noqa: E402
+from liquid_tpu.sql import fused_agg as jfa  # noqa: E402
 from liquid_tpu_torch.device import (  # noqa: E402
     u64_to_i64, words_to_numpy, words_to_tensor,
 )
@@ -120,3 +123,65 @@ def test_kernel_source_and_build_key():
     assert 'extern "C" int cmp_const_many_launch' in src
     assert k1.library_path().startswith(k1.BUILD_DIR)
     assert "arch=compute_90a,code=sm_90a" in k1.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("width", range(1, 65))
+def test_interval_form_matches_reference_in_interval_many(width):
+    """Masks of [lo, hi] per block: constants at, above and beyond the
+    width (both bounds), lo > hi, and lo == hi."""
+    planes, lo = _case(width, 9, seed=width + 500)
+    hi = np.roll(lo, 3)  # every pairing of the pool, lo > hi included
+    hi[0], hi[1] = lo[0], lo[1] >> np.uint64(1)
+    ref = np.asarray(jfa._in_interval_many(
+        jnp.asarray(planes), jnp.asarray(lo), jnp.asarray(hi)))
+    t_planes = words_to_tensor(planes)
+    t_lo, t_hi = (torch.from_numpy(u64_to_i64(x)) for x in (lo, hi))
+    before = k1.LAUNCHES["cmp_const_many"]
+    for fn in (k1.in_interval_many_ref, k1.in_interval_many):
+        got = fn(t_planes, t_lo, t_hi)
+        assert got.dtype == torch.int32 and got.shape == (9, 256)
+        np.testing.assert_array_equal(words_to_numpy(got), ref)
+    assert k1.LAUNCHES["cmp_const_many"] == before  # CPU: plain version
+
+
+def test_interval_form_without_planes_follows_the_bounds():
+    """w = 0: every stored value is 0, so a block's mask is full iff
+    lo == 0 (the reference's lt/eq of a constant alone)."""
+    lo = np.array([0, 0, 1, 5], np.uint64)
+    hi = np.array([0, 7, 0, 9], np.uint64)
+    planes = np.zeros((4, 0, 256), np.uint32)
+    ref = np.asarray(jfa._in_interval_many(
+        jnp.asarray(planes), jnp.asarray(lo), jnp.asarray(hi)))
+    got = k1.in_interval_many(words_to_tensor(planes),
+                              torch.from_numpy(u64_to_i64(lo)),
+                              torch.from_numpy(u64_to_i64(hi)))
+    np.testing.assert_array_equal(words_to_numpy(got), ref)
+
+
+def test_interval_wrapper_rejects_bad_inputs():
+    p = torch.zeros((2, 4, 256), dtype=torch.int32)
+    c = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(TypeError):
+        k1.in_interval_many(p.to(torch.int64), c, c)
+    with pytest.raises(TypeError):
+        k1.in_interval_many(p, c, c.to(torch.int32))
+    with pytest.raises(ValueError):
+        k1.in_interval_many(torch.zeros((2, 4, 128), dtype=torch.int32), c, c)
+    with pytest.raises(ValueError):
+        k1.in_interval_many(p, c, torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        k1.in_interval_many(p.transpose(0, 1).contiguous().transpose(0, 1),
+                            c, c)
+    with pytest.raises(ValueError):
+        k1.in_interval_many(p, c, torch.zeros(4, dtype=torch.int64)[::2])
+    with pytest.raises(ValueError):
+        k1.in_interval_many(torch.zeros((2, 65, 256), dtype=torch.int32), c, c)
+    with pytest.raises(ValueError):
+        k1.in_interval_many(p.to("meta"), c.to("meta"), c.to("meta"))
+
+
+def test_kernel_source_has_both_forms():
+    with open(k1.SOURCE) as f:
+        src = f.read()
+    assert 'extern "C" int in_interval_many_launch' in src
+    assert "_in_interval_many" in src  # names the reference pair it fuses

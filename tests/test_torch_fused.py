@@ -19,6 +19,7 @@ from liquid_tpu_torch.arrays.convert import from_numpy_fields  # noqa: E402
 from liquid_tpu_torch.device import (  # noqa: E402
     u64_to_i64, words_to_numpy, words_to_tensor,
 )
+from liquid_tpu_torch.ops import bitpack_cuda  # noqa: E402
 from liquid_tpu_torch.sql import fused_agg as tfa  # noqa: E402
 
 OPS = ("eq", "ne", "lt", "lt_eq", "gt", "gt_eq")
@@ -98,3 +99,24 @@ def test_float_intervals_overlays_and_masks(op):
         np.testing.assert_array_equal(tiv[3], riv[3])
         np.testing.assert_array_equal(tiv[4], riv[4])
         _masks_equal(planes, tiv[0], tiv[1])
+
+
+def test_interval_masks_take_one_k1_call(monkeypatch):
+    """The fused path's interval mask is one call of K1's interval form
+    (one launch on the card), never a pair of single-constant calls."""
+    calls = []
+    real = bitpack_cuda.in_interval_many
+
+    def spy(*a, **k):
+        calls.append("interval")
+        return real(*a, **k)
+
+    monkeypatch.setattr(bitpack_cuda, "in_interval_many", spy)
+    monkeypatch.setattr(bitpack_cuda, "cmp_const_many",
+                        lambda *a, **k: calls.append("single"))
+    ref, _ = _blocks("int")
+    planes = _stack(ref)
+    lo = np.full(len(ref), 150, np.uint64)
+    hi = np.full(len(ref), 2999, np.uint64)
+    _masks_equal(planes, lo, hi)
+    assert calls == ["interval"]

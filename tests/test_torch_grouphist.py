@@ -1,9 +1,10 @@
 """K2 (`group_accumulate`) on the CPU: the port's plain version and its
-wrapper against the TPU kernel's own Pallas body run in interpret mode and
-against `np.add.at`, plus the planner's gates against the reference's.
-Integer sums and plans are compared exactly (tolerance 0).  The CUDA
-kernel itself is held against the same plain version on the card by
-`chip_smoke.py`."""
+wrapper, which take the payload as a list of int32[n] columns, against
+the TPU kernel's own Pallas body run in interpret mode and against
+`np.add.at`; the wrapper's launch plan (pure Python); the planner's gates
+against the reference's.  Integer sums and plans are compared exactly
+(tolerance 0).  The CUDA kernel itself is held against the same plain
+version on the card by `chip_smoke.py`."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -62,15 +63,21 @@ def _case(n, c, m, seed, vmax=2 ** 31):
     return slot, vals
 
 
+def _cols(vals):
+    """[n, C] numpy -> C contiguous int32[n] tensors (the kernel's input)."""
+    return [torch.from_numpy(np.ascontiguousarray(vals[:, c]))
+            for c in range(vals.shape[1])]
+
+
 def test_plain_version_matches_the_pallas_kernel_body():
     # values small enough that the TPU kernel's i32 segments stay exact
     slot, vals = _case(4096, 3, 37, seed=3, vmax=1000)
     seg = jgh.plan_segments(4096, 1000)[1]
     ref = _pallas_interpret(jnp.asarray(slot), jnp.asarray(vals), 37, seg, 2)
-    got = tgh.group_accumulate_ref(torch.from_numpy(slot),
-                                   torch.from_numpy(vals), 37)
-    assert got.dtype == torch.int64 and got.shape == (38, 3)
-    np.testing.assert_array_equal(got.numpy(), ref)
+    for fn in (tgh.group_accumulate_ref, k2.group_accumulate):
+        got = fn(torch.from_numpy(slot), _cols(vals), 37)
+        assert got.dtype == torch.int64 and got.shape == (38, 3)
+        np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(ref, _np_ref(slot, vals, 37))
 
 
@@ -81,7 +88,7 @@ def test_plain_version_and_wrapper_match_add_at(m, c):
     pin the mp - 1 clip edge (mp = 8 and 16)."""
     slot, vals = _case(3000, c, m, seed=m * 31 + c)
     want = _np_ref(slot, vals, m)
-    ts, tv = torch.from_numpy(slot), torch.from_numpy(vals)
+    ts, tv = torch.from_numpy(slot), _cols(vals)
     np.testing.assert_array_equal(
         tgh.group_accumulate_ref(ts, tv, m).numpy(), want)
     before = k2.LAUNCHES["group_accumulate"]
@@ -90,21 +97,73 @@ def test_plain_version_and_wrapper_match_add_at(m, c):
     assert k2.LAUNCHES["group_accumulate"] == before  # CPU: no kernel
 
 
+@pytest.mark.parametrize("n", [1, 3, 4097])
+@pytest.mark.parametrize("m", [63, 65535])
+def test_ragged_rows_and_sixteen_columns_match_add_at(n, m):
+    """n not a multiple of the kernel's 4-row loads, C = 16, and m =
+    65535, whose table the card splits into slot ranges."""
+    slot, vals = _case(n, 16, m, seed=n + m)
+    want = _np_ref(slot, vals, m)
+    got = k2.group_accumulate(torch.from_numpy(slot), _cols(vals), m)
+    assert got.shape == (m + 1, 16)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m", [1, 63, 8889, 16385, 65535])
+@pytest.mark.parametrize("c", [1, 7, 16])
+def test_launch_plan_fits_shared_memory_and_covers_every_slot(m, c):
+    """Every CTA's table fits a Hopper block's 232,448 shared bytes, the
+    slot ranges cover [0, mp) exactly once, the grid stays within one
+    CTA per SM, and the row chunks cover every 4-row group."""
+    mp = tgh.padded_slots(m)
+    for n in (0, 3, 2048, 4097, 4_005_888, 6_001_215):
+        p = k2.plan(n, c, m, sms=132)
+        assert p.smem == p.range_len * 8 <= 232_448
+        # range r covers [r * range_len, min((r + 1) * range_len, mp))
+        spans = [(r * p.range_len, min((r + 1) * p.range_len, mp))
+                 for r in range(p.ranges)]
+        assert spans[0][0] == 0 and spans[-1][1] == mp
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        assert all(lo < hi for lo, hi in spans)
+        assert c * p.ranges * p.chunks <= max(132, c * p.ranges)
+        assert p.chunks * p.quads_per_chunk >= n // 4
+        assert (p.chunks - 1) * p.quads_per_chunk < max(n // 4, 1)
+    assert k2.plan(4_005_888, c, m, sms=132).ranges == (3 if m == 65535
+                                                        else 1)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     s = torch.zeros(8, dtype=torch.int32)
-    v = torch.zeros((8, 2), dtype=torch.int32)
+    v = [torch.zeros(8, dtype=torch.int32), torch.zeros(8, dtype=torch.int32)]
     with pytest.raises(TypeError):
         k2.group_accumulate(s.long(), v, 4)
     with pytest.raises(TypeError):
-        k2.group_accumulate(s, v.long(), 4)
+        k2.group_accumulate(s, [v[0].long(), v[1]], 4)
+    with pytest.raises(TypeError):  # one [n, C] tensor, not a list
+        k2.group_accumulate(s, torch.zeros((8, 2), dtype=torch.int32), 4)
     with pytest.raises(ValueError):
-        k2.group_accumulate(s, torch.zeros((8, 17), dtype=torch.int32), 4)
+        k2.group_accumulate(s, v * 9, 4)  # 18 columns
+    with pytest.raises(ValueError):
+        k2.group_accumulate(s, [], 4)
     with pytest.raises(ValueError):
         k2.group_accumulate(s, v, tgh.MAX_SLOTS)
     with pytest.raises(ValueError):
         k2.group_accumulate(s[:4], v, 4)
     with pytest.raises(ValueError):
-        k2.group_accumulate(s, v.t().contiguous().t(), 4)
+        k2.group_accumulate(s, [v[0], torch.zeros((8, 2), dtype=torch.int32
+                                                  )[:, 0]], 4)
+    with pytest.raises(ValueError):
+        k2.group_accumulate(s.to("meta"), [c.to("meta") for c in v], 4)
+
+
+def test_kernel_source_names_the_tpu_kernel_and_reads_columns():
+    with open(k2.SOURCE) as f:
+        src = f.read()
+    assert "grouphist_pallas.py" in src and "`group_accumulate`" in src
+    assert 'extern "C" int group_accumulate_launch' in src
+    assert "const int32_t* p[kMaxCols]" in src  # column pointers by value
+    assert f"kThreads = {k2.THREADS}" in src
+    assert f"kMaxSmem = {k2.MAX_SMEM}" in src
 
 
 def test_constants_match_reference():

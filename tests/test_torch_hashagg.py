@@ -144,6 +144,36 @@ def test_direct_reduce_k2_branch_matches_reference(wide):
     _assert_same_reduction(got, ref, 1, kinds, [])
 
 
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_direct_reduce_k2_branch_hands_k2_columns_in_place(wide,
+                                                            monkeypatch):
+    """The K2 branch passes its payload as a list of contiguous int32[n]
+    columns (hi/lo halves for a wide sum), with no [n, C] stack."""
+    mag = (1 << 30) if wide else (1 << 14)
+    spans = (4095,)
+    codes, knulls, valid, vals, vnulls, kinds, los = _inputs(
+        7, spans, [("sum", "i64", mag), ("sum", "i64", 3)])
+    plan = tgh.plan_hilo(8192, mag)
+    pseg = (plan[0], tgh.plan_tables(4097), (wide, False))
+    seen = []
+    real = k2.group_accumulate
+
+    def spy(slot, cols, m, **kw):
+        seen.append((slot, cols, m))
+        return real(slot, cols, m, **kw)
+
+    monkeypatch.setattr(k2, "group_accumulate", spy)
+    _torch(tha.direct_reduce_packed, codes, knulls, valid, vals, vnulls,
+           kinds, torch.from_numpy(los), spans, pseg)
+    (slot, cols, m), = seen
+    assert isinstance(cols, list) and m == 4097
+    # occupancy, two (acc, cnt) pairs; the wide sum rides as hi and lo
+    assert len(cols) == 5 + int(wide)
+    for c in cols:
+        assert c.dtype == torch.int32 and c.dim() == 1
+        assert c.is_contiguous() and c.shape == slot.shape
+
+
 def _hash_inputs(seed, n_keys_distinct):
     rng = np.random.default_rng(seed)
     pool = rng.integers(-(1 << 62), 1 << 62, n_keys_distinct)
