@@ -43,10 +43,25 @@ Phases (any failure raises and the script exits non-zero):
    checked, counts set to 0 just before this phase and read after; the
    slot and column list the path fed K2 are captured by wrapping the
    wrapper from here;
-7. K1's interval form timed (CUDA events, L2 flushed before each timed
-   call) on the exact (planes, lo, hi) the main path gave it, beside the
-   two single-constant launches it replaces (as a pair after one flush,
-   and one alone), the plain version and the byte bound;
+   6b. the star path on the same session: TPC-H q3 (the bench's text),
+   q5 and q10 at this run's scale over `lineitem`, `orders`, `customer`,
+   `supplier`, `nation` and `region`; answers checked against pyarrow
+   joins (`bench/oracle.py`), the first run's answer and the last warm
+   run's; the star route (`STATS["star_queries"]`), the first run
+   (dimension builds and the uniqueness fetch) and the best of three
+   warm runs timed, K1 launches per warm run asserted (`K1_PER_RUN`:
+   the fact table's intervals only, since warm runs reuse the cached
+   star plan) and in the first run (`K1_FIRST_RUN`, the builds'
+   intervals added); the dimension index tables and the reduction
+   tiers a warm run took (`hashagg.TIERS`) reported; every (planes, lo,
+   hi) the star runs give K1 captured by wrapping the wrapper from
+   here; counts set to 0 just before this phase and read after;
+7. K1's interval form checked bit-exact against its plain version and
+   timed (CUDA events, L2 flushed before each timed call) on the exact
+   (planes, lo, hi) the main path gave it -- the single-table plans'
+   and the star phase's, dimension builds included -- beside the two
+   single-constant launches it replaces (as a pair after one flush, and
+   one alone), the plain version and the byte bound;
 8. K2 timed the same way on the inputs captured in phase 6, beside its
    plain version, one `index_add_` call on the same
    inputs (stacked to int64 outside the timing) and its byte bound, with
@@ -56,8 +71,9 @@ Phases (any failure raises and the script exits non-zero):
    the concatenation copies (`Cat` kernels, the form `torch.stack` takes);
    9b. the port's benchmark entry point (`liquid_tpu_torch.bench.main`)
    in this process at this run's sizes, counts set to 0 just before and
-   read after: five queries answered and checked against pyarrow, routes
-   fused, the micro line's K3 launches (at least 256); its JSON line is
+   read after: six queries answered and checked against pyarrow, routes
+   fused and (`tpch_q3`) star, the micro line's K3 launches (at least
+   256); its JSON line is
    printed by it.  The launches of its operator timing loops are
    counted apart: each kernel's `launches` is the query phases' and the
    micro line's, `launches_by_phase` splits it and adds the loops';
@@ -113,13 +129,73 @@ TPCH_Q6 = """SELECT sum(l_extendedprice * l_discount) as revenue
  FROM lineitem WHERE l_shipdate >= date '1994-01-01'
  AND l_shipdate < date '1995-01-01'
  AND l_discount between 0.05 and 0.07 AND l_quantity < 24"""
+#: TPC-H q3 as the bench runs it (ties broken by l_orderkey), q5, and q10
+#: with ties broken by c_custkey
+TPCH_Q3 = """SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount))
+ as revenue, o_orderdate, o_shippriority
+ FROM customer, orders, lineitem
+ WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey
+ AND l_orderkey = o_orderkey AND o_orderdate < date '1995-03-15'
+ AND l_shipdate > date '1995-03-15'
+ GROUP BY l_orderkey, o_orderdate, o_shippriority
+ ORDER BY revenue desc, o_orderdate, l_orderkey LIMIT 10"""
+TPCH_Q5 = """SELECT n_name, sum(l_extendedprice * (1 - l_discount)) AS revenue
+ FROM customer, orders, lineitem, supplier, nation, region
+ WHERE c_custkey = o_custkey AND l_orderkey = o_orderkey
+ AND l_suppkey = s_suppkey AND c_nationkey = s_nationkey
+ AND s_nationkey = n_nationkey AND n_regionkey = r_regionkey
+ AND r_name = 'ASIA' AND o_orderdate >= date '1994-01-01'
+ AND o_orderdate < date '1994-01-01' + interval '1' year
+ GROUP BY n_name ORDER BY revenue DESC"""
+TPCH_Q10 = """SELECT c_custkey, c_name,
+ sum(l_extendedprice * (1 - l_discount)) AS revenue,
+ c_acctbal, n_name, c_address, c_phone, c_comment
+ FROM customer, orders, lineitem, nation
+ WHERE c_custkey = o_custkey AND l_orderkey = o_orderkey
+ AND o_orderdate >= date '1993-10-01'
+ AND o_orderdate < date '1993-10-01' + interval '3' month
+ AND l_returnflag = 'R' AND c_nationkey = n_nationkey
+ GROUP BY c_custkey, c_name, c_acctbal, c_phone, n_name, c_address,
+ c_comment ORDER BY revenue DESC, c_custkey LIMIT 20"""
+#: (query, sql, {table: columns}) of the star phase
+STAR_QUERIES = [
+    ("tpch_q3", TPCH_Q3, {
+        "lineitem": ["l_orderkey", "l_extendedprice", "l_discount",
+                     "l_shipdate"],
+        "orders": ["o_orderkey", "o_custkey", "o_orderdate",
+                   "o_shippriority"],
+        "customer": ["c_custkey", "c_mktsegment"]}),
+    ("tpch_q5", TPCH_Q5, {
+        "lineitem": ["l_orderkey", "l_suppkey", "l_extendedprice",
+                     "l_discount"],
+        "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
+        "customer": ["c_custkey", "c_nationkey"],
+        "supplier": ["s_suppkey", "s_nationkey"],
+        "nation": ["n_nationkey", "n_name", "n_regionkey"],
+        "region": ["r_regionkey", "r_name"]}),
+    ("tpch_q10", TPCH_Q10, {
+        "lineitem": ["l_orderkey", "l_extendedprice", "l_discount",
+                     "l_returnflag"],
+        "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
+        "customer": ["c_custkey", "c_name", "c_acctbal", "c_phone",
+                     "c_address", "c_comment", "c_nationkey"],
+        "nation": ["n_nationkey", "n_name"]}),
+]
 
 
 #: K1 launches per warm run: one per interval predicate on a bit-plane
-#: column (string predicates are verdict LUTs and launch none)
+#: column (string predicates are verdict LUTs and launch none).  A star
+#: query's warm run reuses its cached plan and dimension builds: only
+#: the fact table's intervals launch -- q3's l_shipdate, q5's dynamic
+#: l_suppkey range (two), none for q10 (l_returnflag is a string; the
+#: dynamic l_orderkey range is linear-coded, a residual)
 K1_PER_RUN = {"cb_filter": 1, "cb_like": 0, "tpch_q6": 5, "cb_groupby": 0,
               "cb_q15": 0, "tpch_q15_revenue": 2, "tpch_supp_price": 1,
-              "tpch_q1": 1}
+              "tpch_q1": 1, "tpch_q3": 1, "tpch_q5": 2, "tpch_q10": 0}
+#: K1 launches in a star query's first run, in the phase's order: the
+#: warm run's plus the intervals of its dimension builds (each query
+#: builds orders under its own o_orderdate range)
+K1_FIRST_RUN = {"tpch_q3": 2, "tpch_q5": 4, "tpch_q10": 2}
 
 
 def log(*a):
@@ -438,13 +514,13 @@ def run_harness(torch, args):
     finally:
         bench.operator_rooflines = timed
     want = {"cb_filter", "cb_groupby", "cb_like", "tpch_q1", "tpch_q6"}
-    if set(res["queries_ms"]) != want:
+    if set(res["queries_ms"]) != want | {"tpch_q3"}:
         raise AssertionError(f"harness answered {sorted(res['queries_ms'])}")
-    if set(res["routes"].values()) != {"fused"}:
+    if res["routes"] != {**{q: "fused" for q in want}, "tpch_q3": "star"}:
         raise AssertionError(f"harness routes {res['routes']}")
     if res["micro_packed_compare_rows_per_s"] is None:
         raise AssertionError("harness micro line gave no rate")
-    if set(res["not_ported"]) != {"tpch_q3", "arrow"}:
+    if set(res["not_ported"]) != {"arrow"}:
         raise AssertionError(f"harness not_ported {res['not_ported']}")
     return res, op_launches
 
@@ -608,12 +684,138 @@ def run_grouped_path(torch, ctx, paths: dict, expect: dict):
     return report, inputs
 
 
+def star_reduction(p, mode: str, tiers: dict) -> dict:
+    """A star plan's shape: probes, the reduction's physical keys and
+    slot count m, and the tiers a warm run took (the change in
+    `hashagg.TIERS`, counted where the reduction picks its tier)."""
+    from liquid_tpu_torch.sql import fused_agg
+    out = dict(mode=mode, probes=len(p.probes), fd=bool(p.fd),
+               phys_keys=[str(k) for k in fused_agg._red_keys(p)],
+               tiers=tiers)
+    if mode == "grouped":
+        doms = fused_agg._phys_domains(p)
+        m = 1
+        for _, span in doms or ():
+            m *= span + 2
+        out.update(m=m if doms else None,
+                   packed_rows=1 + 2 * len(p.keys) + 2 * len(p.rslots),
+                   reduced_keys=len(fused_agg._red_keys(p)))
+    return out
+
+
+def dimension_tables(ctx) -> list:
+    """Every built dimension in the session's probe caches: table, key
+    domain, index entries and bytes, scanned rows."""
+    out = []
+    for name, table in ctx._tables.items():
+        for probe in getattr(table, "_star_probe_cache", {}).values():
+            out.append(dict(table=name, key=probe.cache_key[1],
+                            lo=probe.lo, hi=probe.hi,
+                            idx_entries=int(probe.idx.numel()),
+                            rows_scanned=probe.nrows, nbytes=probe.nbytes,
+                            payloads=sorted(probe.payload)))
+    return out
+
+
+def run_star_path(torch, ctx, expect: dict):
+    """Phase 6b: TPC-H q3, q5 and q10 on the star path -> (per-query
+    report, [(planes, lo, hi, label)] of every interval the star runs
+    fed K1, dimension builds included, captured by wrapping the
+    wrapper from here)."""
+    from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    from liquid_tpu_torch.ops import hashagg
+    from liquid_tpu_torch.sql import fused_agg
+    calls = []
+    wrapped = k1.in_interval_many
+
+    def capture(planes, lo, hi):
+        calls.append((planes, lo, hi))
+        return wrapped(planes, lo, hi)
+
+    k1.in_interval_many = capture
+    report, inputs, seen = {}, [], set()
+    try:
+        for qname, sql, tcols in STAR_QUERIES:
+            t0 = time.perf_counter()
+            for table, cols in tcols.items():
+                pt = ctx._tables[table]
+                for rg in range(pt.num_row_groups):
+                    for c in cols:
+                        pt.ensure_cached(rg, c)
+            t_transcode = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            plans = ctx._exec.__dict__.setdefault("_star_plan_cache", {})
+            cached = set(plans)
+
+            def run_once():
+                st, tiers = dict(fused_agg.STATS), dict(hashagg.TIERS)
+                launches = k1.LAUNCHES["cmp_const_many"]
+                calls.clear()
+                out = ctx.sql(sql).to_arrow()
+                torch.cuda.synchronize()
+                if fused_agg.STATS["star_queries"] != st["star_queries"] + 1:
+                    raise AssertionError(f"{qname} left the star route")
+                # the wrapper launches for every call with planes to read
+                run_calls = [c for c in calls if c[0].shape[0] * c[0].shape[1]]
+                k1_run = k1.LAUNCHES["cmp_const_many"] - launches
+                if k1_run != len(run_calls):
+                    raise AssertionError(f"{qname}: {k1_run} K1 launches for "
+                                         f"{len(run_calls)} interval calls")
+                return out, k1_run, run_calls, {
+                    k: v - tiers[k] for k, v in hashagg.TIERS.items()
+                    if v != tiers[k]}
+
+            t0 = time.perf_counter()
+            out, first_k1, first_calls, _ = run_once()
+            t_first = time.perf_counter() - t0
+            warm, outs = [], {"first": out}
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out, per_run, warm_calls, tiers = run_once()
+                warm.append(time.perf_counter() - t0)
+            outs["last warm"] = out
+            for what, got in outs.items():
+                if not oracle.same_table(got, expect[qname]):
+                    raise AssertionError(f"{qname} ({what} run): port "
+                                         f"{got.to_pylist()[:2]} != pyarrow")
+            for want, got, what in ((K1_PER_RUN, per_run, "warm"),
+                                    (K1_FIRST_RUN, first_k1, "first")):
+                if got != want[qname]:
+                    raise AssertionError(f"{qname}: {got} K1 launches in the "
+                                         f"{what} run, expected {want[qname]}")
+            for run, run_calls in (("first", first_calls),
+                                   ("warm", warm_calls)):
+                for i, (planes, lo, hi) in enumerate(run_calls):
+                    key = (planes.data_ptr(), tuple(planes.shape),
+                           lo.data_ptr(), hi.data_ptr())
+                    if key not in seen:
+                        seen.add(key)
+                        inputs.append((planes, lo, hi,
+                                       f"star {qname} {run} run #{i}"))
+            report[qname] = dict(
+                rows={t: ctx._tables[t].num_rows for t in tcols},
+                groups_out=out.num_rows, transcode_s=t_transcode,
+                first_run_s=t_first, first_run_k1=first_k1,
+                warm_best_ms=min(warm) * 1e3,
+                warm_ms=[w * 1e3 for w in warm], k1_launches_per_run=per_run,
+                reduction=star_reduction(*next(
+                    h for k, h in plans.items() if k not in cached)[:2],
+                    tiers),
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+            log(f"[star] {qname}: {json.dumps(report[qname])}")
+    finally:
+        k1.in_interval_many = wrapped
+    log(f"[star] dimensions: {json.dumps(dimension_tables(ctx))}")
+    return report, inputs
+
+
 def main_path_k1_inputs(ctx):
     """(planes, lo, hi, query table) for every interval the main path's
     cached plans fed to K1."""
     out = []
     for name, table in ctx._tables.items():
-        for hit in table._fused_plan_cache.values():
+        for hit in getattr(table, "_fused_plan_cache", {}).values():
             if isinstance(hit, str) or hit[2]:  # a bailout, an empty scan
                 continue
             p = hit[0]
@@ -627,15 +829,17 @@ def main_path_k1_inputs(ctx):
     return out
 
 
-def time_k1(torch, ctx) -> dict:
+def time_k1(torch, ctx, star_inputs: list) -> dict:
     """Phase 7: K1's interval form on the main path's own (planes, lo,
-    hi), beside the two single-constant launches
-    it replaces (a pair after one L2 flush, as the old path ran them, and
-    one alone), its plain version and its byte bound."""
+    hi) -- the single-table plans' and `star_inputs`, those the star
+    phase captured -- checked bit-exact and timed beside the two
+    single-constant launches it replaces (a pair after one L2 flush, as
+    the old path ran them, and one alone), its plain version and its
+    byte bound."""
     from liquid_tpu_torch.ops import bitpack_cuda as k1
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     rows, worst = [], 0
-    for planes, lo, hi, col in main_path_k1_inputs(ctx):
+    for planes, lo, hi, col in main_path_k1_inputs(ctx) + star_inputs:
         worst = max(worst, _max_abs_err(
             torch, [k1.in_interval_many(planes, lo, hi)],
             [k1.in_interval_many_ref(planes, lo, hi)]))
@@ -855,11 +1059,20 @@ def main(argv=None) -> int:
     if grouped_launches["group_accumulate"] <= 0:
         raise AssertionError(f"the grouped path did not launch K2: "
                              f"{grouped_launches}")
+    # 6b. the star path, counts reset just before and read just after
+    _reset(counters)
+    sreport, star_k1_inputs = run_star_path(torch, ctx, expect)
+    star_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
+    if star_launches["cmp_const_many"] <= 0:
+        raise AssertionError(f"the star path did not launch K1: "
+                             f"{star_launches}")
     log(f"[launches] scalar path {json.dumps(scalar_launches)}; grouped "
-        f"path {json.dumps(grouped_launches)}")
+        f"path {json.dumps(grouped_launches)}; star path "
+        f"{json.dumps(star_launches)}")
 
-    # 7. K1's interval form timed on the main path's own inputs
-    timing = time_k1(torch, ctx)
+    # 7. K1's interval form checked and timed on the main path's own
+    #    inputs, the star phase's included
+    timing = time_k1(torch, ctx, star_k1_inputs)
     top = max(timing["rows"], key=lambda r: r["bytes"])
     log(f"[k1] largest input {top['column']}: interval / two single "
         f"launches {top['over_two_single']:.3f}, / twice one single "
@@ -870,13 +1083,15 @@ def main(argv=None) -> int:
     k2_top = k2_timing["rows"]["cb_groupby"]
 
     # 9. where a warm query's device time goes
-    warm = {q: r["warm_best_ms"] for q, r in {**report, **greport}.items()}
+    warm = {q: r["warm_best_ms"] for q, r in
+            {**report, **greport, **sreport}.items()}
     for qname, sql in (("cb_filter", CB_FILTER), ("cb_like", CB_LIKE),
                        ("tpch_q6", TPCH_Q6), ("cb_groupby", CB_GROUPBY),
                        ("cb_q15", CB_Q15),
                        ("tpch_q15_revenue", TPCH_Q15_REVENUE),
                        ("tpch_supp_price", TPCH_SUPP_PRICE),
-                       ("tpch_q1", TPCH_Q1)):
+                       ("tpch_q1", TPCH_Q1)) + tuple(
+                           (q, sql) for q, sql, _ in STAR_QUERIES):
         log(f"[profile] {qname}: " + json.dumps(device_breakdown(
             torch, ctx, sql, warm[qname])))
     del ctx
@@ -901,12 +1116,13 @@ def main(argv=None) -> int:
     # 10. K3 and K4 timed on the micro line's input
     k34 = time_k34(torch)
     phases = {"scalar": scalar_launches, "grouped": grouped_launches,
-              "harness": harness_launches,
+              "star": star_launches, "harness": harness_launches,
               "harness_operator_timing": op_launches}
 
     def launches(name):
         # the main path's launches: the query phases and the micro line
-        return sum(phases[p][name] for p in ("scalar", "grouped", "harness"))
+        return sum(phases[p][name]
+                   for p in ("scalar", "grouped", "star", "harness"))
 
     def by_phase(name):
         return {p: d.get(name, 0) for p, d in phases.items()}
@@ -953,7 +1169,7 @@ def main(argv=None) -> int:
             "library_ms": None,
             "shape": [row["w"], row["rows"] // 32], "matches_plain": True,
         })
-    log(f"[summary] {json.dumps({**report, **greport})}")
+    log(f"[summary] {json.dumps({**report, **greport, **sreport})}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

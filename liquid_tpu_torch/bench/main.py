@@ -15,10 +15,11 @@ The gate: every answer must equal an independent pyarrow answer computed
 from the same parquet (`bench/oracle.py`): non-float columns exactly,
 float columns to rtol 1e-9.  The reference compares `liquid` with its
 `arrow` mode instead; that mode is the classic host path, which is not
-ported, so it and `tpch_q3` (the star join) stand in `NOT_PORTED`: they
-are not run, their rows are left out of the throughput total, and
-`arrow_ms` and `vs_baseline` are null.  Nothing catches a failure: a
-query that cannot run, or a wrong answer, ends the run with an error.
+ported, so it stands in `NOT_PORTED`: it is not run, and `arrow_ms` and
+`vs_baseline` are null.  All six queries run: five on the fused route,
+`tpch_q3` on the star route (`sql/fused_star.py`); `routes` reports each.
+Nothing catches a failure: a query that cannot run, or a wrong answer,
+ends the run with an error.
 
 Defaults: 4,000,000 synthesized ClickBench `hits` rows and TPC-H SF 1 on
 the card; 200,000 rows and SF 0.02 on the CPU (the reference bench's
@@ -44,10 +45,13 @@ HBM_BYTES_PER_S = 3.35e12
 
 #: what the reference bench runs that the port does not, and why
 NOT_PORTED = {
-    "tpch_q3": "the star join (sql/fused_star.py) is not ported yet",
     "arrow": "the arrow mode runs the classic host path, which is not "
              "ported yet",
 }
+
+#: the TPC-H tables the queries read (the star join's dimensions too)
+TPCH_TABLES = ("lineitem", "orders", "customer", "supplier", "nation",
+               "region")
 
 MICRO_ITERS = 256
 MICRO_WIDTH = 10
@@ -58,19 +62,23 @@ def log(*a):
 
 
 def prepare_data(data_dir: str, hits_rows: int, sf: float) -> dict:
-    """Synthesized hits and TPC-H lineitem parquet, written once ->
-    {table: path}."""
+    """Synthesized hits and the TPC-H tables of `TPCH_TABLES` as parquet,
+    each written once -> {table: path}."""
     import pyarrow.parquet as pq
     from liquid_tpu_torch.bench.hits import prepare_hits
     from liquid_tpu_torch.bench.tpch_data import generate
     os.makedirs(data_dir, exist_ok=True)
     paths = {"hits": prepare_hits(hits_rows, data_dir)}
-    li = os.path.join(data_dir, f"liquid_bench_lineitem_{sf}.parquet")
-    if not os.path.exists(li):
-        pq.write_table(generate(sf)["lineitem"], li + ".tmp",
-                       row_group_size=1 << 20)
-        os.replace(li + ".tmp", li)
-    paths["lineitem"] = li
+    tpch = {n: os.path.join(data_dir, f"liquid_bench_{n}_{sf}.parquet")
+            for n in TPCH_TABLES}
+    missing = [n for n, p in tpch.items() if not os.path.exists(p)]
+    if missing:
+        tables = generate(sf)  # one seed: every table from one draw
+        for n in missing:
+            pq.write_table(tables[n], tpch[n] + ".tmp",
+                           row_group_size=1 << 20)
+            os.replace(tpch[n] + ".tmp", tpch[n])
+    paths.update(tpch)
     return paths
 
 
@@ -163,12 +171,13 @@ def run_mode(mode, paths, qs, device):
     for name, _tcols, rows, sql in qs:
         runs = []
         for _ in range(ITERS):
-            before = STATS["fused_queries"]
+            fused, star = STATS["fused_queries"], STATS["star_queries"]
             t0 = time.perf_counter()
             ctx.sql(sql).to_arrow()
             _sync(dev)
             runs.append(time.perf_counter() - t0)
-            routes[name] = ("fused" if STATS["fused_queries"] > before
+            routes[name] = ("star" if STATS["star_queries"] > star
+                            else "fused" if STATS["fused_queries"] > fused
                             else "host")
         times[name] = min(runs)
         spreads[name] = max(runs) / max(times[name], 1e-9)
@@ -351,7 +360,7 @@ def main(argv=None) -> dict:
             "lineitem_bytes": os.path.getsize(paths["lineitem"])}
     del hits_t
     log(f"data: {card}")
-    qs = [q for q in queries(hits_rows, li_rows) if q[0] not in NOT_PORTED]
+    qs = queries(hits_rows, li_rows)
     expect = oracle.answers(paths, [q[0] for q in qs])
 
     t_liquid, results, first, warm, ctx, routes, spreads = run_mode(

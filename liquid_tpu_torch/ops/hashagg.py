@@ -51,6 +51,11 @@ DIRECT_CAP = 1 << 21
 SMALL = 64
 STREAM_ELEMS = 6144
 
+#: reduction tiers taken, counted where they are chosen: "k2" per direct
+#: reduction through K2, "stream" and "scatter" per (op, dtype) batch of
+#: the other direct reductions, "hash" per hash-ladder call
+TIERS = {"k2": 0, "stream": 0, "scatter": 0, "hash": 0}
+
 _MIX1 = wrap_i64(0xBF58476D1CE4E5B9)
 _MIX2 = wrap_i64(0x94D049BB133111EB)
 _GOLDEN = 0x9E3779B97F4A7C15
@@ -167,8 +172,10 @@ def direct_reduce_packed(codes: Sequence[torch.Tensor],
         for dt, cols in groups.items():
             stackv = torch.stack([v for _, v in cols], dim=1)
             if m <= SMALL or m * len(cols) <= STREAM_ELEMS:
+                TIERS["stream"] += 1
                 tbl = _stream(slot, stackv, m, op)
             else:
+                TIERS["scatter"] += 1
                 tbl = _scatter(slot, stackv, m, op)
             for k, (tag, _) in enumerate(cols):
                 got[(op,) + tag] = tbl[:, k]
@@ -187,6 +194,7 @@ def direct_reduce_packed(codes: Sequence[torch.Tensor],
                 k2_cols.append(v.to(torch.int32))
                 parts.append((tag, "plain"))
         # the kernel reads the columns in place: no [n, C] stack
+        TIERS["k2"] += 1
         tb = grouphist_cuda.group_accumulate(slot, k2_cols, m)
         acc_map: Dict[tuple, torch.Tensor] = {}
         for k2, (tag, part) in enumerate(parts):
@@ -251,6 +259,7 @@ def hash_rounds_reduce_packed(codes: Sequence[torch.Tensor],
     single-fetch output.  Rows whose slot got two distinct key tuples
     re-scatter with a fresh salt next round; each key tuple resolves in
     exactly one round.  `clean` False: `rounds` did not converge."""
+    TIERS["hash"] += 1
     n = valid.shape[0]
     dev = valid.device
     live = valid

@@ -3,10 +3,12 @@
 SQL -> parse -> qualify -> plan -> fused device aggregate -> pa.Table.
 A single-table aggregate, with or without GROUP BY, goes to the fused
 path (`sql/fused_agg.py`); a COUNT(*) with no filter and no keys is
-answered from parquet metadata, as the reference does.  The projection,
-HAVING and ORDER BY / LIMIT then run over the small aggregate result with
-the host evaluator (`sql/eval.py`).  Every other statement shape --
-joins, grouping sets, plain SELECT, set operations, CTEs, windows,
+answered from parquet metadata, as the reference does.  An aggregate over
+`FROM a, b, ...` or `a JOIN b ON ...` (inner or cross) goes to the fused
+star path (`sql/fused_star.py`).  The projection, HAVING and ORDER BY /
+LIMIT then run over the small aggregate result with the host evaluator
+(`sql/eval.py`).  Every other statement shape -- outer joins, derived
+tables, grouping sets, plain SELECT, set operations, CTEs, windows,
 subqueries -- belongs to slices of the port that are not done yet and
 raises NotImplementedError naming the shape.
 """
@@ -121,13 +123,16 @@ class QueryExecutor:
     def _exec_aggregate(self, q: ast.Select,
                         aggs: List[ast.Func]) -> pa.Table:
         rel = q.from_
-        if not (isinstance(rel, ast.TableRef) and not rel.prefix
-                and rel.name in self.catalog):
-            raise _not_ported("an aggregate over a join or derived table")
+        star = isinstance(rel, ast.Join)
+        if not star and not (isinstance(rel, ast.TableRef) and not rel.prefix
+                             and rel.name in self.catalog):
+            raise _not_ported("an aggregate over a derived or aliased table")
         if any(isinstance(g, ast.GroupingSpec) for g in q.group_by):
             raise _not_ported("GROUPING SETS / ROLLUP / CUBE")
+        # a star join's WHERE subqueries reach its planner, which names
+        # them (existence probes)
         exprs = [it.expr for it in q.items] + list(q.group_by) + [
-            e for e in (q.where, q.having) if e is not None]
+            e for e in (None if star else q.where, q.having) if e is not None]
         if any(_contains(e, _SUBQUERY) for e in exprs):
             raise _not_ported("subqueries")
         slots = make_slots(aggs)
@@ -135,6 +140,12 @@ class QueryExecutor:
         key_names = [nm for _, nm in group]
         rew_keys = [ge for ge, _ in group]
         rew_inputs = {s.name: s.input for s in slots if s.input is not None}
+        if star:
+            from liquid_tpu_torch.sql.fused_star import try_fused_star
+            with TRACER.span("sql.fused_star"):
+                final = try_fused_star(self, q, group, key_names, slots,
+                                       rew_keys, rew_inputs, q.where)
+            return self._project(q, group, slots, final)
         table = self.catalog[rel.name]
         plan = plan_scan_filters(q.where)
         needed: set = set()
@@ -156,8 +167,12 @@ class QueryExecutor:
                 final = try_fused_aggregate(
                     table, plan, column_hints(q), group, key_names, slots,
                     rew_keys, rew_inputs, q)
+        return self._project(q, group, slots, final)
 
-        # post-projection over keys and slots
+    def _project(self, q: ast.Select, group, slots,
+                 final: pa.Table) -> pa.Table:
+        """The select items, HAVING and ORDER BY / LIMIT over the partial
+        aggregate result (key columns + slot columns)."""
         mapping: Dict[ast.Expr, str] = {ge: nm for ge, nm in group}
         for s in slots:
             mapping[s.func] = s.name

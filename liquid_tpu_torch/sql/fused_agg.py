@@ -32,9 +32,16 @@ reason -- the port has no classic path to fall back to yet):
   string column,
 - every touched block resident as MEMORY_LIQUID primitive / linear /
   float / byte-view.
-Not ported yet: functional-dependency key reduction, CASE and temporal
-expressions, star and existence probes, the sort-pair and chained
-count(DISTINCT) forms.
+The star-join fact program (`sql/fused_star.py`) is this program with
+dimension probes added: `probe_dims` maps each row to its dimension row j
+through a direct-address index table, "pay" columns read a dimension's
+decoded payload through j, and a functional-dependency plan (`_Plan.fd`)
+reduces on one representative key -- the probe index j itself, or a
+dimension key value -- and re-attaches the other keys by gathers over the
+packed output rows.
+Not ported yet: functional-dependency key reduction on a single table,
+CASE and temporal expressions, existence probes, the sort-pair and
+chained count(DISTINCT) forms.
 """
 from __future__ import annotations
 
@@ -73,9 +80,11 @@ _STAGES = ((1 << 13, 0x9E3779B97F4A7C15),
            (1 << 22, 0x27D4EB2F165667C5))
 
 #: module counters (the reference's keys: tests and runs read the route);
-#: fused_pallas counts grouped runs routed through K2
+#: fused_pallas counts grouped runs routed through K2, star_queries the
+#: star joins of `sql/fused_star.py`
 STATS = {"fused_queries": 0, "fused_grouped": 0, "fused_scalar": 0,
-         "fused_bailouts": 0, "fused_retries": 0, "fused_pallas": 0}
+         "fused_bailouts": 0, "fused_retries": 0, "fused_pallas": 0,
+         "star_queries": 0}
 
 _AGG_KINDS = frozenset({"count_star", "count", "sum", "avg", "min", "max",
                         "stddev", "var"})
@@ -664,6 +673,13 @@ def _string_key_lut(ge: ast.Expr, kinds_view, p: "_Plan", dev):
     return ("lut", c, aix, "i64"), {c}, uniq
 
 
+def _like_regex(pat: str):
+    """SQL LIKE pattern -> an anchored regular expression."""
+    return re.compile(
+        "^" + re.escape(pat).replace("%", ".*").replace("_", ".") + "$",
+        re.DOTALL)
+
+
 def _dict_lut(payloads, pred: Predicate, dmax: int) -> Optional[np.ndarray]:
     """bool [nb, dmax]: each block's verdict per dictionary entry (prefix
     keys / fingerprints / pyarrow kernels, cached per block), or None
@@ -810,19 +826,33 @@ def _selection_packed(colmap, pred_groups, arrays, sel: torch.Tensor
 
 class _Decoders:
     """Decoded column values and null masks for one program run, each
-    computed once."""
+    computed once.  `probe_j` maps a probe id to its per-row dimension
+    row (int32, -1 = no match); a "pay" column (a dimension's decoded
+    payload) is gathered through it, and a row without a match reads as
+    NULL."""
 
-    def __init__(self, colmap, arrays, n: int, device):
+    def __init__(self, colmap, arrays, n: int, device, probe_j=None):
         self.colmap, self.arrays, self.n, self.device = (colmap, arrays, n,
                                                          device)
+        self.probe_j: Dict[int, torch.Tensor] = ({} if probe_j is None
+                                                 else probe_j)
         self._vals: Dict[Tuple[str, str], torch.Tensor] = {}
         self._nulls: Dict[str, torch.Tensor] = {}
+
+    def _pay_rows(self, cix, table: torch.Tensor) -> torch.Tensor:
+        # a torch gather at -1 would read the last entry: clamp, and let
+        # the miss flag carry the -1
+        return table[self.probe_j[cix["probe"]].clamp(0, table.shape[0] - 1)]
 
     def nulls(self, name: str) -> torch.Tensor:
         out = self._nulls.get(name)
         if out is None:
             cix = self.colmap[name]
-            if "valid" in cix:
+            if cix["kind"] == "pay":
+                out = self.probe_j[cix["probe"]] < 0
+                if "nulls" in cix:
+                    out = out | self._pay_rows(cix, self.arrays[cix["nulls"]])
+            elif "valid" in cix:
                 out = ~mops.unpack_bits(self.arrays[cix["valid"]]).reshape(-1)
             else:
                 out = torch.zeros(self.n, dtype=torch.bool, device=self.device)
@@ -839,6 +869,12 @@ class _Decoders:
             table = a[dt[1]]
             v = table[self.decode(name, "i64").clamp(0, table.shape[0] - 1)]
             if dt[2] == "f64":
+                v = v.to(torch.float64)
+            self._vals[(name, dt)] = v
+            return v
+        if cix["kind"] == "pay":
+            v = self._pay_rows(cix, a[cix["vals"]])
+            if dt == "f64":
                 v = v.to(torch.float64)
             self._vals[(name, dt)] = v
             return v
@@ -873,11 +909,72 @@ class _Decoders:
         return v
 
 
+def probe_dims(probes, arrays, env: _Decoders, selb: torch.Tensor
+               ) -> torch.Tensor:
+    """Star-join probes, shared by the fact program and the snowflake
+    dimension builds: each scanned row's dimension row j = idx[key - lo]
+    (int32, -1 where the key is NULL, outside the table or absent) goes
+    into `env.probe_j`; an INNER join drops the rows that miss.
+    `probes` holds (pid, key column, idx array index, lo array index)."""
+    for pid, kname, idx_ix, lo_ix in probes:
+        kv = env.decode(kname, "i64")
+        tbl = arrays[idx_ix]
+        rel = kv - arrays[lo_ix]
+        inb = (rel >= 0) & (rel < tbl.shape[0]) & ~env.nulls(kname)
+        # negative indices wrap in torch: clamp before the gather
+        j = torch.where(inb, tbl[rel.clamp(0, tbl.shape[0] - 1)],
+                        torch.full((), -1, dtype=tbl.dtype, device=tbl.device))
+        env.probe_j[pid] = j
+        selb = selb & (j >= 0)
+    return selb
+
+
+def _fd_keys(kv: torch.Tensor, knl: torch.Tensor, fd, arrays):
+    """The full group-key rows (int64 code images) and null rows (bool)
+    of a functional-dependency plan, from the representative key's rows
+    `kv` / `knl`: every derived key gathers a dimension payload through
+    j -- kv itself in probe-index mode (idx_ix < 0), idx[kv - lo] in value
+    mode.  fd = (rep_pos, nk_full, entries), entries (out_pos, idx_ix,
+    lo_ix, vals_ix, nulls_ix | -1, ptype)."""
+    rep_pos, nk_full, entries = fd
+    keys: List[Optional[torch.Tensor]] = [None] * nk_full
+    nulls: List[Optional[torch.Tensor]] = [None] * nk_full
+    keys[rep_pos], nulls[rep_pos] = kv, knl.to(torch.bool)
+    for pos, idx_ix, lo_ix, vals_ix, nulls_ix, ptype in entries:
+        if idx_ix < 0:  # probe-index mode: kv IS the dimension row id
+            j = kv
+        else:
+            idxt = arrays[idx_ix]
+            j = idxt[(kv - arrays[lo_ix]).clamp(0, idxt.shape[0] - 1)]
+        vals = arrays[vals_ix]
+        jc = j.clamp(0, vals.shape[0] - 1).to(torch.int64)
+        v = vals[jc]
+        keys[pos] = (floatbits.f64_bits(v + 0.0) if ptype == "f64"
+                     else v.to(torch.int64))
+        nl = j < 0
+        if nulls_ix >= 0:
+            nl = nl | arrays[nulls_ix][jc]
+        nulls[pos] = nl
+    return keys, nulls
+
+
+def _apply_fd_packed(mat: torch.Tensor, fd, arrays) -> torch.Tensor:
+    """A packed matrix [hdr, kv, knl, outs..., counts...] reduced on the
+    representative key -> [hdr, keys..., key nulls..., outs..., counts...]
+    with every group key: the derived keys gather at pack time (w rows),
+    nothing per input row."""
+    keys, nulls = _fd_keys(mat[1], mat[2], fd, arrays)
+    return torch.stack([mat[0]] + keys + [n.to(torch.int64) for n in nulls]
+                       + list(mat[3:]))
+
+
 def _fused_core(p: "_Plan", grouped=None, tkspec=()):
     """Run the program.  Scalar (`grouped` None) -> int64[2 * n_slots]:
     per slot the reduced value (f64 as its bit image), then the per-slot
     counts.  Grouped -> the reduction's (mat, clean, n_groups, cols), with
-    the top-k superset in place of cols when `tkspec` is set.
+    the top-k superset in place of cols when `tkspec` is set; under a
+    functional-dependency plan the reduction runs on the physical key and
+    mat and the top-k superset carry every group key.
     `grouped` is ("direct", spans, los, pallas_seg, having) or
     ("hash", n_slots, salt, rounds)."""
     arrays = p.arrays
@@ -885,6 +982,7 @@ def _fused_core(p: "_Plan", grouped=None, tkspec=()):
                             arrays[p.rv_ix])
     selb = mops.unpack_bits(sel).reshape(-1)
     env = _Decoders(p.colmap, arrays, selb.shape[0], selb.device)
+    selb = probe_dims(p.probes, arrays, env, selb)
     for ir in p.resids:
         selb = selb & _bool_nonnull(ir, env)
 
@@ -915,15 +1013,21 @@ def _fused_core(p: "_Plan", grouped=None, tkspec=()):
     # grouped: key code images (f64 keys by their canonical bit image,
     # -0.0 folded into +0.0); a NULL key codes as 0 beside its flag
     codes, knulls = [], []
-    for name in p.keys:
-        if isinstance(name, tuple):  # ("expr", ir, dt)
+    for name in _red_keys(p):
+        if isinstance(name, tuple) and name[0] == "probe":
+            # probe-index grouping: the key is the dense dimension row j;
+            # every key value re-attaches at pack time (_apply_fd_packed)
+            code = env.probe_j[name[1]].to(torch.int64)
+            nl = torch.zeros_like(selb)
+        elif isinstance(name, tuple):  # ("expr", ir, dt)
             _, ir, dt = name
             v, nl = eval_ir_nulls(ir, env)
             v, nl = v.expand(selb.shape), nl.expand(selb.shape)
             code = (floatbits.f64_bits(v + 0.0) if dt == "f64"
                     else v.to(torch.int64))
         else:
-            if p.colmap[name]["kind"] == "float":
+            cix = p.colmap[name]
+            if cix["kind"] == "float" or cix.get("ptype") == "f64":
                 code = floatbits.f64_bits(env.decode(name, "f64") + 0.0)
             else:
                 code = env.decode(name, "i64")
@@ -939,11 +1043,17 @@ def _fused_core(p: "_Plan", grouped=None, tkspec=()):
         res = hops.hash_rounds_reduce_packed(codes, knulls, selb, vals,
                                              vnulls, kinds, n_slots, salt,
                                              rounds)
+    if p.fd:
+        mat, clean, ng, cols = res
+        res = (_apply_fd_packed(mat, p.fd, arrays), clean, ng, cols)
     if tkspec:
         # top-k inside the program: only the k2 gathered rows are fetched
         mat, clean, ng, cols = res
-        return (mat, clean, ng,
-                _topk_gather_core(cols, tkspec, len(p.keys), len(p.rslots)))
+        mini = _topk_gather_core(cols, tkspec, len(codes), len(p.rslots))
+        if p.fd:  # [head, rank, kv, knl, ...]: the rank rides as the header
+            mini = torch.cat([mini[:1], _apply_fd_packed(mini[1:], p.fd,
+                                                         arrays)])
+        return (mat, clean, ng, mini)
     return res
 
 
@@ -971,6 +1081,19 @@ class _Plan:
         self.slot_vocabs: Dict[str, list] = {}
         self.rslot_maxabs: List[Optional[int]] = []  # |value| bounds
         self.having = None                # (rslot, op, literal) on device
+        #: star probes: (pid, fact key column, idx array, lo array)
+        self.probes: List[tuple] = []
+        #: functional-dependency plan (rep_pos, nk_full, entries), or None
+        self.fd = None
+        #: the reduction's keys under `fd`: [rep column] or [("probe", pid)]
+        self.phys_keys: List[object] = []
+        #: star keys' (lo, hi) value bounds (dimension payloads, probe j)
+        self.key_bounds: Dict[object, tuple] = {}
+
+
+def _red_keys(p: _Plan) -> list:
+    """The keys the reduction runs on: the physical key under FD."""
+    return p.phys_keys if p.fd else p.keys
 
 
 def _add(plan: _Plan, arr: torch.Tensor) -> int:
@@ -1040,6 +1163,11 @@ def release_prep_cache(table) -> None:
             for ent in variants.values():
                 table.cache.budget.release_memory(ent[2])
         cache.clear()
+    star = getattr(table, "_star_probe_cache", None)
+    if star:  # star-join dimension builds (sql/fused_star.py)
+        for probe in star.values():
+            probe.evict(table.cache.budget)
+        star.clear()
 
 
 def _table_prep(table, col, hint, blocks) -> _ColPrep:
@@ -1227,8 +1355,7 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
         if op == "=":
             return tuple(i for i, v in enumerate(vocab) if v == lit)
         if op == "like":
-            pat = re.compile("^" + re.escape(str(lit)).replace("%", ".*")
-                             .replace("_", ".") + "$", re.DOTALL)
+            pat = _like_regex(str(lit))
             return tuple(i for i, v in enumerate(vocab)
                          if v is not None and pat.match(str(v)))
         return None
@@ -1331,61 +1458,13 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
         return p, mode, True
 
     for c in sorted(needed):
-        pr = prep_of(c)
-        if pr.kind == "dict":
-            ix = {"kind": "dict", "codes": _add(p, pr.codes_stack)}
-            if c in remap_cols:
-                ix["gids"] = _add(p, _gid_stack(pr))
-        else:
-            ix = {"kind": pr.kind, "planes": _add(p, pr.planes_stack),
-                  "refs": _add(p, pr.refs)}
-        if pr.kind == "float":
-            ix["inv"] = _add(p, pr.inv)
-            if pr.patch_rows is not None:
-                ix["patch_rows"] = _add(p, torch.from_numpy(
-                    pr.patch_rows).to(dev))
-                ix["patch_vals"] = _add(p, torch.from_numpy(
-                    pr.patch_vals).to(dev))
-        if pr.kind == "linear":
-            ix["lin"] = _add(p, pr.lin_stack)
-        if pr.valid_stack is not None:
-            ix["valid"] = _add(p, pr.valid_stack)
-        p.colmap[c] = ix
-
-    def bounds_tensor(a):
-        return torch.from_numpy(u64_to_i64(a)).to(dev)
+        register_col(p, c, prep_of(c), c in remap_cols)
 
     for gi, g in enumerate(plan_scan.pushdown):
         if gi in skip_groups:
             continue
-        alts = []
-        for c, pred in g.alternatives:
-            pr = preps[c]
-            if pr.kind == "planes":
-                iv = _primitive_interval(pr.payloads, pred)
-                if iv is None:
-                    raise _Bail(f"predicate {pred.op} on {c}")
-                lo, hi, neg = iv
-                alts.append(("iv", c, _add(p, bounds_tensor(lo)),
-                             _add(p, bounds_tensor(hi)), neg))
-            elif pr.kind == "float":
-                iv = _float_interval(pr.payloads, pred)
-                if iv is None:
-                    raise _Bail(f"float predicate {pred.op} on {c}")
-                lo, hi, neg, clear, setw = iv
-                alt = ("iv", c, _add(p, bounds_tensor(lo)),
-                       _add(p, bounds_tensor(hi)), neg)
-                if clear is not None:
-                    alt = ("ivp",) + alt[1:] + (
-                        _add(p, words_to_tensor(clear, dev)),
-                        _add(p, words_to_tensor(setw, dev)))
-                alts.append(alt)
-            else:  # dict: a per-block verdict LUT over the codes
-                lut = _dict_lut(pr.payloads, pred, pr.dmax)
-                if lut is None:
-                    raise _Bail(f"string predicate {pred.op} on {c}")
-                alts.append(("lut", c, _add(p, torch.from_numpy(lut).to(dev))))
-        p.pred_groups.append(tuple(alts))
+        p.pred_groups.append(tuple(pred_alt(p, c, pred, preps[c])
+                                   for c, pred in g.alternatives))
 
     p.rv_ix = _add(p, _rowvalid(table, blocks))
 
@@ -1402,6 +1481,69 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
     _plan_slots(p, slots, slot_irs, rew_inputs, table, bounds_of, scaledres,
                 n_upper)
     return p, mode, False
+
+
+def _prep_device(pr: _ColPrep) -> torch.device:
+    return (pr.codes_stack if pr.kind == "dict" else pr.refs).device
+
+
+def register_col(p: _Plan, c: str, pr: _ColPrep, gids: bool) -> None:
+    """Put one column's stacked arrays into the plan's colmap; a string
+    column reads its global vocabulary ids when `gids` is set (keys,
+    residuals, payloads), else only its codes' nullness."""
+    dev = _prep_device(pr)
+    if pr.kind == "dict":
+        ix = {"kind": "dict", "codes": _add(p, pr.codes_stack)}
+        if gids:
+            _build_vocab(pr)
+            ix["gids"] = _add(p, _gid_stack(pr))
+    else:
+        ix = {"kind": pr.kind, "planes": _add(p, pr.planes_stack),
+              "refs": _add(p, pr.refs)}
+    if pr.kind == "float":
+        ix["inv"] = _add(p, pr.inv)
+        if pr.patch_rows is not None:
+            ix["patch_rows"] = _add(p, torch.from_numpy(
+                pr.patch_rows).to(dev))
+            ix["patch_vals"] = _add(p, torch.from_numpy(
+                pr.patch_vals).to(dev))
+    if pr.kind == "linear":
+        ix["lin"] = _add(p, pr.lin_stack)
+    if pr.valid_stack is not None:
+        ix["valid"] = _add(p, pr.valid_stack)
+    p.colmap[c] = ix
+
+
+def pred_alt(p: _Plan, c: str, pred: Predicate, pr: _ColPrep) -> tuple:
+    """One pushdown alternative on column c, lowered for
+    `_selection_packed`: ("iv", c, lo, hi, negate) per-block u64 bounds
+    (K1's interval form), ("ivp", ...) with an ALP patch overlay, or
+    ("lut", c, verdicts) over a string column's dictionary codes."""
+    dev = _prep_device(pr)
+
+    def bounds(a):
+        return _add(p, torch.from_numpy(u64_to_i64(a)).to(dev))
+
+    if pr.kind == "planes":
+        iv = _primitive_interval(pr.payloads, pred)
+        if iv is None:
+            raise _Bail(f"predicate {pred.op} on {c}")
+        lo, hi, neg = iv
+        return ("iv", c, bounds(lo), bounds(hi), neg)
+    if pr.kind == "float":
+        iv = _float_interval(pr.payloads, pred)
+        if iv is None:
+            raise _Bail(f"float predicate {pred.op} on {c}")
+        lo, hi, neg, clear, setw = iv
+        alt = ("iv", c, bounds(lo), bounds(hi), neg)
+        if clear is not None:
+            alt = ("ivp",) + alt[1:] + (_add(p, words_to_tensor(clear, dev)),
+                                        _add(p, words_to_tensor(setw, dev)))
+        return alt
+    lut = _dict_lut(pr.payloads, pred, pr.dmax)  # dict: verdicts per code
+    if lut is None:
+        raise _Bail(f"string predicate {pred.op} on {c}")
+    return ("lut", c, _add(p, torch.from_numpy(lut).to(dev)))
 
 
 def _scaled_col_info(p: _Plan, name: str, pr: _ColPrep):
@@ -1569,7 +1711,12 @@ def _take_vocab(vocab: list, t: pa.DataType, ids: np.ndarray,
     if not len(vocab):
         return pa.nulls(len(ids), t)
     safe = np.clip(np.where(mask, 0, ids), 0, len(vocab) - 1)
-    vals = pa.array(vocab, type=t).take(pa.array(safe.astype(np.int64)))
+    if 16 * len(safe) < len(vocab):
+        # a few ids from a large vocabulary (q10's c_name, c_comment):
+        # index the list; converting all of it costs ms per key per query
+        vals = pa.array([vocab[i] for i in safe.tolist()], type=t)
+    else:
+        vals = pa.array(vocab, type=t).take(pa.array(safe.astype(np.int64)))
     if mask.any():
         vals = pc.if_else(pa.array(~mask), vals, pa.scalar(None, t))
     return vals
@@ -1638,12 +1785,12 @@ def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
 
     STATS["fused_grouped"] += 1
     n_rows = int(p.arrays[p.rv_ix].shape[0]) * BLOCK_ROWS
-    domains = _key_domains(p)
+    domains = _phys_domains(p)
     if domains is not None:
         m = 1
         for _, span in domains:
             m *= span + 2
-        ncols = 1 + 2 * nv + 2 * len(p.keys)
+        ncols = 1 + 2 * nv + 2 * len(_red_keys(p))
         cap = min(1 << 27, (3 << 30) // (8 * ncols))
         if 0 < m <= cap:
             grouped = ("direct", tuple(span for _, span in domains),
@@ -1660,7 +1807,7 @@ def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
                 out = _fused_core(p, grouped)  # boundary tie: full fetch
             return _fetch_result(p, slots, out)
 
-    hint_key = ("stage", tuple(p.keys))
+    hint_key = ("stage", tuple(_red_keys(p)))
     if not hasattr(table, "_fused_stage_hint"):
         table._fused_stage_hint = {}
     stage_hint = table._fused_stage_hint
@@ -1736,15 +1883,32 @@ def _fetch_result(p: _Plan, slots, out, mat=None) -> pa.Table:
     return _fetch_full(p, slots, g, out[3])
 
 
+def _phys_domains(p: _Plan):
+    """Domains of the keys the reduction runs on: the FD representative
+    alone under a functional-dependency plan, else every group key."""
+    if not p.fd:
+        return _key_domains(p)
+    kb = p.key_bounds.get(p.phys_keys[0])
+    if kb is None or kb[1] - kb[0] >= (1 << 44):
+        return None
+    return [(kb[0], kb[1] - kb[0])]
+
+
 def _key_domains(p: _Plan):
     """Per-key (lo, span) when every key's value domain is densely
-    bounded (integer references and widths, vocabulary sizes); None
-    otherwise.  Enables direct addressing: bijective slots, no collision
-    passes."""
+    bounded (integer references and widths, star keys' payload bounds,
+    vocabulary sizes); None otherwise.  Enables direct addressing:
+    bijective slots, no collision passes."""
     out = []
     for name, dec in zip(p.keys, p.key_decoders):
         if dec[0] == "vocab":
             out.append((0, max(len(dec[1]), 1) - 1))
+            continue
+        kb = p.key_bounds.get(name) if isinstance(name, str) else None
+        if kb is not None:
+            if kb[1] - kb[0] >= (1 << 44):
+                return None
+            out.append((kb[0], kb[1] - kb[0]))
             continue
         payloads = p.key_payloads.get(name) if isinstance(name, str) \
             else None
@@ -1760,10 +1924,18 @@ def _key_domains(p: _Plan):
 def _cardinality_bound(p: _Plan) -> Optional[int]:
     """Upper bound on distinct key tuples from integer domain spans; None
     when a key is unbounded (floats, linear columns, expressions)."""
+    if p.fd:
+        kb = p.key_bounds.get(p.phys_keys[0])
+        return None if kb is None else max(min(kb[1] - kb[0] + 1, 1 << 62), 1)
     total = 1
     for name, dec in zip(p.keys, p.key_decoders):
         if dec[0] == "vocab":
             total = min(total * max(len(dec[1]), 1), 1 << 62)
+            continue
+        kb = p.key_bounds.get(name) if isinstance(name, str) else None
+        if kb is not None:
+            total = min(total * max(min(kb[1] - kb[0] + 1, 1 << 62), 1),
+                        1 << 62)
             continue
         payloads = p.key_payloads.get(name) if isinstance(name, str) \
             else None
@@ -1791,13 +1963,17 @@ def _parse_packed(p: _Plan, slots, mat: np.ndarray, g: int) -> pa.Table:
 
 def _fetch_full(p: _Plan, slots, g: int, cols) -> pa.Table:
     """More groups than the packed matrix holds: re-pack the slot-ordered
-    outputs at the next power-of-two width and fetch them bit-packed."""
+    outputs at the next power-of-two width (re-attaching the derived keys
+    of an FD plan on the device) and fetch them bit-packed."""
     from liquid_tpu_torch.ops import packfetch
-    nk, nv = len(p.keys), len(p.rslots)
+    nv = len(p.rslots)
     w2 = 1
     while w2 < g:
         w2 <<= 1
-    ukeys, uknulls, outs, vcounts = hops.repack_groups(cols, nk, nv, w2)
+    ukeys, uknulls, outs, vcounts = hops.repack_groups(
+        cols, len(_red_keys(p)), nv, w2)
+    if p.fd:
+        ukeys, uknulls = _fd_keys(ukeys[0], uknulls[0], p.fd, p.arrays)
     return _parse_full(p, slots, g, packfetch.fetch_columns(
         list(ukeys) + list(uknulls) + list(outs) + list(vcounts), g))
 

@@ -1,8 +1,9 @@
 """The port's benchmark entry point (`python -m liquid_tpu_torch.bench.main`)
-in its CPU mode at a tiny size: one JSON line on stdout, five queries on
-the fused route, every answer through the pyarrow oracle gate (non-float
-columns exact, float columns rtol 1e-9), and the reference's `tpch_q3`
-and `arrow` mode named as not ported, neither run."""
+in its CPU mode at a tiny size: one JSON line on stdout, all six of the
+reference bench's queries -- five on the fused route, `tpch_q3` on the
+star route -- every answer through the pyarrow oracle gate (non-float
+columns exact, float columns rtol 1e-9), and the reference's `arrow` mode
+named as not ported and not run."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -20,7 +21,7 @@ from liquid_tpu_torch.bench.runner import make_session  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--device", "cpu", "--hits-rows", "20000", "--sf", "0.01"]
-PORTED = {"cb_filter", "cb_groupby", "cb_like", "tpch_q1", "tpch_q6"}
+FUSED = {"cb_filter", "cb_groupby", "cb_like", "tpch_q1", "tpch_q6"}
 
 
 @pytest.fixture(scope="module")
@@ -42,9 +43,10 @@ def line(data_dir):
 
 def test_one_json_line_with_five_fused_queries(line):
     out, log = line
-    assert set(out["queries_ms"]) == PORTED
+    assert set(out["queries_ms"]) == FUSED | {"tpch_q3"}
     assert all(v > 0 for v in out["queries_ms"].values())
-    assert out["routes"] == {q: "fused" for q in PORTED}
+    assert out["routes"] == {**{q: "fused" for q in FUSED},
+                             "tpch_q3": "star"}
     assert "correctness gate: liquid == pyarrow oracle" in log
     assert out["device"] == {"platform": "cpu", "kind": "cpu"}
     assert out["data"]["hits_rows"] == 20000
@@ -53,13 +55,31 @@ def test_one_json_line_with_five_fused_queries(line):
 
 def test_not_ported_are_named_and_not_run(line):
     out, log = line
-    assert set(out["not_ported"]) == {"tpch_q3", "arrow"}
+    assert set(out["not_ported"]) == {"arrow"}
     assert out["arrow_ms"] is None and out["vs_baseline"] is None
-    assert "tpch_q3" not in out["queries_ms"] and "tpch_q3" not in log
-    assert set(bench.NOT_PORTED) == {"tpch_q3", "arrow"}
+    assert "[arrow]" not in log
+    assert set(bench.NOT_PORTED) == {"arrow"}
     names = [q[0] for q in bench.queries(1, 1)]
     assert names == ["cb_filter", "cb_groupby", "cb_like", "tpch_q1",
                      "tpch_q6", "tpch_q3"]
+
+
+def test_tpch_q3_answers_equal_the_oracle_on_the_star_route(line, data_dir):
+    """The star join's answer, re-run in this process on the entry
+    point's own parquet, equals the pyarrow oracle's joins."""
+    out, log = line
+    assert out["routes"]["tpch_q3"] == "star"
+    assert "[liquid] tpch_q3:" in log and "[star]" in log
+    paths = bench.prepare_data(data_dir, out["data"]["hits_rows"], 0.01)
+    assert set(bench.TPCH_TABLES) <= set(paths)
+    ctx, _ = make_session("liquid", 1 << 30, "cpu")
+    for name, path in paths.items():
+        ctx.register_parquet(name, path)
+    sql = dict((q[0], q[3]) for q in bench.queries(1, 1))["tpch_q3"]
+    got = ctx.sql(sql).to_arrow()
+    assert got.num_rows == 10
+    assert oracle.same_table(got, oracle.answers(paths, ["tpch_q3"])[
+        "tpch_q3"])
 
 
 def test_cpu_mode_reports_no_device_rates(line):

@@ -174,6 +174,30 @@ def test_direct_reduce_k2_branch_hands_k2_columns_in_place(wide,
         assert c.is_contiguous() and c.shape == slot.shape
 
 
+@pytest.mark.parametrize("spans,k2_route,tier",
+                         [((9, 12), False, "stream"),
+                          ((3000,), False, "scatter"),
+                          ((4095,), True, "k2"), (None, False, "hash")],
+                         ids=["stream", "scatter", "k2", "hash"])
+def test_reduction_counts_the_tier_it_takes(spans, k2_route, tier):
+    """`TIERS` counts the tier a reduction takes where it is chosen: one
+    integer sum batch streams at 154 slots, scatters at 3,002, runs K2
+    when the planner passes `pallas_seg`; the hash ladder counts once."""
+    before = dict(tha.TIERS)
+    if spans is None:
+        _torch(tha.hash_rounds_reduce_packed, *_hash_inputs(5, 300), 8192,
+               0xC2B2AE3D27D4EB4F, 2)
+    else:
+        codes, knulls, valid, vals, vnulls, kinds, los = _inputs(
+            11, spans, [("sum", "i64", 100)])
+        pseg = ((tgh.plan_hilo(8192, 100)[0], tgh.plan_tables(4097),
+                 (False,)) if k2_route else ())
+        _torch(tha.direct_reduce_packed, codes, knulls, valid, vals, vnulls,
+               kinds, torch.from_numpy(los), spans, pseg)
+    moved = {k: v - before[k] for k, v in tha.TIERS.items() if v != before[k]}
+    assert moved == {tier: 1}
+
+
 def _hash_inputs(seed, n_keys_distinct):
     rng = np.random.default_rng(seed)
     pool = rng.integers(-(1 << 62), 1 << 62, n_keys_distinct)
