@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # full size, needs one CUDA card
     python3 chip_smoke.py --hits-rows 400000 --sf 0.2    # a quicker run
+    python3 chip_smoke.py --trash-band NAME [--tree DIR]  # scatter times only
 
 Phases (any failure raises and the script exits non-zero):
 1. device: name, count, `nvidia-smi` name and power limit;
@@ -44,8 +45,9 @@ Phases (any failure raises and the script exits non-zero):
    slot and column list the path fed K2 are captured by wrapping the
    wrapper from here;
    6b. the star path on the same session: TPC-H q3 (the bench's text),
-   q5 and q10 at this run's scale over `lineitem`, `orders`, `customer`,
-   `supplier`, `nation` and `region`; answers checked against pyarrow
+   q5, q10, q12 and q14 (CASE sums) at this run's scale over `lineitem`,
+   `orders`, `customer`, `supplier`, `nation`, `region` and `part`;
+   answers checked against pyarrow
    joins (`bench/oracle.py`), the first run's answer and the last warm
    run's; the star route (`STATS["star_queries"]`), the first run
    (dimension builds and the uniqueness fetch) and the best of three
@@ -56,6 +58,17 @@ Phases (any failure raises and the script exits non-zero):
    tiers a warm run took (`hashagg.TIERS`) reported; every (planes, lo,
    hi) the star runs give K1 captured by wrapping the wrapper from
    here; counts set to 0 just before this phase and read after;
+   6c. the rest of the single-table slice on the hits session: ClickBench
+   q4, q5, q8, q9, q10, q11, q13, q18, q22, q24, q26 and q42 as written
+   in `benchmark/clickbench/queries/`, `cb_q42_open` (q42 without its
+   CounterID / EventDate conjuncts and OFFSET: the generator has no row
+   with CounterID = 62, and its two interval predicates launch K1), and
+   one query each for the chained and host-fold count(DISTINCT) forms;
+   answers checked against pyarrow under the tie rule of a LIMIT cut,
+   the route (`distinct_sort`, `distinct_chained`, `distinct_fold`,
+   `fused_selects`, `fused_grouped`) and K1 launches per warm run
+   asserted, the first run and the best of three warm runs timed; counts
+   set to 0 just before this phase and read after;
 7. K1's interval form checked bit-exact against its plain version and
    timed (CUDA events, L2 flushed before each timed call) on the exact
    (planes, lo, hi) the main path gave it -- the single-table plans'
@@ -66,9 +79,12 @@ Phases (any failure raises and the script exits non-zero):
    plain version, one `index_add_` call on the same
    inputs (stacked to int64 outside the timing) and its byte bound, with
    the bytes its CTAs' flush adds into the output;
-9. one warm run of each query under torch.profiler: device-busy time,
+9. one warm run of each query (phase 6c's too) under torch.profiler:
+   device-busy time,
    the device's idle share, the device operations that took longest and
    the concatenation copies (`Cat` kernels, the form `torch.stack` takes);
+   for `cb_q24` and `cb_q26` one more warm run under cProfile splits the
+   fused select's host time by step (`host_split`);
    9b. the port's benchmark entry point (`liquid_tpu_torch.bench.main`)
    in this process at this run's sizes, counts set to 0 just before and
    read after: six queries answered and checked against pyarrow, routes
@@ -81,7 +97,9 @@ Phases (any failure raises and the script exits non-zero):
    w = 10 over 2^27 rows, beside their plain versions and byte bounds.
 
 The last lines are the card's name and power limit, a {"kernels": [...]}
-JSON line, and {"ok": true, "device": {...}}.  Data is cached as parquet
+JSON line, and {"ok": true, "device": {...}}.  `--trash-band NAME` runs
+none of the phases: it times the grouped scatters of one tree
+(`trash_band`) and prints one JSON line.  Data is cached as parquet
 under the temporary directory; nothing else outside the checkout is
 touched.
 """
@@ -183,6 +201,92 @@ STAR_QUERIES = [
 ]
 
 
+TPCH_Q12 = """SELECT l_shipmode,
+ sum(case when o_orderpriority = '1-URGENT' or o_orderpriority = '2-HIGH'
+ then 1 else 0 end) as high_line_count,
+ sum(case when o_orderpriority <> '1-URGENT' and o_orderpriority <> '2-HIGH'
+ then 1 else 0 end) as low_line_count
+ FROM orders, lineitem WHERE o_orderkey = l_orderkey
+ AND l_shipmode in ('MAIL', 'SHIP') AND l_commitdate < l_receiptdate
+ AND l_shipdate < l_commitdate AND l_receiptdate >= date '1994-01-01'
+ AND l_receiptdate < date '1994-01-01' + interval '1' year
+ GROUP BY l_shipmode ORDER BY l_shipmode"""
+TPCH_Q14 = """SELECT 100.00 * sum(case when p_type like 'PROMO%'
+ then l_extendedprice * (1 - l_discount) else 0 end)
+ / sum(l_extendedprice * (1 - l_discount)) as promo_revenue
+ FROM lineitem, part WHERE l_partkey = p_partkey
+ AND l_shipdate >= date '1995-09-01'
+ AND l_shipdate < date '1995-09-01' + interval '1' month"""
+STAR_QUERIES += [
+    ("tpch_q12", TPCH_Q12, {
+        "lineitem": ["l_orderkey", "l_shipmode", "l_shipdate",
+                     "l_commitdate", "l_receiptdate"],
+        "orders": ["o_orderkey", "o_orderpriority"]}),
+    ("tpch_q14", TPCH_Q14, {
+        "lineitem": ["l_partkey", "l_extendedprice", "l_discount",
+                     "l_shipdate"],
+        "part": ["p_partkey", "p_type"]}),
+]
+
+#: phase 6c: (name, ClickBench query number or SQL, the route counter of
+#: `fused_agg.STATS` that must move by one, columns to transcode first).
+#: The numbered ones are read from `benchmark/clickbench/queries/`.
+#: `cb_q42_open` is q42 without its CounterID and EventDate conjuncts and
+#: OFFSET (the generator has no row with CounterID = 62); the last two
+#: reach the distinct forms the data does not reach on its own: an
+#: expression key has no cardinality bound (the chained two-level hash),
+#: two DISTINCT columns fold on the host
+CB_Q42_OPEN = ('SELECT DATE_TRUNC(\'minute\', to_timestamp_seconds('
+               '"EventTime")) AS M, COUNT(*) AS PageViews FROM hits WHERE '
+               '"IsRefresh" = 0 AND "DontCountHits" = 0 GROUP BY DATE_TRUNC('
+               '\'minute\', to_timestamp_seconds("EventTime")) ORDER BY '
+               'DATE_TRUNC(\'minute\', M) LIMIT 10')
+CB_DISTINCT_CHAINED = ('SELECT "RegionID" + 1 AS r, COUNT(DISTINCT "UserID") '
+                       'AS u FROM hits GROUP BY "RegionID" + 1 '
+                       'ORDER BY u DESC, r LIMIT 10')
+CB_DISTINCT_FOLD = ('SELECT "TraficSourceID", COUNT(DISTINCT "SearchEngineID")'
+                    ' AS e, COUNT(DISTINCT "AdvEngineID") AS a, COUNT(*) AS c '
+                    'FROM hits GROUP BY "TraficSourceID" '
+                    'ORDER BY c DESC, "TraficSourceID"')
+SLICE_QUERIES = [
+    ("cb_q4", 4, "distinct_sort", ["UserID"]),
+    ("cb_q5", 5, "distinct_sort", ["SearchPhrase"]),
+    ("cb_q8", 8, "distinct_sort", ["RegionID", "UserID"]),
+    ("cb_q9", 9, "distinct_sort", ["RegionID", "AdvEngineID",
+                                   "ResolutionWidth", "UserID"]),
+    ("cb_q10", 10, "distinct_sort", ["MobilePhoneModel", "UserID"]),
+    ("cb_q11", 11, "distinct_sort", ["MobilePhone", "MobilePhoneModel",
+                                     "UserID"]),
+    ("cb_q13", 13, "distinct_sort", ["SearchPhrase", "UserID"]),
+    ("cb_q18", 18, "fused_grouped", ["UserID", "EventTime", "SearchPhrase"]),
+    ("cb_q22", 22, "distinct_sort", ["SearchPhrase", "URL", "Title",
+                                     "UserID"]),
+    ("cb_q24", 24, "fused_selects", ["SearchPhrase", "EventTime"]),
+    ("cb_q26", 26, "fused_selects", ["SearchPhrase", "EventTime"]),
+    ("cb_q42", 42, "fused_grouped", ["EventTime", "CounterID", "EventDate",
+                                     "IsRefresh", "DontCountHits"]),
+    ("cb_q42_open", CB_Q42_OPEN, "fused_grouped",
+     ["EventTime", "IsRefresh", "DontCountHits"]),
+    ("cb_distinct_chained", CB_DISTINCT_CHAINED, "distinct_chained",
+     ["RegionID", "UserID"]),
+    ("cb_distinct_fold", CB_DISTINCT_FOLD, "distinct_fold",
+     ["TraficSourceID", "SearchEngineID", "AdvEngineID"]),
+]
+#: the route counters phase 6c reads
+SLICE_ROUTES = ("distinct_sort", "distinct_chained", "distinct_fold",
+                "fused_selects", "fused_grouped")
+
+
+def slice_sql(query) -> str:
+    """A phase-6c query's SQL: a ClickBench file's text, or the SQL."""
+    if isinstance(query, str):
+        return query
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmark", "clickbench", "queries", f"q{query}.sql")
+    with open(path) as f:
+        return f.read().strip().rstrip(";")
+
+
 #: K1 launches per warm run: one per interval predicate on a bit-plane
 #: column (string predicates are verdict LUTs and launch none).  A star
 #: query's warm run reuses its cached plan and dimension builds: only
@@ -191,11 +295,20 @@ STAR_QUERIES = [
 #: dynamic l_orderkey range is linear-coded, a residual)
 K1_PER_RUN = {"cb_filter": 1, "cb_like": 0, "tpch_q6": 5, "cb_groupby": 0,
               "cb_q15": 0, "tpch_q15_revenue": 2, "tpch_supp_price": 1,
-              "tpch_q1": 1, "tpch_q3": 1, "tpch_q5": 2, "tpch_q10": 0}
+              "tpch_q1": 1, "tpch_q3": 1, "tpch_q5": 2, "tpch_q10": 0,
+              # l_receiptdate's two bounds (l_shipmode is a string); q14's
+              # l_shipdate bounds and the dynamic l_partkey range
+              "tpch_q12": 2, "tpch_q14": 4,
+              # phase 6c: only cb_q42_open's IsRefresh and DontCountHits
+              # are intervals (q42's CounterID = 62 prunes every block;
+              # the others filter on strings or not at all)
+              **{q: 0 for q, *_rest in SLICE_QUERIES}, "cb_q42_open": 2}
 #: K1 launches in a star query's first run, in the phase's order: the
 #: warm run's plus the intervals of its dimension builds (each query
-#: builds orders under its own o_orderdate range)
-K1_FIRST_RUN = {"tpch_q3": 2, "tpch_q5": 4, "tpch_q10": 2}
+#: builds orders under its own o_orderdate range; q12's orders and q14's
+#: part carry no predicate)
+K1_FIRST_RUN = {"tpch_q3": 2, "tpch_q5": 4, "tpch_q10": 2, "tpch_q12": 2,
+                "tpch_q14": 4}
 
 
 def log(*a):
@@ -810,6 +923,69 @@ def run_star_path(torch, ctx, expect: dict):
     return report, inputs
 
 
+def run_slice_path(torch, ctx, expect: dict):
+    """Phase 6c: count(DISTINCT), the temporal keys and the fused bare
+    SELECT on the hits session -> per-query report.  Each answer is
+    checked against pyarrow (`bench/oracle.py`, the tie rule for a LIMIT
+    that cuts through ties), the route counter named in `SLICE_QUERIES`
+    moves by one per run and the fused route (`fused_queries`) with it,
+    and K1 launches per warm run equal `K1_PER_RUN`."""
+    from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    from liquid_tpu_torch.sql import fused_agg
+    pt = ctx._tables["hits"]
+    report = {}
+    for qname, query, route, cols in SLICE_QUERIES:
+        sql = slice_sql(query)
+        t0 = time.perf_counter()
+        for rg in range(pt.num_row_groups):
+            for c in cols:
+                pt.ensure_cached(rg, c)
+        t_transcode = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+
+        def run_once():
+            st = dict(fused_agg.STATS)
+            launches = k1.LAUNCHES["cmp_const_many"]
+            out = ctx.sql(sql).to_arrow()
+            torch.cuda.synchronize()
+            moved = {r: fused_agg.STATS[r] - st[r] for r in SLICE_ROUTES}
+            want = {r: int(r == route or (r == "fused_grouped" and route in (
+                "distinct_sort", "distinct_chained", "distinct_fold")))
+                for r in SLICE_ROUTES}
+            if moved != want or fused_agg.STATS["fused_queries"] \
+                    == st["fused_queries"]:
+                raise AssertionError(f"{qname}: routes {moved}, expected "
+                                     f"{want} and the fused route")
+            return out, k1.LAUNCHES["cmp_const_many"] - launches
+
+        t0 = time.perf_counter()
+        out, first_k1 = run_once()
+        t_first = time.perf_counter() - t0
+        warm, outs = [], {"first": out}
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out, per_run = run_once()
+            warm.append(time.perf_counter() - t0)
+        outs["last warm"] = out
+        for what, got in outs.items():
+            if not oracle.same_table(got, expect[qname],
+                                     oracle.CUTS.get(qname)):
+                raise AssertionError(f"{qname} ({what} run): port "
+                                     f"{got.to_pylist()[:2]} != pyarrow")
+        if per_run != K1_PER_RUN[qname]:
+            raise AssertionError(f"{qname}: {per_run} K1 launches per warm "
+                                 f"run, expected {K1_PER_RUN[qname]}")
+        report[qname] = dict(
+            rows=pt.num_rows, answer_rows=out.num_rows, route=route,
+            transcode_s=t_transcode, first_run_s=t_first,
+            first_run_k1=first_k1, warm_best_ms=min(warm) * 1e3,
+            warm_ms=[w * 1e3 for w in warm], k1_launches_per_run=per_run,
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        log(f"[slice] {qname}: {json.dumps(report[qname])}")
+    return report
+
+
 def main_path_k1_inputs(ctx):
     """(planes, lo, hi, query table) for every interval the main path's
     cached plans fed to K1."""
@@ -954,6 +1130,7 @@ def device_breakdown(torch, ctx, sql: str, warm_best_ms: float) -> dict:
     cats = sorted(((n, v) for n, v in by_name.items() if "Cat" in n),
                   key=lambda kv: -kv[1][0])
     return dict(
+        ms_by_name={n: us / 1e3 for n, (us, _c) in by_name.items()},
         profiled_wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
         idle_share=(1 - busy_us / 1e3 / warm_best_ms) if dev else None,
         device_ops=len(dev),
@@ -961,6 +1138,89 @@ def device_breakdown(torch, ctx, sql: str, warm_best_ms: float) -> dict:
              for n, (us, c) in top],
         cat=[dict(name=n[:90], ms=us / 1e3, count=c)
              for n, (us, c) in cats])
+
+
+#: the fused select's host steps: (step, file, function cProfile names)
+SELECT_STEPS = (("total", "fused_agg.py", "try_fused_select"),
+                ("mini_planner", "fused_star.py", "prep_of"),
+                ("null_check", "fused_star.py", "_prep_has_nulls"),
+                ("device_run", "fused_agg.py", "_fused_select_run"),
+                ("fetch", "~", "<method 'cpu' of 'torch._C.TensorBase' "
+                 "objects>"),
+                ("cell_reads", "fused_agg.py", "block"))
+
+
+def host_split(ctx, sql: str) -> dict:
+    """Phase 9: one warm run of a bare SELECT under cProfile -> ms of each
+    of the fused select's host steps (cumulative, so `total` holds the
+    others; `other` is what no step names)."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    ctx.sql(sql).to_arrow()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    out = {step: 1e3 * sum(v[3] for (f, _l, fn), v in stats.items()
+                           if fn == name and f.endswith(where))
+           for step, where, name in SELECT_STEPS}
+    out["other"] = out["total"] - sum(
+        v for k, v in out.items() if k != "total")
+    return out
+
+
+#: (part of the profile's kernel names, what they are)
+SCATTER_KERNELS = (("indexFunc", "index_add_ms"),
+                   ("_scatter_gather_elementwise_kernel", "scatter_reduce_ms"))
+
+
+def trash_band(torch, args) -> int:
+    """`--trash-band LABEL [--tree DIR]`: the device time of the grouped
+    scatters, for comparing two trees of the port on one card (the dead
+    rows' trash band against a single trash row).  `liquid_tpu_torch` is
+    imported from `--tree` (default: this script's directory).  On the
+    data of `--data-dir` it runs `tpch_q3`, `tpch_q10`, `tpch_q15_revenue`
+    and `cb_q15`: one first run, three warm runs (best kept), then phase
+    9's profiled warm run, which gives device busy and the device time of
+    the `index_add_` kernels (`indexFunc*`) and of the `scatter_reduce_`
+    kernels (`_scatter_gather_elementwise_kernel`).  Prints one JSON
+    line."""
+    import liquid_tpu_torch
+    from liquid_tpu_torch import LiquidCacheLocalBuilder
+    from liquid_tpu_torch.bench.main import prepare_data
+    tree = os.path.dirname(os.path.dirname(liquid_tpu_torch.__file__))
+    paths = prepare_data(args.data_dir, args.hits_rows, args.sf)
+    ctx, _cache = LiquidCacheLocalBuilder().with_max_memory_bytes(
+        16 << 30).build()
+    for name, p in paths.items():
+        ctx.register_parquet(name, p)
+    rows = {}
+    for qname, sql in (("tpch_q3", TPCH_Q3), ("tpch_q10", TPCH_Q10),
+                       ("tpch_q15_revenue", TPCH_Q15_REVENUE),
+                       ("cb_q15", CB_Q15)):
+        t0 = time.perf_counter()
+        ctx.sql(sql).to_arrow()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ctx.sql(sql).to_arrow()
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        bd = device_breakdown(torch, ctx, sql, min(warm))
+        row = dict(first_run_s=first, warm_best_ms=min(warm), warm_ms=warm,
+                   device_busy_ms=bd["device_busy_ms"],
+                   idle_share=bd["idle_share"], device_ops=bd["device_ops"],
+                   top=bd["top"][:4])
+        for needle, what in SCATTER_KERNELS:
+            row[what] = sum(ms for n, ms in bd["ms_by_name"].items()
+                            if needle in n)
+        rows[qname] = row
+        log(f"[trash_band] {args.trash_band} {qname}: {json.dumps(row)}")
+    print(json.dumps({"label": args.trash_band, "tree": tree,
+                      "card": card_line(), "queries": rows}), flush=True)
+    return 0
 
 
 def _reset(counters) -> None:
@@ -975,17 +1235,24 @@ def main(argv=None) -> int:
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--data-dir", default=os.path.join(
         tempfile.gettempdir(), "liquid_tpu_torch_smoke"))
+    ap.add_argument("--trash-band", metavar="LABEL",
+                    help="only time the grouped scatters (see trash_band)")
+    ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(
+        __file__)), help="the tree whose liquid_tpu_torch --trash-band times")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.trash_band:
+        sys.path.insert(0, os.path.abspath(args.tree))
+        return trash_band(torch, args)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from concurrent.futures import ThreadPoolExecutor
     from liquid_tpu_torch import _native
     from liquid_tpu_torch.bench import oracle
-    from liquid_tpu_torch.bench.main import prepare_data
+    from liquid_tpu_torch.bench.main import TPCH_TABLES, prepare_data
     from liquid_tpu_torch.ops import bitpack_cuda as k1
     from liquid_tpu_torch.ops import grouphist_cuda as k2
     from liquid_tpu_torch.ops import nvcc
@@ -1035,7 +1302,9 @@ def main(argv=None) -> int:
 
     # 5. scalar main path, counts reset just before and read just after
     t0 = time.perf_counter()
-    paths = prepare_data(args.data_dir, args.hits_rows, args.sf)
+    # `part` for q14 beside the bench entry point's tables
+    paths = prepare_data(args.data_dir, args.hits_rows, args.sf,
+                         TPCH_TABLES + ("part",))
     expect = oracle.answers(paths, list(oracle.ORACLES))
     log(f"[data] {paths} ({time.perf_counter() - t0:.1f} s)")
     counters = (k1.LAUNCHES, k2.LAUNCHES)
@@ -1066,9 +1335,17 @@ def main(argv=None) -> int:
     if star_launches["cmp_const_many"] <= 0:
         raise AssertionError(f"the star path did not launch K1: "
                              f"{star_launches}")
+    # 6c. the single-table slice, counts reset just before and read after
+    _reset(counters)
+    log(f"[slice] the data's distinct UserID values: "
+        f"{expect['cb_q4'][0][0].as_py()}")
+    slice_report = run_slice_path(torch, ctx, expect)
+    slice_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
+    if slice_launches["cmp_const_many"] <= 0:
+        raise AssertionError(f"the slice did not launch K1: {slice_launches}")
     log(f"[launches] scalar path {json.dumps(scalar_launches)}; grouped "
         f"path {json.dumps(grouped_launches)}; star path "
-        f"{json.dumps(star_launches)}")
+        f"{json.dumps(star_launches)}; slice {json.dumps(slice_launches)}")
 
     # 7. K1's interval form checked and timed on the main path's own
     #    inputs, the star phase's included
@@ -1084,16 +1361,21 @@ def main(argv=None) -> int:
 
     # 9. where a warm query's device time goes
     warm = {q: r["warm_best_ms"] for q, r in
-            {**report, **greport, **sreport}.items()}
+            {**report, **greport, **sreport, **slice_report}.items()}
     for qname, sql in (("cb_filter", CB_FILTER), ("cb_like", CB_LIKE),
                        ("tpch_q6", TPCH_Q6), ("cb_groupby", CB_GROUPBY),
                        ("cb_q15", CB_Q15),
                        ("tpch_q15_revenue", TPCH_Q15_REVENUE),
                        ("tpch_supp_price", TPCH_SUPP_PRICE),
                        ("tpch_q1", TPCH_Q1)) + tuple(
-                           (q, sql) for q, sql, _ in STAR_QUERIES):
-        log(f"[profile] {qname}: " + json.dumps(device_breakdown(
-            torch, ctx, sql, warm[qname])))
+                           (q, sql) for q, sql, _ in STAR_QUERIES) + tuple(
+                           (q, slice_sql(query))
+                           for q, query, _r, _c in SLICE_QUERIES):
+        bd = device_breakdown(torch, ctx, sql, warm[qname])
+        del bd["ms_by_name"]
+        log(f"[profile] {qname}: {json.dumps(bd)}")
+        if qname in ("cb_q24", "cb_q26"):
+            log(f"[host] {qname}: {json.dumps(host_split(ctx, sql))}")
     del ctx
 
     # 9b. the benchmark entry point in this process, counts reset just
@@ -1116,13 +1398,14 @@ def main(argv=None) -> int:
     # 10. K3 and K4 timed on the micro line's input
     k34 = time_k34(torch)
     phases = {"scalar": scalar_launches, "grouped": grouped_launches,
-              "star": star_launches, "harness": harness_launches,
+              "star": star_launches, "slice": slice_launches,
+              "harness": harness_launches,
               "harness_operator_timing": op_launches}
 
     def launches(name):
         # the main path's launches: the query phases and the micro line
         return sum(phases[p][name]
-                   for p in ("scalar", "grouped", "star", "harness"))
+                   for p in ("scalar", "grouped", "star", "slice", "harness"))
 
     def by_phase(name):
         return {p: d.get(name, 0) for p, d in phases.items()}
@@ -1169,7 +1452,8 @@ def main(argv=None) -> int:
             "library_ms": None,
             "shape": [row["w"], row["rows"] // 32], "matches_plain": True,
         })
-    log(f"[summary] {json.dumps({**report, **greport, **sreport})}")
+    summary = {**report, **greport, **sreport, **slice_report}
+    log(f"[summary] {json.dumps(summary)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

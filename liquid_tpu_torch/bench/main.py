@@ -61,21 +61,22 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def prepare_data(data_dir: str, hits_rows: int, sf: float) -> dict:
-    """Synthesized hits and the TPC-H tables of `TPCH_TABLES` as parquet,
-    each written once -> {table: path}."""
+def prepare_data(data_dir: str, hits_rows: int, sf: float,
+                 tables=TPCH_TABLES) -> dict:
+    """Synthesized hits and the named TPC-H tables as parquet, each
+    written once -> {table: path}."""
     import pyarrow.parquet as pq
     from liquid_tpu_torch.bench.hits import prepare_hits
     from liquid_tpu_torch.bench.tpch_data import generate
     os.makedirs(data_dir, exist_ok=True)
     paths = {"hits": prepare_hits(hits_rows, data_dir)}
     tpch = {n: os.path.join(data_dir, f"liquid_bench_{n}_{sf}.parquet")
-            for n in TPCH_TABLES}
+            for n in tables}
     missing = [n for n, p in tpch.items() if not os.path.exists(p)]
     if missing:
-        tables = generate(sf)  # one seed: every table from one draw
+        made = generate(sf)  # one seed: every table from one draw
         for n in missing:
-            pq.write_table(tables[n], tpch[n] + ".tmp",
+            pq.write_table(made[n], tpch[n] + ".tmp",
                            row_group_size=1 << 20)
             os.replace(tpch[n] + ".tmp", tpch[n])
     paths.update(tpch)

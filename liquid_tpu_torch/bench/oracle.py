@@ -7,11 +7,19 @@ order.  `same_table`
 is the reference bench's correctness gate (`bench.py`): non-float columns
 must be exactly equal, float columns equal to rtol 1e-9.  Names that
 `answers` does not know raise KeyError.
+
+A query whose LIMIT may cut through rows tied on its ORDER BY keys
+(`CUTS`) has every row of its answer returned in order; `same_table`
+then applies the tie rule: the port's order keys equal the oracle's at
+the same positions, the rows not tied at a cut compare as multisets, and
+each tied row must be one of the oracle's rows with that key (SQL leaves
+the pick among them open).
 """
 from __future__ import annotations
 
 import datetime
-from typing import Dict, Iterable, List
+from collections import Counter
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -199,11 +207,202 @@ def _tpch_q10(paths) -> List[pa.Array]:
             g["n_name"], g["c_address"], g["c_phone"], g["c_comment"]]
 
 
+def _tpch_q12(paths) -> List[pa.Array]:
+    li = _read(paths, "lineitem", ["l_orderkey", "l_shipmode", "l_shipdate",
+                                   "l_commitdate", "l_receiptdate"])
+    li = li.filter(pc.and_(pc.and_(
+        pc.is_in(li["l_shipmode"], pa.array(["MAIL", "SHIP"])),
+        pc.and_(pc.less(li["l_commitdate"], li["l_receiptdate"]),
+                pc.less(li["l_shipdate"], li["l_commitdate"]))), pc.and_(
+        pc.greater_equal(li["l_receiptdate"], _date(1994, 1, 1)),
+        pc.less(li["l_receiptdate"], _date(1995, 1, 1)))))
+    j = _join(li, _read(paths, "orders", ["o_orderkey", "o_orderpriority"]),
+              "l_orderkey", "o_orderkey")
+    high = pc.is_in(j["o_orderpriority"], pa.array(["1-URGENT", "2-HIGH"]))
+    t = pa.table({"mode": j["l_shipmode"],
+                  "high": pc.cast(high, pa.int64()),
+                  "low": pc.cast(pc.invert(high), pa.int64())})
+    g = t.group_by("mode").aggregate([("high", "sum"), ("low", "sum")]
+                                     ).sort_by("mode")
+    return [g["mode"], g["high_sum"], g["low_sum"]]
+
+
+def _tpch_q14(paths) -> List[pa.Array]:
+    li = _read(paths, "lineitem", ["l_partkey", "l_extendedprice",
+                                   "l_discount", "l_shipdate"])
+    li = li.filter(pc.and_(
+        pc.greater_equal(li["l_shipdate"], _date(1995, 9, 1)),
+        pc.less(li["l_shipdate"], _date(1995, 10, 1))))
+    j = _join(li, _read(paths, "part", ["p_partkey", "p_type"]),
+              "l_partkey", "p_partkey")
+    rev = _revenue(j)
+    promo = pc.sum(pc.if_else(pc.starts_with(j["p_type"], "PROMO"), rev,
+                              0.0)).as_py()
+    return [pa.array([100.0 * promo / pc.sum(rev).as_py()], pa.float64())]
+
+
+# -- ClickBench queries of the single-table slice (benchmark/clickbench) --
+
+def _hits(paths, cols) -> pa.Table:
+    return pq.read_table(paths["hits"], columns=cols)
+
+
+def _seconds(a) -> pa.Array:
+    """Epoch seconds (int64) viewed as timestamp[s]."""
+    return pc.cast(a, pa.timestamp("s"))
+
+
+def _count_distinct(col: str) -> tuple:
+    return (col, "count_distinct", pc.CountOptions(mode="only_valid"))
+
+
+def _cb_q4(paths) -> List[pa.Array]:
+    u = _hits(paths, ["UserID"])["UserID"]
+    return [pa.array([pc.count_distinct(u).as_py()], pa.int64())]
+
+
+def _cb_q5(paths) -> List[pa.Array]:
+    s = _hits(paths, ["SearchPhrase"])["SearchPhrase"]
+    return [pa.array([pc.count_distinct(s).as_py()], pa.int64())]
+
+
+def _distinct_users(t: pa.Table, keys: List[str]) -> List[pa.Array]:
+    g = t.group_by(keys).aggregate([_count_distinct("UserID")]).sort_by(
+        [("UserID_count_distinct", "descending")])
+    return [g[k] for k in keys] + [g["UserID_count_distinct"]]
+
+
+def _cb_q8(paths) -> List[pa.Array]:
+    return _distinct_users(_hits(paths, ["RegionID", "UserID"]), ["RegionID"])
+
+
+def _cb_q9(paths) -> List[pa.Array]:
+    h = _hits(paths, ["RegionID", "AdvEngineID", "ResolutionWidth",
+                      "UserID"])
+    g = h.group_by("RegionID").aggregate([
+        ("AdvEngineID", "sum"), ("AdvEngineID", "count", _EVERY),
+        ("ResolutionWidth", "mean"), _count_distinct("UserID")]).sort_by(
+            [("AdvEngineID_count", "descending")])
+    return [g["RegionID"], g["AdvEngineID_sum"], g["AdvEngineID_count"],
+            g["ResolutionWidth_mean"], g["UserID_count_distinct"]]
+
+
+def _cb_q10(paths) -> List[pa.Array]:
+    h = _hits(paths, ["MobilePhoneModel", "UserID"])
+    h = h.filter(pc.not_equal(h["MobilePhoneModel"], ""))
+    return _distinct_users(h, ["MobilePhoneModel"])
+
+
+def _cb_q11(paths) -> List[pa.Array]:
+    h = _hits(paths, ["MobilePhone", "MobilePhoneModel", "UserID"])
+    h = h.filter(pc.not_equal(h["MobilePhoneModel"], ""))
+    return _distinct_users(h, ["MobilePhone", "MobilePhoneModel"])
+
+
+def _cb_q13(paths) -> List[pa.Array]:
+    h = _hits(paths, ["SearchPhrase", "UserID"])
+    h = h.filter(pc.not_equal(h["SearchPhrase"], ""))
+    return _distinct_users(h, ["SearchPhrase"])
+
+
+def _cb_q18(paths) -> List[pa.Array]:
+    h = _hits(paths, ["UserID", "EventTime", "SearchPhrase"])
+    t = pa.table({"UserID": h["UserID"],
+                  "m": pc.minute(_seconds(h["EventTime"])),
+                  "SearchPhrase": h["SearchPhrase"]})
+    g = t.group_by(["UserID", "m", "SearchPhrase"]).aggregate([
+        ("UserID", "count", _EVERY)]).sort_by(
+            [("UserID_count", "descending")])
+    return [g["UserID"], g["m"], g["SearchPhrase"], g["UserID_count"]]
+
+
+def _cb_q22(paths) -> List[pa.Array]:
+    h = _hits(paths, ["SearchPhrase", "URL", "Title", "UserID"])
+    h = h.filter(pc.and_(pc.and_(
+        pc.match_like(h["Title"], "%Google%"),
+        pc.invert(pc.match_like(h["URL"], "%.google.%"))),
+        pc.not_equal(h["SearchPhrase"], "")))
+    g = h.group_by("SearchPhrase").aggregate([
+        ("URL", "min"), ("Title", "min"), ("SearchPhrase", "count", _EVERY),
+        _count_distinct("UserID")]).sort_by(
+            [("SearchPhrase_count", "descending")])
+    return [g["SearchPhrase"], g["URL_min"], g["Title_min"],
+            g["SearchPhrase_count"], g["UserID_count_distinct"]]
+
+
+def _phrases_by_time(paths, with_phrase: bool) -> List[pa.Array]:
+    """q24 / q26: the first 10 non-empty phrases by EventTime (then by the
+    phrase); a stable sort keeps the lowest row ids among ties, as the
+    fused select does."""
+    h = _hits(paths, ["SearchPhrase", "EventTime"])
+    h = h.filter(pc.not_equal(h["SearchPhrase"], ""))
+    keys = [("EventTime", "ascending")] + (
+        [("SearchPhrase", "ascending")] if with_phrase else [])
+    return [h.take(pc.sort_indices(h, sort_keys=keys)[:10])["SearchPhrase"]]
+
+
+def _minute_views(paths, counter: bool, offset: int) -> List[pa.Array]:
+    """q42 (`counter`: CounterID = 62 and EventDate in 2013-07-14..15,
+    OFFSET 1000) and its open variant: page views per minute."""
+    h = _hits(paths, ["EventTime", "CounterID", "EventDate", "IsRefresh",
+                      "DontCountHits"])
+    m = pc.and_(pc.equal(h["IsRefresh"], 0), pc.equal(h["DontCountHits"], 0))
+    if counter:
+        day = (datetime.date(2013, 7, 14) - datetime.date(1970, 1, 1)).days
+        m = pc.and_(m, pc.and_(pc.equal(h["CounterID"], 62), pc.and_(
+            pc.greater_equal(h["EventDate"], day),
+            pc.less_equal(h["EventDate"], day + 1))))
+    h = h.filter(m)
+    t = pa.table({"M": pc.floor_temporal(_seconds(h["EventTime"]), 1,
+                                         "minute")})
+    g = t.group_by("M").aggregate([("M", "count", _EVERY)]).sort_by("M")
+    g = g.slice(offset, 10)
+    return [g["M"], g["M_count"]]
+
+
+def _cb_distinct_chained(paths) -> List[pa.Array]:
+    h = _hits(paths, ["RegionID", "UserID"])
+    g = h.group_by("RegionID").aggregate([_count_distinct("UserID")])
+    t = pa.table({"r": pc.add(pc.cast(g["RegionID"], pa.int64()), 1),
+                  "u": g["UserID_count_distinct"]}).sort_by(
+        [("u", "descending"), ("r", "ascending")]).slice(0, 10)
+    return [t["r"], t["u"]]
+
+
+def _cb_distinct_fold(paths) -> List[pa.Array]:
+    h = _hits(paths, ["TraficSourceID", "SearchEngineID", "AdvEngineID"])
+    g = h.group_by("TraficSourceID").aggregate([
+        _count_distinct("SearchEngineID"), _count_distinct("AdvEngineID"),
+        ("TraficSourceID", "count", _EVERY)]).sort_by(
+            [("TraficSourceID_count", "descending"),
+             ("TraficSourceID", "ascending")])
+    return [g["TraficSourceID"], g["SearchEngineID_count_distinct"],
+            g["AdvEngineID_count_distinct"], g["TraficSourceID_count"]]
+
+
 ORACLES = {"cb_filter": _cb_filter, "cb_like": _cb_like,
            "tpch_q6": _tpch_q6, "cb_groupby": _cb_groupby,
            "cb_q15": _cb_q15, "tpch_q15_revenue": _tpch_q15_revenue,
            "tpch_supp_price": _tpch_supp_price, "tpch_q1": _tpch_q1,
-           "tpch_q3": _tpch_q3, "tpch_q5": _tpch_q5, "tpch_q10": _tpch_q10}
+           "tpch_q3": _tpch_q3, "tpch_q5": _tpch_q5, "tpch_q10": _tpch_q10,
+           "tpch_q12": _tpch_q12, "tpch_q14": _tpch_q14,
+           "cb_q4": _cb_q4, "cb_q5": _cb_q5, "cb_q8": _cb_q8,
+           "cb_q9": _cb_q9, "cb_q10": _cb_q10, "cb_q11": _cb_q11,
+           "cb_q13": _cb_q13, "cb_q18": _cb_q18, "cb_q22": _cb_q22,
+           "cb_q24": lambda paths: _phrases_by_time(paths, False),
+           "cb_q26": lambda paths: _phrases_by_time(paths, True),
+           "cb_q42": lambda paths: _minute_views(paths, True, 1000),
+           "cb_q42_open": lambda paths: _minute_views(paths, False, 0),
+           "cb_distinct_chained": _cb_distinct_chained,
+           "cb_distinct_fold": _cb_distinct_fold}
+
+#: answers cut by a LIMIT that may split rows tied on the ORDER BY keys:
+#: (positions of the order-key columns, OFFSET, LIMIT); their oracles
+#: return every row in order
+CUTS: Dict[str, Tuple[Tuple[int, ...], int, int]] = {
+    "cb_q8": ((1,), 0, 10), "cb_q9": ((2,), 0, 10), "cb_q10": ((1,), 0, 10),
+    "cb_q11": ((2,), 0, 10), "cb_q13": ((1,), 0, 10),
+    "cb_q18": ((3,), 0, 10), "cb_q22": ((3,), 0, 10)}
 
 
 def answers(paths: Dict[str, str], names: Iterable[str]
@@ -212,9 +411,55 @@ def answers(paths: Dict[str, str], names: Iterable[str]
     return {n: ORACLES[n](paths) for n in names}
 
 
-def same_table(out: pa.Table, want: List[pa.Array]) -> bool:
+def _cell_key(v):
+    """A hashable, sortable form of a cell: floats to 9 significant
+    digits (the rtol 1e-9 gate), NULL first, NaN last."""
+    if isinstance(v, float) and v != v:
+        return (2,)
+    if isinstance(v, float):
+        return (1, float(f"{v:.9g}"))
+    return (0,) if v is None else (1, v)
+
+
+def _rows(cols) -> List[tuple]:
+    return list(zip(*[c.to_pylist() for c in cols]))
+
+
+def _same_cut(out: pa.Table, want: List[pa.Array], cut) -> bool:
+    """The tie rule over an answer cut by OFFSET / LIMIT (module doc)."""
+    keys, offset, limit = cut
+    full = _rows(want)
+    lo, hi = min(offset, len(full)), min(offset + limit, len(full))
+    got = _rows(out.columns)
+    if out.num_columns != len(want) or len(got) != hi - lo:
+        return False
+    if not got:
+        return True
+
+    def key(r):
+        return tuple(_cell_key(r[i]) for i in keys)
+
+    if [key(r) for r in got] != [key(r) for r in full[lo:hi]]:
+        return False
+    tied = {key(full[hi - 1])} | ({key(full[lo])} if lo else set())
+
+    def canon(rows):
+        return Counter(tuple(_cell_key(v) for v in r) for r in rows)
+
+    inner = canon(r for r in got if key(r) not in tied)
+    if inner != canon(r for r in full[lo:hi] if key(r) not in tied):
+        return False
+    return not canon(r for r in got if key(r) in tied) - canon(
+        r for r in full if key(r) in tied)
+
+
+def same_table(out: pa.Table, want: List[pa.Array],
+               cut: Optional[tuple] = None) -> bool:
     """Engine result vs oracle columns: non-float columns exactly equal,
-    float columns rtol 1e-9."""
+    float columns rtol 1e-9; with `cut` (a `CUTS` entry) under the tie
+    rule."""
+    if cut is not None:
+        return _same_cut(out, want, cut)
     if out.num_columns != len(want) or out.num_rows != len(want[0]):
         return False
     for got, exp in zip(out.columns, want):

@@ -17,8 +17,11 @@ prefix-packed, f64 rows as bit images), plus the slot-ordered columns
 for a re-pack when there are more than PACK_CAP groups.
 
 The reference's scatters drop out-of-bounds indices (`mode="drop"`);
-`index_add_` and `scatter_reduce_` have no such mode, so every table here
-has one extra trash row, where those indices land, sliced off after.
+`index_add_` and `scatter_reduce_` have no such mode, so every scatter
+table here has a band of TRASH rows past its m slots: dead row r lands in
+row m + (r & (TRASH - 1)), and the band is sliced off after.  Spread over
+the band, the dead rows of a selective filter no longer serialize their
+atomics on one address.
 u64 hashing runs on int64 bit images: the product wraps as the u64
 product does, and every right shift is logical (`device.srl`).
 """
@@ -51,6 +54,9 @@ DIRECT_CAP = 1 << 21
 SMALL = 64
 STREAM_ELEMS = 6144
 
+#: rows of the trash band appended to every scatter table (a power of 2)
+TRASH = 4096
+
 #: reduction tiers taken, counted where they are chosen: "k2" per direct
 #: reduction through K2, "stream" and "scatter" per (op, dtype) batch of
 #: the other direct reductions, "hash" per hash-ladder call
@@ -81,12 +87,20 @@ def _fill(dt: torch.dtype, op: str):
     return 0 if op == "add" else _neutral(dt, op)
 
 
+def _dropped(slot: torch.Tensor, live: torch.Tensor, m: int) -> torch.Tensor:
+    """int64 scatter indices with the dead rows sent to the trash band:
+    row r to m + (r & (TRASH - 1)), never a kept slot."""
+    band = torch.arange(slot.shape[0], dtype=_I64, device=slot.device) \
+        & (TRASH - 1)
+    return torch.where(live, slot.to(_I64), band + m)
+
+
 def _scatter(slot: torch.Tensor, stackv: torch.Tensor, m: int,
              op: str) -> torch.Tensor:
-    """Per-slot reduction of stackv [n, K] into [m, K]; slot == m (or any
-    index the caller marked out of range as m) lands in the trash row."""
+    """Per-slot reduction of stackv [n, K] into [m, K]; `slot` from
+    `_dropped`, whose indices m .. m + TRASH - 1 land in the trash band."""
     dt = stackv.dtype
-    tbl = torch.full((m + 1, stackv.shape[1]), _fill(dt, op), dtype=dt,
+    tbl = torch.full((m + TRASH, stackv.shape[1]), _fill(dt, op), dtype=dt,
                      device=stackv.device)
     idx = slot.to(torch.int64)
     if op == "add":
@@ -159,16 +173,19 @@ def direct_reduce_packed(codes: Sequence[torch.Tensor],
     for i, (c, nl) in enumerate(zip(codes, knulls)):
         idx = torch.where(nl, torch.full_like(c, spans[i] + 1), c - los[i])
         slot = slot + idx * strides[i]
+    # K2's contract: slot m is its trash column
     slot = torch.where(valid, slot, torch.full_like(slot, m)).to(torch.int32)
+    dropped = None
 
     add_cols: Dict[torch.dtype, list] = {}
     min_cols: Dict[torch.dtype, list] = {}
     max_cols: Dict[torch.dtype, list] = {}
-    # the occupancy column counts every row: dead rows sit in slot m
+    # the occupancy column counts every row: dead rows sit past slot m
     _batch_cols(vals, vnulls, kinds, valid, add_cols, min_cols, max_cols)
     got: Dict[tuple, torch.Tensor] = {}
 
     def run_batch(groups, op):
+        nonlocal dropped
         for dt, cols in groups.items():
             stackv = torch.stack([v for _, v in cols], dim=1)
             if m <= SMALL or m * len(cols) <= STREAM_ELEMS:
@@ -176,7 +193,9 @@ def direct_reduce_packed(codes: Sequence[torch.Tensor],
                 tbl = _stream(slot, stackv, m, op)
             else:
                 TIERS["scatter"] += 1
-                tbl = _scatter(slot, stackv, m, op)
+                if dropped is None:
+                    dropped = _dropped(slot, valid, m)
+                tbl = _scatter(dropped, stackv, m, op)
             for k, (tag, _) in enumerate(cols):
                 got[(op,) + tag] = tbl[:, k]
 
@@ -273,8 +292,7 @@ def hash_rounds_reduce_packed(codes: Sequence[torch.Tensor],
                 h = _mix(h, nl.to(_I64))
         else:
             h = torch.zeros(n, dtype=_I64, device=dev)
-        slot = (h & (n_slots - 1)).to(torch.int32)
-        slot = torch.where(live, slot, torch.full_like(slot, n_slots))
+        slot = _dropped(h & (n_slots - 1), live, n_slots)
 
         add_cols: Dict[torch.dtype, list] = {}
         min_cols: Dict[torch.dtype, list] = {}

@@ -3,17 +3,22 @@
 SQL -> parse -> qualify -> plan -> fused device aggregate -> pa.Table.
 A single-table aggregate, with or without GROUP BY, goes to the fused
 path (`sql/fused_agg.py`); a COUNT(*) with no filter and no keys is
-answered from parquet metadata, as the reference does.  An aggregate over
-`FROM a, b, ...` or `a JOIN b ON ...` (inner or cross) goes to the fused
-star path (`sql/fused_star.py`).  The projection, HAVING and ORDER BY /
-LIMIT then run over the small aggregate result with the host evaluator
-(`sql/eval.py`).  Every other statement shape -- outer joins, derived
-tables, grouping sets, plain SELECT, set operations, CTEs, windows,
-subqueries -- belongs to slices of the port that are not done yet and
-raises NotImplementedError naming the shape.
+answered from parquet metadata, as the reference does.  count(DISTINCT)
+takes a device route first (`distinct_fused_device`: sorted pairs or the
+chained two-level hash), else the host fold (`distinct_two_level`).  An
+aggregate over `FROM a, b, ...` or `a JOIN b ON ...` (inner or cross)
+goes to the fused star path (`sql/fused_star.py`), count(DISTINCT) there
+through the host fold.  The projection, HAVING and ORDER BY / LIMIT then
+run over the small aggregate result with the host evaluator
+(`sql/eval.py`).  A bare SELECT over one parquet table goes to the fused
+select (`fused_agg.try_fused_select`).  Every other statement shape --
+outer joins, derived tables, grouping sets, other plain SELECTs, set
+operations, CTEs, windows, subqueries -- belongs to slices of the port
+that are not done yet and raises NotImplementedError naming the shape.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import pyarrow as pa
@@ -95,8 +100,20 @@ class QueryExecutor:
         for o in q.order_by:
             find_aggs(o.expr, aggs)
         if not (aggs or q.group_by):
-            raise _not_ported("SELECT without aggregates (the classic path)")
+            return self._exec_plain(q)
         return self._exec_aggregate(q, aggs)
+
+    def _exec_plain(self, q: ast.Select) -> pa.Table:
+        """A bare SELECT: the fused select over one parquet table."""
+        rel = q.from_
+        if not (isinstance(rel, ast.TableRef) and not rel.prefix
+                and rel.name in self.catalog):
+            raise _not_ported("SELECT without aggregates (the classic path)")
+        if q.where is not None and _contains(q.where, _SUBQUERY):
+            raise _not_ported("subqueries")
+        from liquid_tpu_torch.sql.fused_agg import try_fused_select
+        with TRACER.span("sql.fused_select"):
+            return try_fused_select(self, self.catalog[rel.name], q, q.where)
 
     def _resolve_group_exprs(self, q: ast.Select
                              ) -> List[Tuple[ast.Expr, str]]:
@@ -141,10 +158,23 @@ class QueryExecutor:
         rew_keys = [ge for ge, _ in group]
         rew_inputs = {s.name: s.input for s in slots if s.input is not None}
         if star:
+            from liquid_tpu_torch.sql.fused_agg import distinct_two_level
             from liquid_tpu_torch.sql.fused_star import try_fused_star
+            # the inner aggregate of the fold is not the query: its ORDER
+            # BY, LIMIT and HAVING must not cut the inner rows
+            inner_q = dataclasses.replace(q, order_by=[], limit=None,
+                                          offset=None, having=None)
+
+            def run_star(g2, kn2, s2, rk2, ri2):
+                return try_fused_star(self, inner_q, g2, kn2, s2, rk2, ri2,
+                                      q.where)
+
             with TRACER.span("sql.fused_star"):
-                final = try_fused_star(self, q, group, key_names, slots,
-                                       rew_keys, rew_inputs, q.where)
+                final = distinct_two_level(slots, group, key_names, rew_keys,
+                                           rew_inputs, run_star)
+                if final is None:
+                    final = try_fused_star(self, q, group, key_names, slots,
+                                           rew_keys, rew_inputs, q.where)
             return self._project(q, group, slots, final)
         table = self.catalog[rel.name]
         plan = plan_scan_filters(q.where)
@@ -162,11 +192,26 @@ class QueryExecutor:
             final = pa.table({s.name: pa.array([table.num_rows], pa.int64())
                               for s in slots})
         else:
-            from liquid_tpu_torch.sql.fused_agg import try_fused_aggregate
-            with TRACER.span("sql.fused_aggregate"):
-                final = try_fused_aggregate(
-                    table, plan, column_hints(q), group, key_names, slots,
-                    rew_keys, rew_inputs, q)
+            from liquid_tpu_torch.sql import fused_agg
+            hints = column_hints(q)
+            final = None
+            if any(s.kind == "count_distinct" for s in slots):
+                with TRACER.span("sql.fused_distinct"):
+                    # the device routes first; a failure there raises
+                    final = fused_agg.distinct_fused_device(
+                        table, plan, hints, group, key_names, slots,
+                        rew_keys, rew_inputs, q)
+                    if final is None:
+                        final = fused_agg.distinct_two_level(
+                            slots, group, key_names, rew_keys, rew_inputs,
+                            lambda g2, kn2, s2, rk2, ri2:
+                            fused_agg.try_fused_aggregate(
+                                table, plan, hints, g2, kn2, s2, rk2, ri2))
+            if final is None:
+                with TRACER.span("sql.fused_aggregate"):
+                    final = fused_agg.try_fused_aggregate(
+                        table, plan, hints, group, key_names, slots,
+                        rew_keys, rew_inputs, q)
         return self._project(q, group, slots, final)
 
     def _project(self, q: ast.Select, group, slots,

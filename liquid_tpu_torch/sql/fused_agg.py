@@ -25,11 +25,13 @@ reason -- the port has no classic path to fall back to yet):
   conditions, numeric or string (=, <>, IN, LIKE on a dictionary column
   resolve to sets of ids in the column's sorted global vocabulary),
 - GROUP BY numeric, date, bool or string columns, numeric expressions
-  of them, and string-valued expressions of ONE string column
-  (evaluated over its vocabulary on the host),
+  of them (CASE, extract, date_trunc, to_timestamp_seconds among them),
+  and string-valued expressions of ONE string column (evaluated over its
+  vocabulary on the host),
 - aggregates count(*)/count/sum/avg/min/max/stddev/var over + - * /
   arithmetic of numeric columns and literals; count and min/max of a
-  string column,
+  string column; count(DISTINCT column) (sorted pairs, the chained
+  two-level hash or the host fold, below),
 - every touched block resident as MEMORY_LIQUID primitive / linear /
   float / byte-view.
 The star-join fact program (`sql/fused_star.py`) is this program with
@@ -39,9 +41,10 @@ decoded payload through j, and a functional-dependency plan (`_Plan.fd`)
 reduces on one representative key -- the probe index j itself, or a
 dimension key value -- and re-attaches the other keys by gathers over the
 packed output rows.
+A bare single-table SELECT ... ORDER BY ... LIMIT picks its rows here
+too (`try_fused_select`).
 Not ported yet: functional-dependency key reduction on a single table,
-CASE and temporal expressions, existence probes, the sort-pair and
-chained count(DISTINCT) forms.
+existence probes, grouping sets.
 """
 from __future__ import annotations
 
@@ -79,12 +82,20 @@ _STAGES = ((1 << 13, 0x9E3779B97F4A7C15),
            (1 << 20, 0x165667B19E3779F9),
            (1 << 22, 0x27D4EB2F165667C5))
 
+#: the ladder of the device count(DISTINCT) routes only: a level-1 table
+#: keyed by (keys, d) can hold about as many groups as rows scanned
+_STAGES_XL = _STAGES + ((1 << 23, 0x94D049BB133111EB),)
+
 #: module counters (the reference's keys: tests and runs read the route);
 #: fused_pallas counts grouped runs routed through K2, star_queries the
-#: star joins of `sql/fused_star.py`
+#: star joins of `sql/fused_star.py`, fused_selects the fused bare
+#: SELECTs; distinct_sort, distinct_chained and distinct_fold count the
+#: count(DISTINCT) routes (sorted pairs, the chained two-level hash, the
+#: host fold)
 STATS = {"fused_queries": 0, "fused_grouped": 0, "fused_scalar": 0,
          "fused_bailouts": 0, "fused_retries": 0, "fused_pallas": 0,
-         "star_queries": 0}
+         "star_queries": 0, "fused_selects": 0, "distinct_sort": 0,
+         "distinct_chained": 0, "distinct_fold": 0}
 
 _AGG_KINDS = frozenset({"count_star", "count", "sum", "avg", "min", "max",
                         "stddev", "var"})
@@ -100,6 +111,8 @@ class _Bail(NotImplementedError):
 # Nodes carry their dtype ("i64" | "f64"); casts are explicit.
 #   ("col", name, dtype)   ("lit", value, dtype)   ("bin", op, dtype, l, r)
 #   ("neg", dtype, x)      ("cast", dtype, x)
+#   ("bin", "fdiv" | "mod", "i64", l, r)   floor division / floor modulo
+#   ("where", dtype, cond, t, f)  CASE: the branch a boolean IR picks
 #   ("lut", col, aix, dtype)  arrays[aix][gid]: a value computed on the
 #                             host over a string column's vocabulary
 # Boolean nodes (residual conditions):
@@ -164,6 +177,21 @@ def _compile_expr(e: ast.Expr, col_kinds, dictres=None) -> Tuple[tuple, set]:
                 or pa.types.is_boolean(t)):
             return x, cols
         raise _Bail(f"::date over {t}")
+    if isinstance(e, ast.Case) and dictres is not None:
+        # CASE WHEN c THEN v ... ELSE x END -> nested ("where", ...) nodes
+        if e.operand is not None:
+            raise _Bail("CASE <operand> form")
+        if e.else_ is None:
+            raise _Bail("CASE without ELSE (NULL branch)")
+        out, cols = _compile_expr(e.else_, col_kinds, dictres)
+        for cond, val in reversed(e.whens):
+            c_ir, cc = _compile_bool(cond, col_kinds, dictres)
+            v_ir, vc = _compile_expr(val, col_kinds, dictres)
+            if _ir_dtype(v_ir) != _ir_dtype(out):
+                v_ir, out = _as_f64(v_ir), _as_f64(out)
+            out = ("where", _ir_dtype(v_ir), c_ir, v_ir, out)
+            cols |= cc | vc
+        return out, cols
     if isinstance(e, ast.Binary) and e.op in ("+", "-", "*", "/"):
         l, lc = _compile_expr(e.left, col_kinds, dictres)
         r, rc = _compile_expr(e.right, col_kinds, dictres)
@@ -177,6 +205,23 @@ def _compile_expr(e: ast.Expr, col_kinds, dictres=None) -> Tuple[tuple, set]:
         else:
             dt = "i64"
         return ("bin", e.op, dt, l, r), lc | rc
+    if isinstance(e, ast.Extract):
+        img, unit, cols = _time_image_ir(e.operand, col_kinds, dictres)
+        return _extract_ir(e.field.lower(), img, unit), cols
+    if isinstance(e, ast.Func) and e.name == "to_timestamp_seconds":
+        img, _unit, cols = _time_image_ir(e, col_kinds, dictres)
+        return img, cols
+    if isinstance(e, ast.Func) and e.name == "date_trunc" \
+            and len(e.args) == 2 and isinstance(e.args[0], ast.Literal):
+        img, unit, cols = _time_image_ir(e.args[1], col_kinds, dictres)
+        u = str(e.args[0].value).lower()
+        widths = {"second": 1, "minute": 60, "hour": 3600, "day": 86400}
+        if unit != "s" or u not in widths:
+            raise _Bail(f"date_trunc {u} over {unit}")
+        w = widths[u]
+        if w == 1:
+            return img, cols
+        return _bin("*", _fdiv(img, w), _ilit(w)), cols
     lutres = getattr(col_kinds, "lutres", None)
     c = _one_dict_column(e, col_kinds) if lutres is not None else None
     if c is not None:
@@ -187,6 +232,99 @@ def _compile_expr(e: ast.Expr, col_kinds, dictres=None) -> Tuple[tuple, set]:
             aix, vdt = got
             return ("lut", c, aix, vdt), {c}
     raise _Bail(f"expression {type(e).__name__}")
+
+
+# -- temporal lowering ---------------------------------------------------------
+#
+# extract / date_trunc / to_timestamp_seconds lower to integer IR over the
+# column's stored i64 image (date32 days, epoch seconds), so temporal group
+# keys stay on the device.  "fdiv" and "mod" are FLOOR division and floor
+# modulo, as the reference's `//` and `%` are: days before 1970 and negative
+# epoch seconds land in the right day, minute and year.  Civil dates use
+# Howard Hinnant's integer civil_from_days.
+
+def _bin(op: str, l, r):
+    return ("bin", op, "i64", l, r)
+
+
+def _ilit(v: int):
+    return ("lit", v, "i64")
+
+
+def _fdiv(x, k: int):
+    return _bin("fdiv", x, _ilit(k))
+
+
+def _mod(x, k: int):
+    return _bin("mod", x, _ilit(k))
+
+
+def _time_image_ir(e: ast.Expr, col_kinds, dictres):
+    """-> (i64 IR, unit "days" | "s", columns)."""
+    atype = getattr(col_kinds, "arrow_type", None)
+    if isinstance(e, ast.Func) and e.name == "to_timestamp_seconds" \
+            and len(e.args) == 1:
+        x, cols = _compile_expr(e.args[0], col_kinds, dictres)
+        if _ir_dtype(x) != "i64":
+            raise _Bail("to_timestamp_seconds over non-int")
+        return x, "s", cols
+    if isinstance(e, ast.Column) and atype is not None:
+        t = atype(e.name)
+        x, cols = _compile_expr(e, col_kinds, dictres)
+        if t is not None and pa.types.is_date32(t):
+            return x, "days", cols
+        if t is not None and pa.types.is_timestamp(t):
+            div = {"s": 1, "ms": 1000, "us": 1000000,
+                   "ns": 1000000000}.get(t.unit)
+            if div is None:
+                raise _Bail(f"timestamp unit {t.unit}")
+            return (x if div == 1 else _fdiv(x, div)), "s", cols
+    if isinstance(e, ast.Cast) and e.type_name == "date":
+        x, cols = _compile_expr(e, col_kinds, dictres)
+        return x, "days", cols
+    raise _Bail(f"temporal operand {type(e).__name__}")
+
+
+def _civil_ir(days):
+    """days since the epoch (i64 IR) -> (year, month, day) IRs, exact over
+    the whole date32 domain."""
+    z = _bin("+", days, _ilit(719468))
+    era = _fdiv(z, 146097)
+    doe = _bin("-", z, _bin("*", era, _ilit(146097)))
+    yoe = _fdiv(_bin("-", _bin("+", _bin("-", doe, _fdiv(doe, 1460)),
+                               _fdiv(doe, 36524)), _fdiv(doe, 146096)), 365)
+    y0 = _bin("+", yoe, _bin("*", era, _ilit(400)))
+    doy = _bin("-", doe, _bin("-", _bin("+", _bin("*", _ilit(365), yoe),
+                                        _fdiv(yoe, 4)), _fdiv(yoe, 100)))
+    mp = _fdiv(_bin("+", _bin("*", _ilit(5), doy), _ilit(2)), 153)
+    d = _bin("+", _bin("-", doy, _fdiv(_bin("+", _bin("*", _ilit(153), mp),
+                                            _ilit(2)), 5)), _ilit(1))
+    m = ("where", "i64", ("cmp", "<", mp, _ilit(10)),
+         _bin("+", mp, _ilit(3)), _bin("-", mp, _ilit(9)))
+    y = ("where", "i64", ("cmp", "<=", m, _ilit(2)), _bin("+", y0, _ilit(1)),
+         y0)
+    return y, m, d
+
+
+def _extract_ir(field: str, img, unit: str):
+    if field in ("minute", "hour", "second"):
+        if unit != "s":
+            raise _Bail(f"extract {field} from {unit}")
+        if field == "second":
+            return _mod(img, 60)
+        if field == "minute":
+            return _mod(_fdiv(img, 60), 60)
+        return _mod(_fdiv(img, 3600), 24)
+    days = img if unit == "days" else _fdiv(img, 86400)
+    if field in ("year", "month", "day", "quarter"):
+        y, m, d = _civil_ir(days)
+        if field == "quarter":
+            return _fdiv(_bin("+", m, _ilit(2)), 3)
+        return {"year": y, "month": m, "day": d}[field]
+    if field == "dow":
+        # Sunday = 0; epoch day 0 was a Thursday
+        return _mod(_bin("+", days, _ilit(4)), 7)
+    raise _Bail(f"extract {field}")
 
 
 _BOOL_CMP = {"=": "==", "<>": "!=", "!=": "!=", "<": "<", "<=": "<=",
@@ -337,6 +475,14 @@ def eval_ir_nulls(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
     if tag == "neg":
         v, n = eval_ir_nulls(ir[2], env)
         return -v, n
+    if tag == "where":
+        # the CHOSEN branch's null flag: sum(CASE WHEN k = 'A' THEN x ELSE
+        # 0 END) counts a NULL-k row as 0
+        _, _, c, t, f = ir
+        cv = _bool_nonnull(c, env)
+        tv, tn = eval_ir_nulls(t, env)
+        fv, fn = eval_ir_nulls(f, env)
+        return torch.where(cv, tv, fv), torch.where(cv, tn, fn)
     if tag in ("cmp", "inints", "incodes", "band", "bor", "bnot"):
         return _bool_nonnull(ir, env), torch.zeros(
             (), dtype=torch.bool, device=env.device)
@@ -350,6 +496,10 @@ def eval_ir_nulls(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
         return lv - rv, n
     if op == "*":
         return lv * rv, n
+    if op == "fdiv":  # floor division, never truncation
+        return torch.div(lv, rv, rounding_mode="floor"), n
+    if op == "mod":  # floor modulo: the divisor's sign
+        return torch.remainder(lv, rv), n
     return lv / rv, n
 
 
@@ -975,8 +1125,10 @@ def _fused_core(p: "_Plan", grouped=None, tkspec=()):
     the top-k superset in place of cols when `tkspec` is set; under a
     functional-dependency plan the reduction runs on the physical key and
     mat and the top-k superset carry every group key.
-    `grouped` is ("direct", spans, los, pallas_seg, having) or
-    ("hash", n_slots, salt, rounds)."""
+    `grouped` is ("direct", spans, los, pallas_seg, having), ("hash",
+    n_slots, salt, rounds) or ("sortpairs", recipes, kinds2, n_slots, salt,
+    rounds): count(DISTINCT d) with d the last key, reduced on the other
+    keys (`_first_pairs`)."""
     arrays = p.arrays
     sel = _selection_packed(p.colmap, p.pred_groups, arrays,
                             arrays[p.rv_ix])
@@ -1034,6 +1186,22 @@ def _fused_core(p: "_Plan", grouped=None, tkspec=()):
             nl = env.nulls(name)
         codes.append(torch.where(nl, torch.zeros_like(code), code))
         knulls.append(nl)
+    if grouped[0] == "sortpairs":
+        # one flag per distinct (keys, d): nunique is a per-key sum of
+        # flags, and every other aggregate reduces over the raw rows
+        _, recipes, kinds2, n_slots, salt, rounds = grouped
+        flag = _first_pairs(selb, codes, knulls)
+        vals2, vnulls2 = [], []
+        for r in recipes:
+            if r[0] == "nunique":
+                vals2.append(flag.to(torch.int64))
+                vnulls2.append(~flag)
+            else:
+                vals2.append(vals[r[1]])
+                vnulls2.append(vnulls[r[1]])
+        return hops.hash_rounds_reduce_packed(
+            codes[:-1], knulls[:-1], selb, vals2, vnulls2, kinds2, n_slots,
+            salt, rounds)
     if grouped[0] == "direct":
         _, spans, los, pseg, having = grouped
         res = hops.direct_reduce_packed(codes, knulls, selb, vals, vnulls,
@@ -1055,6 +1223,37 @@ def _fused_core(p: "_Plan", grouped=None, tkspec=()):
                                                          arrays)])
         return (mat, clean, ng, mini)
     return res
+
+
+def _first_pairs(selb: torch.Tensor, codes, knulls) -> torch.Tensor:
+    """bool [n]: True at exactly one selected row of each distinct key
+    tuple whose last key (the DISTINCT column d) is not NULL.  The
+    reference's multi-key `jax.lax.sort` becomes stable `torch.sort`
+    passes, last key first, carrying the permutation.  Only adjacency of
+    equal tuples matters, so the row's deadness and every key's NULL flag
+    ride as bits of one leading key."""
+    n = selb.shape[0]
+    dev = selb.device
+    flags = (~selb).to(torch.int64)
+    for i, nl in enumerate(knulls):
+        flags = flags | (nl.to(torch.int64) << (i + 1))
+    keys = [flags] + list(codes)
+    perm = torch.arange(n, dtype=torch.int64, device=dev)
+    for k in reversed(keys):
+        _, order = torch.sort(k[perm], stable=True)
+        perm = perm[order]
+    anyneq = torch.zeros(max(n - 1, 0), dtype=torch.bool, device=dev)
+    for k in keys:
+        ks = k[perm]
+        anyneq = anyneq | (ks[1:] != ks[:-1])
+    new_s = torch.ones(n, dtype=torch.bool, device=dev)
+    new_s[1:] = anyneq
+    flags_s = flags[perm]
+    # a dead row, or a NULL d (bit nk), never counts
+    dead = (flags_s & (1 | (1 << len(codes)))) != 0
+    flag = torch.zeros(n, dtype=torch.bool, device=dev)
+    flag[perm] = new_s & ~dead  # perm is a permutation: a plain scatter
+    return flag
 
 
 # -- planning ----------------------------------------------------------------------
@@ -1257,6 +1456,11 @@ def _expr_key_type(ge: ast.Expr, dt: str) -> pa.DataType:
     typing)."""
     if isinstance(ge, ast.Cast) and ge.type_name == "date":
         return pa.date32()
+    if isinstance(ge, ast.Extract):
+        return pa.int32()
+    if isinstance(ge, ast.Func) and ge.name in ("to_timestamp_seconds",
+                                                "date_trunc"):
+        return pa.timestamp("s")
     return pa.float64() if dt == "f64" else pa.int64()
 
 
@@ -2003,6 +2207,19 @@ def _build_result(p: _Plan, slots, g, ukeys, uknulls, outs,
         j = idxs[0]
         acc = np.ascontiguousarray(outs[j])
         cnt = np.ascontiguousarray(vcounts[j], np.int64)
+        if kind == "avg2":
+            # a device count(DISTINCT) route's avg: merged sum / merged count
+            dt = p.rslots[j][1]
+            sv = (acc.view(np.float64) if dt == "f64" else
+                  _unscale_np(acc, int(dt[4:])) if dt.startswith("i64s")
+                  else acc.astype(np.float64))
+            cv = np.ascontiguousarray(outs[idxs[1]]).astype(np.float64)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                v = sv / cv
+            mask = cv == 0
+            cols[s.name] = pa.array(v, pa.float64(),
+                                    mask=mask if mask.any() else None)
+            continue
         if kind in ("stddev", "var"):
             ss = acc.view(np.float64) if acc.dtype == np.int64 else acc
             q = np.ascontiguousarray(outs[idxs[1]])
@@ -2106,7 +2323,7 @@ def plan_topk(q, slots, p: _Plan) -> Optional[TopKSpec]:
         if s.func != e:
             continue
         kind, idxs = p.slot_map[si]
-        if kind in ("stddev", "var"):
+        if kind in ("stddev", "var", "avg2"):
             return None
         j = idxs[0]
         dtj = p.rslots[j][1]
@@ -2246,3 +2463,522 @@ def try_fused_aggregate(table, plan_scan, hints, group, key_names, slots,
             "the grouped hash ladder did not converge for this key "
             "cardinality; the classic path is not ported yet")
     return result
+
+
+# -- count(DISTINCT) ---------------------------------------------------------------
+#
+# Three routes, tried in the reference's order:
+# - sorted pairs (`_first_pairs`): when the outer keys' cardinality is
+#   bounded, ONE program sorts (keys, d), flags each distinct pair's first
+#   row and reduces the flags per outer key in a small hash table;
+# - chained two-level hash: level 1 groups by (keys, d) with the partial
+#   aggregates riding along, level 2 re-reduces level 1's slot arrays by
+#   the outer keys in the same program, and only the final rows transfer;
+# - the host fold (`distinct_two_level`): one fused aggregate grouped by
+#   (keys, d...) and a pyarrow fold over its rows, for the shapes the
+#   device routes refuse (two DISTINCT columns, a star join, a ladder that
+#   does not converge).
+
+def _distinct_partials(slots, rew_inputs, prefix: str):
+    """The inner aggregate slots of a count(DISTINCT) rewrite -> (inner
+    slots, recipes, level-2 kinds, level-2 slot map, [(outer name, inner
+    name)] of the min/max/sum slots), or None for an aggregate the rewrite
+    cannot split.  Recipes: ("nunique",), ("out", inner slot index)."""
+    from liquid_tpu_torch.sql.physical import AggSlot
+    inner: List = []
+    recipes: List[tuple] = []
+    kinds2: List[str] = []
+    slot_map2: List[tuple] = []
+    typed: List[tuple] = []
+
+    def partial(kind, inp):
+        inner.append(AggSlot(ast.Func(
+            kind if kind != "count_star" else "count",
+            (inp,) if inp is not None else (), star=inp is None),
+            f"{prefix}{len(inner)}", kind, inp))
+        return len(inner) - 1
+
+    for s in slots:
+        base = len(recipes)
+        if s.kind == "count_distinct":
+            recipes.append(("nunique",))
+            kinds2.append("sum")
+            slot_map2.append(("count_star", (base,)))
+        elif s.kind in ("count_star", "count"):
+            recipes.append(("out", partial(s.kind, rew_inputs.get(s.name))))
+            kinds2.append("sum")
+            slot_map2.append(("count_star", (base,)))
+        elif s.kind in ("sum", "min", "max"):
+            j1 = partial(s.kind, rew_inputs[s.name])
+            recipes.append(("out", j1))
+            kinds2.append(s.kind)
+            slot_map2.append((s.kind, (base,)))
+            typed.append((s.name, inner[j1].name))
+        elif s.kind == "avg":
+            recipes.append(("out", partial("sum", rew_inputs[s.name])))
+            recipes.append(("out", partial("count", rew_inputs[s.name])))
+            kinds2 += ["sum", "sum"]
+            slot_map2.append(("avg2", (base, base + 1)))
+        else:
+            return None
+    return inner, recipes, kinds2, slot_map2, typed
+
+
+def _distinct_columns(slots, rew_inputs) -> Optional[List[str]]:
+    """The DISTINCT columns in slot order, or None when one is not a
+    plain column."""
+    dcols: List[str] = []
+    for s in slots:
+        if s.kind != "count_distinct":
+            continue
+        e = rew_inputs.get(s.name)
+        if not isinstance(e, ast.Column):
+            return None
+        if e.name not in dcols:
+            dcols.append(e.name)
+    return dcols
+
+
+def _plan_distinct(table, plan_scan, hints, group, key_names, slots,
+                   rew_keys, rew_inputs):
+    """Level-1 plan (keys + [d]) and the level-2 pseudo-plan the result
+    decode and top-k read -> (p1, p2, recipes, kinds2), or None when the
+    device routes do not take the query."""
+    dcols = _distinct_columns(slots, rew_inputs)
+    if not dcols or len(dcols) != 1:
+        return None
+    d = dcols[0]
+    got = _distinct_partials(slots, rew_inputs, "__dp")
+    if got is None:
+        return None
+    inner, recipes, kinds2, slot_map2, typed = got
+    rew_inputs2 = {s.name: s.input for s in inner if s.input is not None}
+    try:
+        p1, mode, empty = _plan_query(
+            table, plan_scan, hints, list(key_names) + [f"__dk_{d}"], inner,
+            list(rew_keys) + [ast.Column(d)], rew_inputs2)
+    except _Bail:
+        return None
+    if mode != "grouped" or empty or p1.fd:
+        return None
+    p2 = _Plan()
+    p2.keys = p1.keys[:-1]
+    p2.key_out = list(key_names)
+    p2.key_decoders = p1.key_decoders[:-1]
+    p2.key_bounds = dict(p1.key_bounds)
+    p2.key_payloads = dict(p1.key_payloads)
+    p2.slot_map = slot_map2
+    p2.arrays = p1.arrays
+    p2.rv_ix = p1.rv_ix
+    for s in slots:
+        if s.kind == "count_distinct":
+            p2.slot_types[s.name] = pa.int64()
+    for outer, inner_nm in typed:
+        p2.slot_types[outer] = p1.slot_types.get(inner_nm, pa.int64())
+        if inner_nm in p1.slot_vocabs:
+            # string min/max by vocabulary id: the same sorted vocabulary
+            p2.slot_vocabs[outer] = p1.slot_vocabs[inner_nm]
+    for r, k2 in zip(recipes, kinds2):
+        if r[0] == "nunique":
+            p2.rslots.append(("sum", "i64", ("ones",), ()))
+            p2.rslot_maxabs.append(1)
+        else:
+            r1 = p1.rslots[r[1]]
+            p2.rslots.append((k2, r1[1], r1[2], r1[3]))
+            p2.rslot_maxabs.append(None)
+    return p1, p2, tuple(recipes), tuple(kinds2)
+
+
+def _distinct_chained(p1: _Plan, recipes, kinds2, stage1, stage2):
+    """Level 1 grouped by (keys, d) on the hash ladder, level 2 over its
+    slot arrays by the outer keys: nunique(d) is the sum of the occupied
+    slots whose d is not NULL."""
+    _mat1, clean1, _ng1, cols1 = _fused_core(p1, ("hash",) + stage1)
+    nk1, nv1 = len(p1.keys), len(p1.rslots)
+    occ = cols1[0]
+    kreps = cols1[1:1 + nk1]
+    nreps = cols1[1 + nk1:1 + 2 * nk1]
+    ocat = cols1[1 + 2 * nk1:1 + 2 * nk1 + nv1]
+    ccat = cols1[1 + 2 * nk1 + nv1:]
+    d_live = ~nreps[-1].to(torch.bool) & occ
+    vals2, vnulls2 = [], []
+    for r in recipes:
+        if r[0] == "nunique":
+            vals2.append(d_live.to(torch.int64))
+            vnulls2.append(~d_live)
+        else:
+            vals2.append(ocat[r[1]])
+            vnulls2.append(ccat[r[1]] == 0)
+    mat2, clean2, ng2, cols2 = hops.hash_rounds_reduce_packed(
+        [k.to(torch.int64) for k in kreps[:-1]],
+        [nl.to(torch.bool) for nl in nreps[:-1]], occ, vals2, vnulls2,
+        kinds2, *stage2)
+    return mat2, clean1 & clean2, ng2, cols2
+
+
+def distinct_fused_device(table, plan_scan, hints, group, key_names, slots,
+                          rew_keys, rew_inputs, q=None) -> Optional[pa.Table]:
+    """count(DISTINCT d) over one parquet source on the device -> the
+    partial result (key columns + slot columns), or None when neither
+    device route takes the query (the caller runs the host fold)."""
+    if not any(s.kind == "count_distinct" for s in slots):
+        return None
+    # planned once per shape, as the fused aggregate is (None: no route)
+    cache = table.__dict__.setdefault("_fused_distinct_cache", {})
+    ck = (table.cache.epoch, _plan_cache_key(
+        plan_scan, hints, group, key_names, slots, rew_keys, rew_inputs, q))
+    if ck not in cache:
+        if len(cache) >= _PLAN_CACHE_CAP:
+            cache.pop(next(iter(cache)))
+        cache[ck] = _plan_distinct(table, plan_scan, hints, group, key_names,
+                                   slots, rew_keys, rew_inputs)
+    planned = cache[ck]
+    if planned is None:
+        return None
+    p1, p2, recipes, kinds2 = planned
+    n_upper = int(p1.arrays[p1.rv_ix].shape[0]) * BLOCK_ROWS
+    bound = _cardinality_bound(p1)
+    bound = n_upper if bound is None else min(bound, n_upper)
+    start = next((si for si, (ns, _) in enumerate(_STAGES_XL)
+                  if ns >= 2 * bound), None)
+    if start is None:
+        return None  # even the largest table cannot promise convergence
+    topk = plan_topk(q, slots, p2) if q is not None else None
+    stage_hint = table.__dict__.setdefault("_fused_stage_hint", {})
+
+    def finish(out, hk, si):
+        if not bool(out[1]):
+            STATS["fused_retries"] += 1
+            return None
+        stage_hint[hk] = si
+        STATS["fused_queries"] += 1
+        STATS["fused_grouped"] += 1
+        if topk is not None:
+            cols = out[3]
+            mini = _topk_gather_core(cols, _mk_topk_spec(
+                topk, int(cols[0].shape[0])), len(p2.keys), len(p2.rslots))
+            r = _finish_topk(p2, slots, topk, mini.cpu().numpy())
+            if r is not None:
+                return r
+        return _fetch_result(p2, slots, out)
+
+    # sorted pairs: the table needs only 2x the OUTER keys' cardinality
+    kb = _cardinality_bound(p2)
+    if kb is not None:
+        hk = ("stage2sort", tuple(p1.keys))
+        s0 = stage_hint.get(hk, next((si for si, (ns, _) in enumerate(
+            _STAGES_XL) if ns >= 2 * kb), None))
+        if s0 is not None:
+            for si in range(s0, len(_STAGES_XL)):
+                n2, s2 = _STAGES_XL[si]
+                r = finish(_fused_core(p1, ("sortpairs", recipes, kinds2, n2,
+                                            s2, 3)), hk, si)
+                if r is not None:
+                    STATS["distinct_sort"] += 1
+                    return r
+            return None
+
+    # chained (the outer keys have no bound, or one beyond the ladder): the
+    # row-capped bound is pessimistic, so start at 1M slots at most and let
+    # the dirty check grow the table; level 2 takes a table as large
+    hk = ("stage2", tuple(p1.keys))
+    start = stage_hint.get(hk, min(start, 2))
+    for si in range(start, len(_STAGES_XL)):
+        n_slots, salt = _STAGES_XL[si]
+        out = _distinct_chained(
+            p1, recipes, kinds2, (n_slots, salt, 3),
+            (n_slots, salt ^ 0x5851F42D4C957F2D, 3))
+        r = finish(out, hk, si)
+        if r is not None:
+            STATS["distinct_chained"] += 1
+            return r
+    return None
+
+
+def distinct_two_level(slots, group, key_names, rew_keys, rew_inputs,
+                       run_inner) -> Optional[pa.Table]:
+    """agg(DISTINCT col) through ONE fused aggregate grouped by keys +
+    [distinct columns] -- the other aggregates ride as exact partials:
+    sums of sums, min of mins, avg as sum and count -- and a pyarrow fold
+    over its rows (NULL keys form one group).  `run_inner(group2,
+    key_names2, slots2, rew_keys2, rew_inputs2)` runs the inner aggregate
+    on the caller's fused engine (single table or star) and raises when
+    it cannot.  None when the query has no count(DISTINCT) over plain
+    columns."""
+    dcols = _distinct_columns(slots, rew_inputs)
+    if not dcols:
+        return None
+    got = _distinct_partials(slots, rew_inputs, "__cd")
+    if got is None:
+        return None
+    inner_slots, recipes, _k2, _map2, _typed = got
+    group2 = list(group) + [(ast.Column(d), f"__dk_{d}") for d in dcols]
+    inner = run_inner(group2, [nm for _, nm in group2], inner_slots,
+                      list(rew_keys) + [ast.Column(d) for d in dcols],
+                      {s.name: s.input for s in inner_slots
+                       if s.input is not None})
+    keyn = [nm for _, nm in group]
+    # per outer slot: the inner columns it folds and how.  Counts add with
+    # min_count 0 (an empty scan without keys counts 0); sums of a group
+    # whose partials are all NULL stay NULL; avg folds sum and count apart
+    folds: List[tuple] = []
+    it = iter(recipes)
+    for s in slots:
+        r = next(it)
+        if s.kind == "count_distinct":
+            folds.append((s, [(f"__dk_{rew_inputs[s.name].name}",
+                               "count_distinct")], pa.int64()))
+        elif s.kind == "avg":
+            r2 = next(it)
+            folds.append((s, [(inner_slots[r[1]].name, "sum0"),
+                              (inner_slots[r2[1]].name, "sum0")],
+                          pa.float64()))
+        elif s.kind in ("count_star", "count"):
+            folds.append((s, [(inner_slots[r[1]].name, "sum0")],
+                          pa.int64()))
+        else:
+            nm = inner_slots[r[1]].name
+            folds.append((s, [(nm, s.kind)], inner.schema.field(nm).type))
+    pa_aggs = []
+    for _s, parts, _t in folds:
+        for col, op in parts:
+            if op == "count_distinct":
+                pa_aggs.append((col, op, pc.CountOptions(mode="only_valid")))
+            elif op == "sum0":
+                pa_aggs.append((col, "sum",
+                                pc.ScalarAggregateOptions(min_count=0)))
+            else:
+                pa_aggs.append((col, op))
+    folded = inner.group_by(keyn, use_threads=False).aggregate(pa_aggs)
+    # the aggregates in order (pyarrow versions put the keys first or last)
+    fcols = [folded.column(i).combine_chunks()
+             for i, nm in enumerate(folded.column_names) if nm not in keyn]
+    assert len(fcols) == len(pa_aggs)
+    if not keyn and not inner.num_rows:
+        # no keys, no rows: one row of 0 counts and NULLs
+        fcols = [pa.array([0 if op in ("count_distinct", "sum0") else None],
+                          pa.int64()) for _s, parts, _t in folds
+                 for _c, op in parts]
+    out: Dict[str, pa.Array] = {
+        nm: folded.column(nm).cast(inner.schema.field(nm).type)
+        for nm in keyn}
+    fi = 0
+    for s, parts, t in folds:
+        if s.kind == "avg":
+            sv = np.asarray(fcols[fi].cast(pa.float64()).to_numpy(
+                zero_copy_only=False), np.float64)
+            cv = np.asarray(fcols[fi + 1].to_numpy(zero_copy_only=False),
+                            np.float64)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                v = sv / cv
+            out[s.name] = pa.array(v, pa.float64(), mask=cv == 0)
+        else:
+            out[s.name] = fcols[fi].cast(t)
+        fi += len(parts)
+    STATS["distinct_fold"] += 1
+    return pa.table(out)
+
+
+# -- fused bare SELECT (filter -> order -> LIMIT k row fetch) ----------------------
+#
+# `SELECT cols FROM t WHERE ... ORDER BY expr LIMIT k` (ClickBench q24,
+# q26): the device computes the ids of the k2 = SELECT_K_CAP best rows by
+# the first order key (selection, decode, a stable sort of the rank) and
+# the host reads only those rows' cells from the cached blocks, then sorts
+# them by every order key.  Exact unless the k-th rank ties the k2-th.
+# The reference fetches k2 = 4k + 64 and hands such a tie to its classic
+# path; the device sorts every row whatever k2 is, so the port fetches the
+# cap at once (ClickBench's EventTime repeats about 160 times per value at
+# 4M rows).  A tie at the cap, a NaN order key, a nullable one and an
+# unordered scan too large to fetch raise NotImplementedError naming
+# themselves (the classic path is not ported).  Only the rows ranked no
+# later than the k-th are read: the others cannot reach the first k.
+
+SELECT_K_CAP = 4096
+
+
+def _fused_select_run(p: _Plan, resids, oir, desc: bool, k2: int):
+    """-> (count of selected rows, -1 when a selected order key is NaN;
+    int64 row ids [k2]; f64 ranks [k2], ascending)."""
+    arrays = p.arrays
+    sel = _selection_packed(p.colmap, p.pred_groups, arrays,
+                            arrays[p.rv_ix])
+    selb = mops.unpack_bits(sel).reshape(-1)
+    n = selb.shape[0]
+    env = _Decoders(p.colmap, arrays, n, selb.device)
+    for ir in resids:
+        selb = selb & _bool_nonnull(ir, env)
+    count = selb.sum(dtype=torch.int64)
+    if oir is None:
+        # the first k2 selected rows in row order
+        pos = torch.cumsum(selb.to(torch.int32), 0, dtype=torch.int32)
+        want = torch.arange(1, k2 + 1, dtype=torch.int32, device=selb.device)
+        src = torch.searchsorted(pos, want).clamp(0, n - 1)
+        return count, src.to(torch.int64), torch.zeros(
+            k2, dtype=torch.float64, device=selb.device)
+    v, nl = eval_ir_nulls(oir, env)
+    val = v.expand(selb.shape).to(torch.float64)
+    nl = nl.expand(selb.shape)
+    count = torch.where((torch.isnan(val) & selb).any(),
+                        torch.full_like(count, -1), count)
+    inf = torch.full((), float("inf"), dtype=torch.float64,
+                     device=selb.device)
+    rank = torch.where(selb & ~nl, -val if desc else val, inf)
+    # `jax.lax.top_k` puts the lower row id first among equal values; a
+    # stable ascending sort of the rank picks the same k2 rows
+    ranks, idx = torch.sort(rank, stable=True)
+    return count, idx[:k2], ranks[:k2]
+
+
+def _select_refused(why: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"SELECT without aggregates (the classic path): the fused select "
+        f"does not take {why}; the classic path is not ported yet")
+
+
+def try_fused_select(executor, table, q, where) -> pa.Table:
+    """A bare single-table SELECT on the device: LIMIT queries ordered by
+    one leading numeric or string expression (further keys sort on the
+    host over the fetched superset), and small unordered filters.  Every
+    shape it does not take raises NotImplementedError naming it."""
+    from liquid_tpu_torch.sql.eval import Batch, Evaluator
+    from liquid_tpu_torch.sql.fused_star import (_MiniPlanner,
+                                                 _prep_has_nulls,
+                                                 _register_col)
+    from liquid_tpu_torch.sql.physical import collect_columns, render
+    from liquid_tpu_torch.sql.planner import plan_scan_filters
+    if q.distinct:
+        raise _select_refused("SELECT DISTINCT")
+    if any(isinstance(it.expr, ast.Star) for it in q.items):
+        raise _select_refused("SELECT *")
+    if any(o.nulls_first is not None for o in q.order_by):
+        raise _select_refused("a stated NULLS FIRST / LAST")
+    k = (q.limit + (q.offset or 0)) if q.limit is not None else None
+    if k is not None and k * 4 + 64 > SELECT_K_CAP:
+        raise _select_refused(f"LIMIT {k} (more than {SELECT_K_CAP} rows "
+                              f"to fetch)")
+    if q.order_by and k is None:
+        raise _select_refused("ORDER BY without LIMIT")
+    try:
+        plan_scan = plan_scan_filters(where)
+        blocks = _select_blocks(table, plan_scan)
+        p = _Plan()
+        mp = _MiniPlanner(table, blocks)
+        kinds_view = _MiniPlanner._KV(mp)
+        registered: set = set()
+        resids: List[tuple] = []
+
+        def reg_ir(ir, cols):
+            resids.append(ir)
+            for c in sorted(cols):
+                _register_col(p, mp, None, c, registered,
+                              mp.kind_of(c) == "dict")
+
+        if blocks:
+            for g in plan_scan.pushdown:
+                if any(mp.prep_of(None, c).kind == "linear"
+                       for c, _pr in g.alternatives):
+                    # no packed interval over linear codes: residual IR
+                    reg_ir(*_compile_bool(g.source, kinds_view, mp.dictres))
+                    continue
+                alts = []
+                for c, pred in g.alternatives:
+                    _register_col(p, mp, None, c, registered)
+                    alts.append(pred_alt(p, c, pred, mp.prep_of(None, c)))
+                p.pred_groups.append(tuple(alts))
+            for e in plan_scan.residual:
+                reg_ir(*_compile_bool(e, kinds_view, mp.dictres))
+        oir, desc = None, False
+        if q.order_by and blocks:
+            o0 = q.order_by[0]
+            desc = bool(o0.desc)
+            if isinstance(o0.expr, ast.Column) \
+                    and mp.kind_of(o0.expr.name) == "dict":
+                # sorted-vocabulary ids order as the strings do
+                oir, ocols = ("col", o0.expr.name, "i64"), {o0.expr.name}
+            else:
+                oir, ocols = _compile_expr(o0.expr, kinds_view, mp.dictres)
+            for c in sorted(ocols):
+                pr = mp.prep_of(None, c)
+                if _prep_has_nulls(table, pr, blocks):
+                    raise _Bail("a nullable order key")
+                _register_col(p, mp, None, c, registered, pr.kind == "dict")
+    except _Bail as e:
+        raise _select_refused(str(e)) from None
+    if k is None:
+        k = SELECT_K_CAP // 4  # unordered without LIMIT: small results only
+    k2 = SELECT_K_CAP
+    idx = np.zeros(0, np.int64)
+    if blocks:
+        p.rv_ix = _add(p, _rowvalid(table, blocks))
+        count_t, idx_t, ranks_t = _fused_select_run(p, resids, oir, desc, k2)
+        # one fetch: [count, ids..., ranks...]
+        packed = torch.cat([count_t.to(torch.float64).reshape(1),
+                            idx_t.to(torch.float64), ranks_t]).cpu().numpy()
+        count = int(packed[0])
+        if count < 0:
+            raise _select_refused("a NaN order key (the host's NaN order)")
+        got = packed[1:1 + k2].astype(np.int64)
+        ranks = packed[1 + k2:]
+        if q.order_by and count > k2 and (not np.isfinite(ranks[k2 - 1])
+                                          or not ranks[k - 1] < ranks[k2 - 1]):
+            raise _select_refused("a tie at the fetched boundary")
+        if q.limit is None and count > k2:
+            raise _select_refused(f"an unordered scan of {count} rows")
+        take = min(count, k2)
+        idx = got[:take]
+        if q.order_by and take:
+            # rows ranked after the k-th cannot reach the first k
+            idx = idx[ranks[:take] <= ranks[min(k, take) - 1]]
+
+    # the selected rows' cells, from each block decoded once
+    needed: set = set()
+    for it in q.items:
+        collect_columns(it.expr, needed)
+    for o in q.order_by:
+        collect_columns(o.expr, needed)
+    need = sorted(c for c in needed if c in table.column_names)
+    blocks_arr: Dict[tuple, pa.Array] = {}
+
+    def block(bi: int, c: str) -> pa.Array:
+        rg, b = blocks[bi]
+        arr = blocks_arr.get((rg, b, c))
+        if arr is None:
+            arr = table.cache.get(table.ensure_cached(rg, c)[b])
+            if arr is None:
+                raise _select_refused(f"an uncached block of {c}")
+            blocks_arr[(rg, b, c)] = arr
+        return arr
+
+    cols_in = {}
+    for c in need:
+        t = table.field(c).type
+        cells = [block(int(r) // BLOCK_ROWS, c)[int(r) % BLOCK_ROWS]
+                 for r in idx]
+        cols_in[c] = pa.array([v.as_py() for v in cells], t)
+    n_rows = len(idx)
+    ev = Evaluator(Batch(cols_in, n_rows))
+    cols_out: Dict[str, pa.Array] = {}
+    names, sort_keys = [], []
+    for it in q.items:
+        nm = it.alias or render(it.expr)
+        v = ev.eval(it.expr)
+        cols_out[nm] = pa.repeat(v, n_rows) if isinstance(v, pa.Scalar) \
+            else v
+        names.append(nm)
+    for i, o in enumerate(q.order_by):
+        nm = f"__fsel{i}"
+        v = ev.eval(o.expr)
+        cols_out[nm] = pa.repeat(v, n_rows) if isinstance(v, pa.Scalar) \
+            else v
+        sort_keys.append((nm, "descending" if o.desc else "ascending"))
+    t = pa.table(cols_out)
+    if sort_keys:
+        t = t.take(pc.sort_indices(t, sort_keys=sort_keys))
+    if q.offset:
+        t = t.slice(q.offset)
+    if q.limit is not None:
+        t = t.slice(0, q.limit)
+    STATS["fused_queries"] += 1
+    STATS["fused_selects"] += 1
+    return t.select(names)

@@ -21,15 +21,21 @@ build counts duplicates on the device; a repeated key raises, since the
 classic join path that would keep the row multiplicity is not ported),
 NULL keys never match, and only INNER (and cross) joins are planned.
 
+count(DISTINCT col) over a star runs as the host fold
+(`fused_agg.distinct_two_level`) over one star aggregate grouped by the
+keys and the DISTINCT columns.  `_MiniPlanner` gives the fused bare
+SELECT (`fused_agg.try_fused_select`) this module's planner surface over
+one table.
+
 Not ported yet, each raising NotImplementedError that names it: composite
 two-column keys (TPC-H q9), existence probes (EXISTS / IN subqueries;
-q4, q21, q22), aliased relations and self-joins (q7, q8) and
-count(DISTINCT) over a star (q16).
+q4, q16, q21, q22), aliased relations and self-joins (q7, q8).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+import numpy as np
 import pyarrow as pa
 import torch
 
@@ -436,6 +442,81 @@ class _StarPlanner:
         def arrow_type(self, c):
             tbl = self.p.owner.get(c)
             return None if tbl is None else self.p.tables[tbl].field(c).type
+
+
+class _MiniPlanner:
+    """One table's planner surface (prep_of / kind_of / dictres and a
+    kinds view) for `_register_col`, `_compile_bool` and `_compile_expr`:
+    the fused bare SELECT plans through it."""
+
+    def __init__(self, table, blocks):
+        self.table = table
+        self.blocks_ = blocks
+        self.preps: Dict[str, object] = {}
+
+    def prep_of(self, _tbl, col: str):
+        pr = self.preps.get(col)
+        if pr is None:
+            pr = self.preps[col] = _table_prep(self.table, col, None,
+                                               self.blocks_)
+        return pr
+
+    def kind_of(self, col: str) -> str:
+        if col not in self.table.column_names:
+            raise _Bail(f"unknown column {col}")
+        if not self.blocks_:
+            return _schema_kind(self.table.field(col).type)
+        k = self.prep_of(None, col).kind
+        return "planes" if k == "linear" else k
+
+    def dictres(self, cname, op, lit):
+        try:
+            if self.kind_of(cname) != "dict":
+                return None
+        except _Bail:
+            return None
+        pr = self.prep_of(None, cname)
+        _build_vocab(pr)
+        vocab = pr.vocab_list
+        if op == "=":
+            return tuple(i for i, v in enumerate(vocab) if v == lit)
+        if op == "like":
+            pat = _like_regex(str(lit))
+            return tuple(i for i, v in enumerate(vocab)
+                         if v is not None and pat.match(str(v)))
+        return None
+
+    class _KV:
+        """Column kinds and arrow types for the IR compiler."""
+
+        def __init__(self, mp):
+            self.p = mp
+
+        def get(self, c, default=None):
+            try:
+                return self.p.kind_of(c)
+            except _Bail:
+                return default
+
+        def arrow_type(self, c):
+            if c in self.p.table.column_names:
+                return self.p.table.field(c).type
+            return None
+
+
+def _prep_has_nulls(table, prep, blocks) -> bool:
+    """True iff a live row of the scanned blocks is NULL (the clear tail
+    bits of a short last block do not count)."""
+    if prep.valid_stack is None:
+        return False
+    for pp, (rg, b) in zip(prep.payloads, blocks):
+        v = getattr(pp, "validity_np", None)
+        if v is None:
+            continue
+        ones = int(np.unpackbits(v.view(np.uint8), bitorder="little").sum())
+        if ones != table.batch_length(rg, b):
+            return True
+    return False
 
 
 def _register_col(p: _Plan, planner: _StarPlanner, tbl: str, c: str,
@@ -904,8 +985,6 @@ def try_fused_star(executor, q, group, key_names, slots, rew_keys,
     or a dimension that repeats a join key (an N:M join), raises
     NotImplementedError naming the reason: the classic join path is not
     ported yet."""
-    if any(s.kind == "count_distinct" for s in slots):
-        raise _not_ported("count(DISTINCT) (distinct_two_level)")
     cache = getattr(executor, "_star_plan_cache", None)
     if cache is None:
         cache = executor._star_plan_cache = {}

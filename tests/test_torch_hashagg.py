@@ -270,3 +270,68 @@ def test_repack_and_packed_fetch_match_reference():
         assert o.dtype == np.asarray(r).dtype
         np.testing.assert_array_equal(o[:g], np.asarray(r)[:g])
         np.testing.assert_array_equal(o[:g], c[:g])
+
+
+def _mostly_dead(seed, spans):
+    """Inputs with about 0.5 % live rows (a selective filter or join)."""
+    codes, knulls, _valid, vals, vnulls, kinds, los = _inputs(
+        seed, spans, [("sum", "i64", 1 << 40), ("min", "i64", 1000),
+                      ("max", "f64", 1e3), ("sum", "f64", 1.0)])
+    valid = np.random.default_rng(seed + 100).random(N) < 0.005
+    assert 0 < valid.sum() < N // 100
+    return codes, knulls, valid, vals, vnulls, kinds, los
+
+
+@pytest.mark.parametrize("tier", ["scatter", "hash"])
+def test_dropping_scatter_with_almost_every_row_dead(tier, monkeypatch):
+    """The trash band (`_dropped`): with more than 99 % of the rows dead,
+    every output is bit for bit the one the single trash row gave, and
+    matches the reference's `mode="drop"` scatter; no dead row lands in a
+    kept slot, and the dead rows spread over the whole band."""
+    codes, knulls, valid, vals, vnulls, kinds, los = _mostly_dead(
+        17, (3000,) if tier == "scatter" else (40, 70))
+
+    def run():
+        before = dict(tha.TIERS)
+        if tier == "scatter":
+            out = _torch(tha.direct_reduce_packed, codes, knulls, valid, vals,
+                         vnulls, kinds, torch.from_numpy(los), (3000,))
+        else:
+            out = _torch(tha.hash_rounds_reduce_packed, codes, knulls, valid,
+                         vals, vnulls, kinds, 8192, 0xC2B2AE3D27D4EB4F, 3)
+        assert tha.TIERS[tier] > before[tier]
+        return out
+
+    real = tha._dropped
+    seen = []
+
+    def checked(slot, live, m):
+        out = real(slot, live, m)
+        dead = ~live
+        assert (out[live] == slot[live].to(torch.int64)).all()
+        assert bool((out[live] < m).all())
+        assert bool((out[dead] >= m).all()) and bool(
+            (out[dead] < m + tha.TRASH).all())
+        seen.append(int(out[dead].unique().numel()))
+        return out
+
+    monkeypatch.setattr(tha, "_dropped", checked)
+    got = run()
+    # the dead rows use nearly every row of the band, not one address
+    assert seen and min(seen) > 0.99 * tha.TRASH
+    # before: every dead row in the one trash row m
+    monkeypatch.setattr(tha, "_dropped", lambda slot, live, m: torch.where(
+        live, slot.to(torch.int64), torch.full_like(slot, m, dtype=torch.int64)))
+    old = run()
+    np.testing.assert_array_equal(got[0].numpy(), old[0].numpy())
+    assert int(got[2]) == int(old[2]) and bool(got[1]) == bool(old[1])
+    for g, o in zip(got[3], old[3]):
+        np.testing.assert_array_equal(g.numpy(), o.numpy())
+    if tier == "scatter":
+        ref = _jax(jha.direct_reduce_packed, codes, knulls, valid, vals,
+                   vnulls, kinds, jnp.asarray(los), spans=(3000,))
+    else:
+        ref = _jax(jha.hash_rounds_reduce_packed, codes, knulls, valid, vals,
+                   vnulls, kinds, n_slots=8192, salt=0xC2B2AE3D27D4EB4F,
+                   rounds=3)
+    _assert_same_reduction(got, ref, len(codes), kinds, [3])

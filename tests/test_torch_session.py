@@ -59,12 +59,15 @@ QUERIES = [
 ]
 
 UNSUPPORTED = [
-    # string shapes the port does not take yet (count of distinct strings;
-    # a string ordering inside a residual condition)
-    'SELECT COUNT(DISTINCT "SearchPhrase") FROM hits',
+    # shapes the port does not take yet: count(DISTINCT) of an expression
+    # (count(DISTINCT column) answers since the distinct routes were
+    # ported: tests/test_torch_distinct.py), a string ordering inside a
+    # residual condition, SELECT DISTINCT and SELECT * (an unordered bare
+    # SELECT answers through the fused select: tests/test_torch_select.py)
+    'SELECT COUNT(DISTINCT "SearchPhrase" || \'x\') FROM hits',
     'SELECT COUNT(*) FROM hits WHERE "URL" < \'b\' OR "AdvEngineID" + 1 = 3',
-    'SELECT COUNT(DISTINCT "UserID") FROM hits',
-    'SELECT "UserID" FROM hits WHERE "AdvEngineID" <> 0 LIMIT 3',
+    'SELECT COUNT(DISTINCT "UserID" + 1) FROM hits',
+    'SELECT DISTINCT "UserID" FROM hits WHERE "AdvEngineID" <> 0 LIMIT 3',
     # an outer join (an inner one takes the star path since the star
     # join was ported: test_scalar_star_join_matches_reference)
     'SELECT SUM(l_quantity) FROM lineitem LEFT JOIN orders ON l_orderkey = '
