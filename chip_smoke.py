@@ -69,6 +69,17 @@ Phases (any failure raises and the script exits non-zero):
    `fused_selects`, `fused_grouped`) and K1 launches per warm run
    asserted, the first run and the best of three warm runs timed; counts
    set to 0 just before this phase and read after;
+   6d. TPC-H's multi-table queries on the star phase's session at this
+   run's scale, `partsupp` added: q4, q7, q8, q9, q11, q16, q18, q21 and
+   q22 as `liquid_tpu_torch/bench/tpch_queries.py` gives them (views and
+   derived tables inlined, uncorrelated subqueries as literals,
+   existence probes, aliased relations, q9's composite key); answers
+   (first run and last warm run) checked against pyarrow under the tie
+   rule of a LIMIT cut, the route counters (`star_queries`,
+   `fused_queries`) and K1 launches per warm run and in the first run
+   asserted (`K1_PER_RUN`, `K1_FIRST_RUN`), the first run and the best
+   of three warm runs timed; counts set to 0 just before this phase and
+   read after;
 7. K1's interval form checked bit-exact against its plain version and
    timed (CUDA events, L2 flushed before each timed call) on the exact
    (planes, lo, hi) the main path gave it -- the single-table plans'
@@ -79,7 +90,8 @@ Phases (any failure raises and the script exits non-zero):
    plain version, one `index_add_` call on the same
    inputs (stacked to int64 outside the timing) and its byte bound, with
    the bytes its CTAs' flush adds into the output;
-9. one warm run of each query (phase 6c's too) under torch.profiler:
+9. one warm run of each query (phases 6c's and 6d's too) under
+   torch.profiler:
    device-busy time,
    the device's idle share, the device operations that took longest and
    the concatenation copies (`Cat` kernels, the form `torch.stack` takes);
@@ -272,6 +284,70 @@ SLICE_QUERIES = [
     ("cb_distinct_fold", CB_DISTINCT_FOLD, "distinct_fold",
      ["TraficSourceID", "SearchEngineID", "AdvEngineID"]),
 ]
+#: phase 6d: TPC-H's multi-table queries as `bench/tpch_queries.py` gives
+#: them -- (name, query number, {route counter of `fused_agg.STATS`: its
+#: move per run}, {table: columns to transcode first}).  q11 runs a star
+#: query inside its own HAVING, q18 and q22 a fused aggregate inside WHERE,
+#: q16 a fused bare SELECT inside NOT IN
+MULTI_QUERIES = [
+    ("tpch_q4", 4, {"fused_queries": 1, "star_queries": 0}, {
+        "orders": ["o_orderkey", "o_orderdate", "o_orderpriority"],
+        "lineitem": ["l_orderkey", "l_commitdate", "l_receiptdate"]}),
+    ("tpch_q7", 7, {"fused_queries": 0, "star_queries": 1}, {
+        "supplier": ["s_suppkey", "s_nationkey"],
+        "lineitem": ["l_orderkey", "l_suppkey", "l_shipdate",
+                     "l_extendedprice", "l_discount"],
+        "orders": ["o_orderkey", "o_custkey"],
+        "customer": ["c_custkey", "c_nationkey"],
+        "nation": ["n_nationkey", "n_name"]}),
+    ("tpch_q8", 8, {"fused_queries": 0, "star_queries": 1}, {
+        "part": ["p_partkey", "p_type"],
+        "supplier": ["s_suppkey", "s_nationkey"],
+        "lineitem": ["l_partkey", "l_suppkey", "l_orderkey",
+                     "l_extendedprice", "l_discount"],
+        "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
+        "customer": ["c_custkey", "c_nationkey"],
+        "nation": ["n_nationkey", "n_regionkey", "n_name"],
+        "region": ["r_regionkey", "r_name"]}),
+    ("tpch_q9", 9, {"fused_queries": 0, "star_queries": 1}, {
+        "part": ["p_partkey", "p_name"],
+        "supplier": ["s_suppkey", "s_nationkey"],
+        "lineitem": ["l_suppkey", "l_partkey", "l_orderkey",
+                     "l_extendedprice", "l_discount", "l_quantity"],
+        "partsupp": ["ps_suppkey", "ps_partkey", "ps_supplycost"],
+        "orders": ["o_orderkey", "o_orderdate"],
+        "nation": ["n_nationkey", "n_name"]}),
+    ("tpch_q11", 11, {"fused_queries": 0, "star_queries": 2}, {
+        "partsupp": ["ps_partkey", "ps_suppkey", "ps_supplycost",
+                     "ps_availqty"],
+        "supplier": ["s_suppkey", "s_nationkey"],
+        "nation": ["n_nationkey", "n_name"]}),
+    ("tpch_q16", 16, {"fused_queries": 1, "star_queries": 1}, {
+        "partsupp": ["ps_partkey", "ps_suppkey"],
+        "part": ["p_partkey", "p_brand", "p_type", "p_size"],
+        "supplier": ["s_suppkey", "s_comment"]}),
+    ("tpch_q18", 18, {"fused_queries": 1, "star_queries": 1}, {
+        "customer": ["c_custkey", "c_name"],
+        "orders": ["o_orderkey", "o_custkey", "o_orderdate",
+                   "o_totalprice"],
+        "lineitem": ["l_orderkey", "l_quantity"]}),
+    ("tpch_q21", 21, {"fused_queries": 0, "star_queries": 1}, {
+        "supplier": ["s_suppkey", "s_name", "s_nationkey"],
+        "lineitem": ["l_orderkey", "l_suppkey", "l_receiptdate",
+                     "l_commitdate"],
+        "orders": ["o_orderkey", "o_orderstatus"],
+        "nation": ["n_nationkey", "n_name"]}),
+    ("tpch_q22", 22, {"fused_queries": 2, "star_queries": 0}, {
+        "customer": ["c_custkey", "c_phone", "c_acctbal"],
+        "orders": ["o_custkey"]}),
+]
+
+
+def multi_sql(qid: int) -> str:
+    from liquid_tpu_torch.bench.tpch_queries import QUERIES
+    return QUERIES[qid]
+
+
 #: the route counters phase 6c reads
 SLICE_ROUTES = ("distinct_sort", "distinct_chained", "distinct_fold",
                 "fused_selects", "fused_grouped")
@@ -302,13 +378,30 @@ K1_PER_RUN = {"cb_filter": 1, "cb_like": 0, "tpch_q6": 5, "cb_groupby": 0,
               # phase 6c: only cb_q42_open's IsRefresh and DontCountHits
               # are intervals (q42's CounterID = 62 prunes every block;
               # the others filter on strings or not at all)
-              **{q: 0 for q, *_rest in SLICE_QUERIES}, "cb_q42_open": 2}
+              **{q: 0 for q, *_rest in SLICE_QUERIES}, "cb_q42_open": 2,
+              # phase 6d: q4's o_orderdate bounds (its existence build's
+              # l_commitdate < l_receiptdate is a residual); q7's
+              # l_shipdate bounds and a dynamic l_suppkey range; q8's
+              # dynamic l_partkey and l_suppkey ranges; q9's dynamic
+              # l_partkey range twice (part, partsupp) and l_suppkey; q11's
+              # dynamic ps_suppkey range in the outer and the HAVING
+              # query; q21's dynamic l_suppkey range; q22's c_acctbal > 0
+              # (the scalar subquery) and > its value.  q16 and q18 filter
+              # on strings, an IN list and linear-coded keys: none
+              "tpch_q4": 2, "tpch_q7": 4, "tpch_q8": 4, "tpch_q9": 6,
+              "tpch_q11": 4, "tpch_q16": 0, "tpch_q18": 0, "tpch_q21": 2,
+              "tpch_q22": 2}
 #: K1 launches in a star query's first run, in the phase's order: the
 #: warm run's plus the intervals of its dimension builds (each query
 #: builds orders under its own o_orderdate range; q12's orders and q14's
 #: part carry no predicate)
 K1_FIRST_RUN = {"tpch_q3": 2, "tpch_q5": 4, "tpch_q10": 2, "tpch_q12": 2,
-                "tpch_q14": 4}
+                "tpch_q14": 4,
+                # phase 6d: q8 builds orders under its o_orderdate range;
+                # the other builds carry no interval predicate
+                "tpch_q4": 2, "tpch_q7": 4, "tpch_q8": 6, "tpch_q9": 6,
+                "tpch_q11": 4, "tpch_q16": 0, "tpch_q18": 0, "tpch_q21": 2,
+                "tpch_q22": 2}
 
 
 def log(*a):
@@ -830,6 +923,20 @@ def dimension_tables(ctx) -> list:
     return out
 
 
+def keep_k1_inputs(inputs: list, seen: set, label: str, runs) -> None:
+    """Append each (planes, lo, hi) of `runs` ((run name, calls) pairs)
+    not in `seen` to `inputs` as (planes, lo, hi, label): the tensors a
+    query run fed K1, kept alive (so their addresses stay unique) for
+    phase 7 to check and time."""
+    for run, calls in runs:
+        for i, (planes, lo, hi) in enumerate(calls):
+            key = (planes.data_ptr(), tuple(planes.shape), lo.data_ptr(),
+                   hi.data_ptr())
+            if key not in seen:
+                seen.add(key)
+                inputs.append((planes, lo, hi, f"{label} {run} run #{i}"))
+
+
 def run_star_path(torch, ctx, expect: dict):
     """Phase 6b: TPC-H q3, q5 and q10 on the star path -> (per-query
     report, [(planes, lo, hi, label)] of every interval the star runs
@@ -897,15 +1004,8 @@ def run_star_path(torch, ctx, expect: dict):
                 if got != want[qname]:
                     raise AssertionError(f"{qname}: {got} K1 launches in the "
                                          f"{what} run, expected {want[qname]}")
-            for run, run_calls in (("first", first_calls),
-                                   ("warm", warm_calls)):
-                for i, (planes, lo, hi) in enumerate(run_calls):
-                    key = (planes.data_ptr(), tuple(planes.shape),
-                           lo.data_ptr(), hi.data_ptr())
-                    if key not in seen:
-                        seen.add(key)
-                        inputs.append((planes, lo, hi,
-                                       f"star {qname} {run} run #{i}"))
+            keep_k1_inputs(inputs, seen, f"star {qname}",
+                           (("first", first_calls), ("warm", warm_calls)))
             report[qname] = dict(
                 rows={t: ctx._tables[t].num_rows for t in tcols},
                 groups_out=out.num_rows, transcode_s=t_transcode,
@@ -986,6 +1086,111 @@ def run_slice_path(torch, ctx, expect: dict):
     return report
 
 
+def run_multi_path(torch, ctx, expect: dict):
+    """Phase 6d: TPC-H q4, q7, q8, q9, q11, q16, q18, q21 and q22 on the
+    session -> (per-query report, [(planes, lo, hi, label)] of every
+    interval the first and the last warm runs fed K1, dimension and
+    existence builds included, {query: (slot, cols, m)} as a run last
+    fed K2).  Each answer (first run and last warm run) is checked
+    against pyarrow (`bench/oracle.py`, the tie rule where a LIMIT
+    cuts), the route counters move as `MULTI_QUERIES` says on every run,
+    and K1 launches equal `K1_PER_RUN` per warm run and `K1_FIRST_RUN`
+    in the first; every launch is one call of the wrapper with planes
+    to read, counted and captured by wrapping the wrappers from here.
+    K2 launches and the reduction tiers (`hashagg.TIERS`) of a warm run
+    are reported."""
+    from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    from liquid_tpu_torch.ops import grouphist_cuda as k2
+    from liquid_tpu_torch.ops import hashagg
+    from liquid_tpu_torch.sql import fused_agg
+    calls, captured = [], {}
+    wrapped, wrapped2 = k1.in_interval_many, k2.group_accumulate
+
+    def capture(planes, lo, hi):
+        if planes.shape[0] * planes.shape[1]:
+            calls.append((planes, lo, hi))
+        return wrapped(planes, lo, hi)
+
+    def capture2(slot, cols, m):
+        captured["last"] = (slot, list(cols), m)
+        return wrapped2(slot, cols, m)
+
+    k1.in_interval_many, k2.group_accumulate = capture, capture2
+    report, k1_inputs, k2_inputs, seen = {}, [], {}, set()
+    try:
+        for qname, qid, routes, tcols in MULTI_QUERIES:
+            sql = multi_sql(qid)
+            t0 = time.perf_counter()
+            for table, cols in tcols.items():
+                pt = ctx._tables[table]
+                for rg in range(pt.num_row_groups):
+                    for c in cols:
+                        pt.ensure_cached(rg, c)
+            t_transcode = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            captured.clear()
+
+            def run_once():
+                st, tiers = dict(fused_agg.STATS), dict(hashagg.TIERS)
+                launches = k1.LAUNCHES["cmp_const_many"]
+                k2_launches = k2.LAUNCHES["group_accumulate"]
+                calls.clear()
+                out = ctx.sql(sql).to_arrow()
+                torch.cuda.synchronize()
+                moved = {r: fused_agg.STATS[r] - st[r] for r in routes}
+                if moved != routes:
+                    raise AssertionError(f"{qname}: routes {moved}, "
+                                         f"expected {routes}")
+                k1_run = k1.LAUNCHES["cmp_const_many"] - launches
+                if k1_run != len(calls):
+                    raise AssertionError(f"{qname}: {k1_run} K1 launches "
+                                         f"for {len(calls)} interval calls")
+                return out, k1_run, list(calls), {
+                    "k2": k2.LAUNCHES["group_accumulate"] - k2_launches,
+                    "tiers": {k: v - tiers[k] for k, v in
+                              hashagg.TIERS.items() if v != tiers[k]}}
+
+            t0 = time.perf_counter()
+            out, first_k1, first_calls, _ = run_once()
+            t_first = time.perf_counter() - t0
+            outs, warm = {"first": out}, []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out, per_run, warm_calls, reduction = run_once()
+                warm.append(time.perf_counter() - t0)
+            outs["last warm"] = out
+            keep_k1_inputs(k1_inputs, seen, f"multi {qname}",
+                           (("first", first_calls), ("warm", warm_calls)))
+            for what, got in outs.items():
+                if not oracle.same_table(got, expect[qname],
+                                         oracle.CUTS.get(qname)):
+                    raise AssertionError(f"{qname} ({what} run): port "
+                                         f"{got.to_pylist()[:2]} != pyarrow")
+            for want, got, what in ((K1_PER_RUN, per_run, "warm"),
+                                    (K1_FIRST_RUN, first_k1, "first")):
+                if got != want[qname]:
+                    raise AssertionError(f"{qname}: {got} K1 launches in the "
+                                         f"{what} run, expected {want[qname]}")
+            report[qname] = dict(
+                rows={t: ctx._tables[t].num_rows for t in tcols},
+                answer_rows=out.num_rows, routes=routes,
+                transcode_s=t_transcode, first_run_s=t_first,
+                first_run_k1=first_k1, warm_best_ms=min(warm) * 1e3,
+                warm_ms=[w * 1e3 for w in warm], k1_launches_per_run=per_run,
+                k2_launches_per_run=reduction["k2"],
+                tiers_per_run=reduction["tiers"],
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+            if "last" in captured:
+                slot, cols, m = k2_inputs[qname] = captured["last"]
+                report[qname].update(k2_n=int(slot.shape[0]), k2_C=len(cols),
+                                     k2_m=int(m))
+            log(f"[multi] {qname}: {json.dumps(report[qname])}")
+    finally:
+        k1.in_interval_many, k2.group_accumulate = wrapped, wrapped2
+    return report, k1_inputs, k2_inputs
+
+
 def main_path_k1_inputs(ctx):
     """(planes, lo, hi, query table) for every interval the main path's
     cached plans fed to K1."""
@@ -1007,8 +1212,8 @@ def main_path_k1_inputs(ctx):
 
 def time_k1(torch, ctx, star_inputs: list) -> dict:
     """Phase 7: K1's interval form on the main path's own (planes, lo,
-    hi) -- the single-table plans' and `star_inputs`, those the star
-    phase captured -- checked bit-exact and timed beside the two
+    hi) -- the single-table plans' and `star_inputs`, those the star and
+    multi-table phases captured -- checked bit-exact and timed beside the two
     single-constant launches it replaces (a pair after one L2 flush, as
     the old path ran them, and one alone), its plain version and its
     byte bound."""
@@ -1058,8 +1263,8 @@ def time_k1(torch, ctx, star_inputs: list) -> dict:
 
 def time_k2(torch, inputs: dict) -> dict:
     """Phase 8: K2 vs its plain version and one index_add_ call, on the
-    slot and columns the grouped main path fed it, with the bytes its
-    flush adds into the output."""
+    slot and columns the grouped and multi-table phases fed it, with
+    the bytes its flush adds into the output."""
     from liquid_tpu_torch.ops import grouphist as gh
     from liquid_tpu_torch.ops import grouphist_cuda as k2
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
@@ -1091,7 +1296,7 @@ def time_k2(torch, inputs: dict) -> dict:
         rows[qname] = row
         log(f"[k2] {qname}: {json.dumps(row)}")
     if not rows:
-        raise AssertionError("the grouped path left no K2 inputs to time")
+        raise AssertionError("the main path left no K2 inputs to time")
     if worst:
         raise AssertionError(f"K2 != plain on main-path inputs: {worst}")
     return {"rows": rows, "max_abs_err": worst}
@@ -1302,9 +1507,10 @@ def main(argv=None) -> int:
 
     # 5. scalar main path, counts reset just before and read just after
     t0 = time.perf_counter()
-    # `part` for q14 beside the bench entry point's tables
+    # `part` for q14 and `partsupp` for phase 6d beside the bench entry
+    # point's tables
     paths = prepare_data(args.data_dir, args.hits_rows, args.sf,
-                         TPCH_TABLES + ("part",))
+                         TPCH_TABLES + ("part", "partsupp"))
     expect = oracle.answers(paths, list(oracle.ORACLES))
     log(f"[data] {paths} ({time.perf_counter() - t0:.1f} s)")
     counters = (k1.LAUNCHES, k2.LAUNCHES)
@@ -1343,25 +1549,36 @@ def main(argv=None) -> int:
     slice_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
     if slice_launches["cmp_const_many"] <= 0:
         raise AssertionError(f"the slice did not launch K1: {slice_launches}")
+    # 6d. TPC-H's multi-table queries, counts reset just before and read
+    #     just after
+    _reset(counters)
+    multi_report, multi_k1_inputs, multi_k2_inputs = run_multi_path(
+        torch, ctx, expect)
+    multi_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
+    if multi_launches["cmp_const_many"] <= 0:
+        raise AssertionError(f"phase 6d did not launch K1: {multi_launches}")
     log(f"[launches] scalar path {json.dumps(scalar_launches)}; grouped "
         f"path {json.dumps(grouped_launches)}; star path "
-        f"{json.dumps(star_launches)}; slice {json.dumps(slice_launches)}")
+        f"{json.dumps(star_launches)}; slice {json.dumps(slice_launches)}; "
+        f"multi-table {json.dumps(multi_launches)}")
 
     # 7. K1's interval form checked and timed on the main path's own
-    #    inputs, the star phase's included
-    timing = time_k1(torch, ctx, star_k1_inputs)
+    #    inputs, the star and multi-table phases' included
+    timing = time_k1(torch, ctx, star_k1_inputs + multi_k1_inputs)
     top = max(timing["rows"], key=lambda r: r["bytes"])
     log(f"[k1] largest input {top['column']}: interval / two single "
         f"launches {top['over_two_single']:.3f}, / twice one single "
         f"{top['over_twice_single']:.3f}")
 
-    # 8. K2 timed on the grouped path's own inputs
-    k2_timing = time_k2(torch, k2_inputs)
+    # 8. K2 checked and timed on the grouped and multi-table phases' own
+    #    inputs
+    k2_timing = time_k2(torch, {**k2_inputs, **multi_k2_inputs})
     k2_top = k2_timing["rows"]["cb_groupby"]
 
     # 9. where a warm query's device time goes
     warm = {q: r["warm_best_ms"] for q, r in
-            {**report, **greport, **sreport, **slice_report}.items()}
+            {**report, **greport, **sreport, **slice_report,
+             **multi_report}.items()}
     for qname, sql in (("cb_filter", CB_FILTER), ("cb_like", CB_LIKE),
                        ("tpch_q6", TPCH_Q6), ("cb_groupby", CB_GROUPBY),
                        ("cb_q15", CB_Q15),
@@ -1370,7 +1587,9 @@ def main(argv=None) -> int:
                        ("tpch_q1", TPCH_Q1)) + tuple(
                            (q, sql) for q, sql, _ in STAR_QUERIES) + tuple(
                            (q, slice_sql(query))
-                           for q, query, _r, _c in SLICE_QUERIES):
+                           for q, query, _r, _c in SLICE_QUERIES) + tuple(
+                           (q, multi_sql(qid))
+                           for q, qid, _r, _c in MULTI_QUERIES):
         bd = device_breakdown(torch, ctx, sql, warm[qname])
         del bd["ms_by_name"]
         log(f"[profile] {qname}: {json.dumps(bd)}")
@@ -1399,13 +1618,14 @@ def main(argv=None) -> int:
     k34 = time_k34(torch)
     phases = {"scalar": scalar_launches, "grouped": grouped_launches,
               "star": star_launches, "slice": slice_launches,
-              "harness": harness_launches,
+              "multi": multi_launches, "harness": harness_launches,
               "harness_operator_timing": op_launches}
 
     def launches(name):
         # the main path's launches: the query phases and the micro line
         return sum(phases[p][name]
-                   for p in ("scalar", "grouped", "star", "slice", "harness"))
+                   for p in ("scalar", "grouped", "star", "slice", "multi",
+                             "harness"))
 
     def by_phase(name):
         return {p: d.get(name, 0) for p, d in phases.items()}
@@ -1452,7 +1672,8 @@ def main(argv=None) -> int:
             "library_ms": None,
             "shape": [row["w"], row["rows"] // 32], "matches_plain": True,
         })
-    summary = {**report, **greport, **sreport, **slice_report}
+    summary = {**report, **greport, **sreport, **slice_report,
+               **multi_report}
     log(f"[summary] {json.dumps(summary)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

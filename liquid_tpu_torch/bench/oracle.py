@@ -18,7 +18,6 @@ the pick among them open).
 from __future__ import annotations
 
 import datetime
-from collections import Counter
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -241,6 +240,217 @@ def _tpch_q14(paths) -> List[pa.Array]:
     return [pa.array([100.0 * promo / pc.sum(rev).as_py()], pa.float64())]
 
 
+# -- TPC-H's multi-table queries (the star and existence-probe slice) ------
+
+def _between(a, lo, hi):
+    return pc.and_(pc.greater_equal(a, lo), pc.less_equal(a, hi))
+
+
+def _sorted(t: pa.Table, keys) -> pa.Table:
+    return t.take(pc.sort_indices(t, sort_keys=keys))
+
+
+def _tpch_q4(paths) -> List[pa.Array]:
+    li = _read(paths, "lineitem", ["l_orderkey", "l_commitdate",
+                                   "l_receiptdate"])
+    late = pc.unique(li.filter(pc.less(li["l_commitdate"],
+                                       li["l_receiptdate"]))["l_orderkey"])
+    o = _read(paths, "orders", ["o_orderkey", "o_orderdate",
+                                "o_orderpriority"])
+    o = o.filter(pc.and_(pc.and_(
+        pc.greater_equal(o["o_orderdate"], _date(1993, 7, 1)),
+        pc.less(o["o_orderdate"], _date(1993, 10, 1))),
+        pc.is_in(o["o_orderkey"], value_set=late)))
+    g = o.group_by("o_orderpriority").aggregate([
+        ("o_orderkey", "count", _EVERY)]).sort_by("o_orderpriority")
+    return [g["o_orderpriority"], g["o_orderkey_count"]]
+
+
+def _nations(paths, prefix: str) -> pa.Table:
+    n = _read(paths, "nation", ["n_nationkey", "n_name", "n_regionkey"])
+    return n.rename_columns([prefix + c for c in n.column_names])
+
+
+def _tpch_q7(paths) -> List[pa.Array]:
+    li = _read(paths, "lineitem", ["l_orderkey", "l_suppkey", "l_shipdate",
+                                   "l_extendedprice", "l_discount"])
+    li = li.filter(_between(li["l_shipdate"], _date(1995, 1, 1),
+                            _date(1996, 12, 31)))
+    s = _join(_read(paths, "supplier", ["s_suppkey", "s_nationkey"]),
+              _nations(paths, "n1_"), "s_nationkey", "n1_n_nationkey")
+    c = _join(_read(paths, "customer", ["c_custkey", "c_nationkey"]),
+              _nations(paths, "n2_"), "c_nationkey", "n2_n_nationkey")
+    o = _join(_read(paths, "orders", ["o_orderkey", "o_custkey"]), c,
+              "o_custkey", "c_custkey")
+    j = _join(_join(li, s, "l_suppkey", "s_suppkey"), o, "l_orderkey",
+              "o_orderkey")
+    sn, cn = j["n1_n_name"], j["n2_n_name"]
+    j = j.filter(pc.or_(
+        pc.and_(pc.equal(sn, "FRANCE"), pc.equal(cn, "GERMANY")),
+        pc.and_(pc.equal(sn, "GERMANY"), pc.equal(cn, "FRANCE"))))
+    t = pa.table({"supp_nation": j["n1_n_name"], "cust_nation": j["n2_n_name"],
+                  "l_year": pc.year(j["l_shipdate"]), "v": _revenue(j)})
+    keys = ["supp_nation", "cust_nation", "l_year"]
+    g = t.group_by(keys).aggregate([("v", "sum")]).sort_by(
+        [(k, "ascending") for k in keys])
+    return [g[k] for k in keys] + [g["v_sum"]]
+
+
+def _tpch_q8(paths) -> List[pa.Array]:
+    p = _read(paths, "part", ["p_partkey", "p_type"])
+    p = p.filter(pc.equal(p["p_type"], "ECONOMY ANODIZED STEEL"))
+    r = _read(paths, "region", ["r_regionkey", "r_name"])
+    r = r.filter(pc.equal(r["r_name"], "AMERICA"))
+    n1 = _join(_nations(paths, "n1_"), r, "n1_n_regionkey", "r_regionkey")
+    c = _join(_read(paths, "customer", ["c_custkey", "c_nationkey"]), n1,
+              "c_nationkey", "n1_n_nationkey")
+    o = _read(paths, "orders", ["o_orderkey", "o_custkey", "o_orderdate"])
+    o = _join(o.filter(_between(o["o_orderdate"], _date(1995, 1, 1),
+                                _date(1996, 12, 31))),
+              c.select(["c_custkey"]), "o_custkey", "c_custkey")
+    s = _join(_read(paths, "supplier", ["s_suppkey", "s_nationkey"]),
+              _nations(paths, "n2_"), "s_nationkey", "n2_n_nationkey")
+    li = _read(paths, "lineitem", ["l_orderkey", "l_partkey", "l_suppkey",
+                                   "l_extendedprice", "l_discount"])
+    j = _join(_join(_join(li, p.select(["p_partkey"]), "l_partkey",
+                          "p_partkey"), o, "l_orderkey", "o_orderkey"),
+              s, "l_suppkey", "s_suppkey")
+    v = _revenue(j)
+    t = pa.table({"o_year": pc.year(j["o_orderdate"]), "v": v,
+                  "b": pc.if_else(pc.equal(j["n2_n_name"], "BRAZIL"), v,
+                                  0.0)})
+    g = t.group_by("o_year").aggregate([("b", "sum"), ("v", "sum")]
+                                       ).sort_by("o_year")
+    return [g["o_year"], pc.divide(g["b_sum"], g["v_sum"])]
+
+
+def _tpch_q9(paths) -> List[pa.Array]:
+    p = _read(paths, "part", ["p_partkey", "p_name"])
+    p = p.filter(pc.match_like(p["p_name"], "%green%"))
+    li = _read(paths, "lineitem", ["l_orderkey", "l_partkey", "l_suppkey",
+                                   "l_quantity", "l_extendedprice",
+                                   "l_discount"])
+    ps = _read(paths, "partsupp", ["ps_partkey", "ps_suppkey",
+                                   "ps_supplycost"])
+    j = _join(li, p.select(["p_partkey"]), "l_partkey", "p_partkey")
+    j = j.join(ps, ["l_partkey", "l_suppkey"], ["ps_partkey", "ps_suppkey"],
+               join_type="inner")
+    s = _join(_read(paths, "supplier", ["s_suppkey", "s_nationkey"]),
+              _read(paths, "nation", ["n_nationkey", "n_name"]),
+              "s_nationkey", "n_nationkey")
+    j = _join(_join(j, s, "l_suppkey", "s_suppkey"),
+              _read(paths, "orders", ["o_orderkey", "o_orderdate"]),
+              "l_orderkey", "o_orderkey")
+    amount = pc.subtract(_revenue(j), pc.multiply(j["ps_supplycost"],
+                                                  j["l_quantity"]))
+    t = pa.table({"nation": j["n_name"], "o_year": pc.year(j["o_orderdate"]),
+                  "a": amount})
+    g = _sorted(t.group_by(["nation", "o_year"]).aggregate([("a", "sum")]),
+                [("nation", "ascending"), ("o_year", "descending")])
+    return [g["nation"], g["o_year"], g["a_sum"]]
+
+
+def _tpch_q11(paths) -> List[pa.Array]:
+    n = _read(paths, "nation", ["n_nationkey", "n_name"])
+    n = n.filter(pc.equal(n["n_name"], "GERMANY"))
+    s = _join(_read(paths, "supplier", ["s_suppkey", "s_nationkey"]),
+              n.select(["n_nationkey"]), "s_nationkey", "n_nationkey")
+    ps = _join(_read(paths, "partsupp", ["ps_partkey", "ps_suppkey",
+                                         "ps_supplycost", "ps_availqty"]),
+               s.select(["s_suppkey"]), "ps_suppkey", "s_suppkey")
+    v = pc.multiply(ps["ps_supplycost"], ps["ps_availqty"])
+    total = pc.sum(v).as_py() * 0.0001
+    g = pa.table({"ps_partkey": ps["ps_partkey"], "v": v}).group_by(
+        "ps_partkey").aggregate([("v", "sum")])
+    g = g.filter(pc.greater(g["v_sum"], total)).sort_by(
+        [("v_sum", "descending")])
+    return [g["ps_partkey"], g["v_sum"]]
+
+
+def _tpch_q16(paths) -> List[pa.Array]:
+    s = _read(paths, "supplier", ["s_suppkey", "s_comment"])
+    bad = s.filter(pc.match_like(s["s_comment"],
+                                 "%Customer%Complaints%"))["s_suppkey"]
+    p = _read(paths, "part", ["p_partkey", "p_brand", "p_type", "p_size"])
+    p = p.filter(pc.and_(pc.and_(
+        pc.not_equal(p["p_brand"], "Brand#45"),
+        pc.invert(pc.match_like(p["p_type"], "MEDIUM POLISHED%"))),
+        pc.is_in(p["p_size"], value_set=pa.array(
+            [49, 14, 23, 45, 19, 3, 36, 9], p["p_size"].type))))
+    ps = _read(paths, "partsupp", ["ps_partkey", "ps_suppkey"])
+    ps = ps.filter(pc.invert(pc.is_in(ps["ps_suppkey"], value_set=bad)))
+    j = _join(ps, p, "ps_partkey", "p_partkey")
+    keys = ["p_brand", "p_type", "p_size"]
+    g = j.group_by(keys).aggregate([("ps_suppkey", "count_distinct")])
+    g = _sorted(g, [("ps_suppkey_count_distinct", "descending")]
+                + [(k, "ascending") for k in keys])
+    return [g[k] for k in keys] + [g["ps_suppkey_count_distinct"]]
+
+
+def _tpch_q18(paths) -> List[pa.Array]:
+    li = _read(paths, "lineitem", ["l_orderkey", "l_quantity"])
+    per = li.group_by("l_orderkey").aggregate([("l_quantity", "sum")])
+    big = per.filter(pc.greater(per["l_quantity_sum"], 250))["l_orderkey"]
+    o = _read(paths, "orders", ["o_orderkey", "o_custkey", "o_orderdate",
+                                "o_totalprice"])
+    o = _join(o.filter(pc.is_in(o["o_orderkey"], value_set=big)),
+              _read(paths, "customer", ["c_custkey", "c_name"]),
+              "o_custkey", "c_custkey")
+    j = _join(li, o, "l_orderkey", "o_orderkey")
+    keys = ["c_name", "o_custkey", "l_orderkey", "o_orderdate",
+            "o_totalprice"]
+    g = _sorted(j.group_by(keys).aggregate([("l_quantity", "sum")]),
+                [("o_totalprice", "descending"), ("o_orderdate", "ascending")])
+    return [g[k] for k in keys] + [g["l_quantity_sum"]]
+
+
+def _tpch_q21(paths) -> List[pa.Array]:
+    li = _read(paths, "lineitem", ["l_orderkey", "l_suppkey",
+                                   "l_receiptdate", "l_commitdate"])
+    is_late = pc.greater(li["l_receiptdate"], li["l_commitdate"])
+    late = li.filter(is_late)
+    # EXISTS another supplier on the order: two or more distinct ones;
+    # NOT EXISTS another late one: the late rows name one supplier only
+    n_all = li.group_by("l_orderkey").aggregate(
+        [("l_suppkey", "count_distinct")]).rename_columns(["k", "n_all"])
+    n_late = late.group_by("l_orderkey").aggregate(
+        [("l_suppkey", "count_distinct")]).rename_columns(["k", "n_late"])
+    keep = _join(n_all.filter(pc.greater_equal(n_all["n_all"], 2)),
+                 n_late.filter(pc.equal(n_late["n_late"], 1)), "k", "k")
+    l1 = _join(late, keep.select(["k"]), "l_orderkey", "k")
+    o = _read(paths, "orders", ["o_orderkey", "o_orderstatus"])
+    o = o.filter(pc.equal(o["o_orderstatus"], "F"))
+    n = _read(paths, "nation", ["n_nationkey", "n_name"])
+    n = n.filter(pc.equal(n["n_name"], "SAUDI ARABIA"))
+    s = _join(_read(paths, "supplier", ["s_suppkey", "s_name",
+                                        "s_nationkey"]),
+              n.select(["n_nationkey"]), "s_nationkey", "n_nationkey")
+    j = _join(_join(l1, o.select(["o_orderkey"]), "l_orderkey",
+                    "o_orderkey"), s, "l_suppkey", "s_suppkey")
+    g = _sorted(j.group_by("s_name").aggregate([("l_suppkey", "count",
+                                                 _EVERY)]),
+                [("l_suppkey_count", "descending"), ("s_name", "ascending")])
+    return [g["s_name"], g["l_suppkey_count"]]
+
+
+def _tpch_q22(paths) -> List[pa.Array]:
+    codes = pa.array(["13", "31", "23", "29", "30", "18", "17"])
+    c = _read(paths, "customer", ["c_custkey", "c_phone", "c_acctbal"])
+    code = pc.utf8_slice_codeunits(c["c_phone"], 0, 2)
+    c = c.append_column("cntrycode", code).filter(
+        pc.is_in(code, value_set=codes))
+    avg = pc.mean(c.filter(pc.greater(c["c_acctbal"], 0.0))["c_acctbal"]
+                  ).as_py()
+    buyers = pc.unique(_read(paths, "orders", ["o_custkey"])["o_custkey"])
+    c = c.filter(pc.and_(pc.greater(c["c_acctbal"], avg),
+                         pc.invert(pc.is_in(c["c_custkey"],
+                                            value_set=buyers))))
+    g = c.group_by("cntrycode").aggregate([
+        ("c_custkey", "count", _EVERY), ("c_acctbal", "sum")]
+    ).sort_by("cntrycode")
+    return [g["cntrycode"], g["c_custkey_count"], g["c_acctbal_sum"]]
+
+
 # -- ClickBench queries of the single-table slice (benchmark/clickbench) --
 
 def _hits(paths, cols) -> pa.Table:
@@ -386,6 +596,10 @@ ORACLES = {"cb_filter": _cb_filter, "cb_like": _cb_like,
            "tpch_supp_price": _tpch_supp_price, "tpch_q1": _tpch_q1,
            "tpch_q3": _tpch_q3, "tpch_q5": _tpch_q5, "tpch_q10": _tpch_q10,
            "tpch_q12": _tpch_q12, "tpch_q14": _tpch_q14,
+           "tpch_q4": _tpch_q4, "tpch_q7": _tpch_q7, "tpch_q8": _tpch_q8,
+           "tpch_q9": _tpch_q9, "tpch_q11": _tpch_q11,
+           "tpch_q16": _tpch_q16, "tpch_q18": _tpch_q18,
+           "tpch_q21": _tpch_q21, "tpch_q22": _tpch_q22,
            "cb_q4": _cb_q4, "cb_q5": _cb_q5, "cb_q8": _cb_q8,
            "cb_q9": _cb_q9, "cb_q10": _cb_q10, "cb_q11": _cb_q11,
            "cb_q13": _cb_q13, "cb_q18": _cb_q18, "cb_q22": _cb_q22,
@@ -402,7 +616,11 @@ ORACLES = {"cb_filter": _cb_filter, "cb_like": _cb_like,
 CUTS: Dict[str, Tuple[Tuple[int, ...], int, int]] = {
     "cb_q8": ((1,), 0, 10), "cb_q9": ((2,), 0, 10), "cb_q10": ((1,), 0, 10),
     "cb_q11": ((2,), 0, 10), "cb_q13": ((1,), 0, 10),
-    "cb_q18": ((3,), 0, 10), "cb_q22": ((3,), 0, 10)}
+    "cb_q18": ((3,), 0, 10), "cb_q22": ((3,), 0, 10),
+    # TPC-H: q18's o_totalprice, o_orderdate and q21's numwait, s_name
+    # under LIMIT 100; q11 orders its whole answer by a value that may tie
+    "tpch_q18": ((4, 3), 0, 100), "tpch_q21": ((1, 0), 0, 100),
+    "tpch_q11": ((1,), 0, 1 << 40)}
 
 
 def answers(paths: Dict[str, str], names: Iterable[str]
@@ -442,15 +660,47 @@ def _same_cut(out: pa.Table, want: List[pa.Array], cut) -> bool:
     if [key(r) for r in got] != [key(r) for r in full[lo:hi]]:
         return False
     tied = {key(full[hi - 1])} | ({key(full[lo])} if lo else set())
-
-    def canon(rows):
-        return Counter(tuple(_cell_key(v) for v in r) for r in rows)
-
-    inner = canon(r for r in got if key(r) not in tied)
-    if inner != canon(r for r in full[lo:hi] if key(r) not in tied):
+    if not _same_rows([r for r in got if key(r) not in tied],
+                      [r for r in full[lo:hi] if key(r) not in tied]):
         return False
-    return not canon(r for r in got if key(r) in tied) - canon(
-        r for r in full if key(r) in tied)
+    pool = [r for r in full if key(r) in tied]
+    for r in (r for r in got if key(r) in tied):
+        hit = next((i for i, w in enumerate(pool) if _close_row(r, w)), None)
+        if hit is None:
+            return False
+        pool.pop(hit)
+    return True
+
+
+def _close_row(a, b) -> bool:
+    """Cells equal, floats to rtol 1e-9 (NaN equal to NaN)."""
+    for x, y in zip(a, b):
+        if isinstance(x, float) and isinstance(y, float):
+            if not (x == y or (x != x and y != y) or abs(x - y) <= 1e-9 * max(
+                    abs(x), abs(y))):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def _same_rows(a: List[tuple], b: List[tuple]) -> bool:
+    """Equal as multisets under `_close_row`: both sorted, the non-float
+    cells first, then compared pairwise (rounding the floats to a key
+    would split two values that straddle a rounding boundary)."""
+    if len(a) != len(b):
+        return False
+
+    fcols = {i for r in a + b for i, v in enumerate(r)
+             if isinstance(v, float)}
+
+    def order(r):
+        return (tuple(_cell_key(v) for i, v in enumerate(r)
+                      if i not in fcols)
+                + tuple((0,) if v is None else (2,) if v != v else (1, v)
+                        for i, v in enumerate(r) if i in fcols))
+    return all(_close_row(x, y) for x, y in zip(sorted(a, key=order),
+                                                 sorted(b, key=order)))
 
 
 def same_table(out: pa.Table, want: List[pa.Array],

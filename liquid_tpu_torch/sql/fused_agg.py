@@ -36,15 +36,18 @@ reason -- the port has no classic path to fall back to yet):
   float / byte-view.
 The star-join fact program (`sql/fused_star.py`) is this program with
 dimension probes added: `probe_dims` maps each row to its dimension row j
-through a direct-address index table, "pay" columns read a dimension's
+through a direct-address index table (or a sorted chain index for a
+two-column key), "pay" columns read a dimension's
 decoded payload through j, and a functional-dependency plan (`_Plan.fd`)
 reduces on one representative key -- the probe index j itself, or a
 dimension key value -- and re-attaches the other keys by gathers over the
 packed output rows.
-A bare single-table SELECT ... ORDER BY ... LIMIT picks its rows here
-too (`try_fused_select`).
+Existence probes (`exist_probes`: EXISTS / NOT EXISTS / [NOT] IN over a
+per-key count table) run in the same program, on a star's fact or on a
+single table.  A bare single-table SELECT ... ORDER BY ... LIMIT picks
+its rows here too (`try_fused_select`).
 Not ported yet: functional-dependency key reduction on a single table,
-existence probes, grouping sets.
+grouping sets.
 """
 from __future__ import annotations
 
@@ -1062,20 +1065,75 @@ class _Decoders:
 def probe_dims(probes, arrays, env: _Decoders, selb: torch.Tensor
                ) -> torch.Tensor:
     """Star-join probes, shared by the fact program and the snowflake
-    dimension builds: each scanned row's dimension row j = idx[key - lo]
-    (int32, -1 where the key is NULL, outside the table or absent) goes
-    into `env.probe_j`; an INNER join drops the rows that miss.
-    `probes` holds (pid, key column, idx array index, lo array index)."""
-    for pid, kname, idx_ix, lo_ix in probes:
+    dimension builds: each scanned row's dimension row j (int32, -1 where
+    a key is NULL, outside the table or absent) goes into `env.probe_j`;
+    an INNER join drops the rows that miss.  Two forms:
+
+    (pid, key column, idx, lo) -- a unique single-column key:
+        j = idx[key - lo].
+    (pid, key column, idx, lo, key2 column, ord, cnt, vals2, max_dup) --
+        a composite two-column key (the sorted chain index, TPC-H q9's
+        partsupp): the dimension rows sorted by (key, key2); idx[key - lo]
+        is the first sorted position of key and cnt its run length; the
+        probe tries max_dup positions against key2 and maps the hit to
+        the dimension row through ord."""
+    none = torch.full((), -1, dtype=torch.int32, device=selb.device)
+    for pr in probes:
+        pid, kname, idx_ix, lo_ix = pr[:4]
         kv = env.decode(kname, "i64")
         tbl = arrays[idx_ix]
         rel = kv - arrays[lo_ix]
         inb = (rel >= 0) & (rel < tbl.shape[0]) & ~env.nulls(kname)
-        # negative indices wrap in torch: clamp before the gather
-        j = torch.where(inb, tbl[rel.clamp(0, tbl.shape[0] - 1)],
-                        torch.full((), -1, dtype=tbl.dtype, device=tbl.device))
+        # negative indices wrap in torch: clamp before every gather
+        relc = rel.clamp(0, tbl.shape[0] - 1)
+        if len(pr) == 4:
+            j = torch.where(inb, tbl[relc], none)
+        else:
+            k2name, ord_ix, cnt_ix, vals2_ix, max_dup = pr[4:]
+            k2 = env.decode(k2name, "i64")
+            inb = inb & ~env.nulls(k2name)
+            ordv, vals2 = arrays[ord_ix], arrays[vals2_ix]
+            j0, c = tbl[relc], arrays[cnt_ix][relc]
+            pos = torch.full_like(j0, -1)
+            for d in range(max_dup):
+                cand = (j0 + d).clamp(0, vals2.shape[0] - 1)
+                hit = inb & (j0 >= 0) & (c > d) & (vals2[cand] == k2)
+                pos = torch.where(hit, cand, pos)
+            j = torch.where(pos >= 0, ordv[pos.clamp(0, ordv.shape[0] - 1)],
+                            none)
         env.probe_j[pid] = j
         selb = selb & (j >= 0)
+    return selb
+
+
+def exist_probes(eprobes, arrays, env: _Decoders, selb: torch.Tensor
+                 ) -> torch.Tensor:
+    """EXISTS / NOT EXISTS / [NOT] IN <subquery> as existence probes:
+    per row, hit = the inner relation has a row with this key
+    (cnt[key - lo] > 0; a NULL key never hits).  With a disambiguator
+    column c (TPC-H q21's `inner.c <> outer.c`) the hit needs an inner
+    row whose c differs from ours: min != v or max != v, and a NULL v
+    never hits.  Modes: semi keeps hits, anti drops them, anti_nn (NOT
+    IN) also drops a NULL key.  `eprobes` holds (key column, cnt, lo,
+    mode, min, max, mm column), min / max -1 without a disambiguator."""
+    for kname, cnt_ix, lo_ix, mode, mn_ix, mx_ix, mmname in eprobes:
+        kv = env.decode(kname, "i64")
+        knl = env.nulls(kname)
+        cnt = arrays[cnt_ix]
+        rel = kv - arrays[lo_ix]
+        inb = (rel >= 0) & (rel < cnt.shape[0]) & ~knl
+        relc = rel.clamp(0, cnt.shape[0] - 1)
+        hit = inb & (cnt[relc] > 0)
+        if mn_ix >= 0:
+            mv = env.decode(mmname, "i64")
+            hit = hit & ((arrays[mn_ix][relc] != mv)
+                         | (arrays[mx_ix][relc] != mv)) & ~env.nulls(mmname)
+        if mode == "semi":
+            selb = selb & hit
+        elif mode == "anti":
+            selb = selb & ~hit
+        else:  # NOT IN: a NULL operand makes the predicate NULL
+            selb = selb & ~hit & ~knl
     return selb
 
 
@@ -1135,6 +1193,7 @@ def _fused_core(p: "_Plan", grouped=None, tkspec=()):
     selb = mops.unpack_bits(sel).reshape(-1)
     env = _Decoders(p.colmap, arrays, selb.shape[0], selb.device)
     selb = probe_dims(p.probes, arrays, env, selb)
+    selb = exist_probes(p.eprobes, arrays, env, selb)
     for ir in p.resids:
         selb = selb & _bool_nonnull(ir, env)
 
@@ -1280,8 +1339,11 @@ class _Plan:
         self.slot_vocabs: Dict[str, list] = {}
         self.rslot_maxabs: List[Optional[int]] = []  # |value| bounds
         self.having = None                # (rslot, op, literal) on device
-        #: star probes: (pid, fact key column, idx array, lo array)
+        #: star probes: (pid, fact key column, idx array, lo array), or
+        #: the composite form of `probe_dims`
         self.probes: List[tuple] = []
+        #: existence probes (`exist_probes`)
+        self.eprobes: List[tuple] = []
         #: functional-dependency plan (rep_pos, nk_full, entries), or None
         self.fd = None
         #: the reduction's keys under `fd`: [rep column] or [("probe", pid)]
@@ -1362,17 +1424,20 @@ def release_prep_cache(table) -> None:
             for ent in variants.values():
                 table.cache.budget.release_memory(ent[2])
         cache.clear()
-    star = getattr(table, "_star_probe_cache", None)
-    if star:  # star-join dimension builds (sql/fused_star.py)
-        for probe in star.values():
-            probe.evict(table.cache.budget)
-        star.clear()
+    for attr in ("_star_probe_cache", "_exist_probe_cache"):
+        builds = getattr(table, attr, None)
+        if builds:  # dimension and existence builds (sql/fused_star.py)
+            for probe in builds.values():
+                probe.evict(table.cache.budget)
+            builds.clear()
 
 
 def _table_prep(table, col, hint, blocks) -> _ColPrep:
     """Column prep cached on the table per (col, blocks), invalidated when
     a payload object changes.  A cached prep reserves its device bytes
     from the cache budget; when the budget is full it is served uncached."""
+    if hasattr(table, "base"):  # an aliased relation: the base's preps
+        table, col = table.base, table.base_name(col)
     cache = getattr(table, "_fused_prep", None)
     if cache is None:
         cache = table._fused_prep = {}
@@ -1397,6 +1462,7 @@ def _table_prep(table, col, hint, blocks) -> _ColPrep:
 
 def _rowvalid(table, blocks) -> torch.Tensor:
     """Packed int32 [nb, 256]: the live rows of each block."""
+    table = getattr(table, "base", table)  # aliased: the base's stack
     cache = getattr(table, "_fused_rowvalid", None)
     if cache is None:
         cache = table._fused_rowvalid = {}
@@ -1465,9 +1531,10 @@ def _expr_key_type(ge: ast.Expr, dt: str) -> pa.DataType:
 
 
 def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
-                rew_inputs) -> Tuple[_Plan, str, bool]:
+                rew_inputs, eprobes=()) -> Tuple[_Plan, str, bool]:
     """Plan an aggregate -> (plan, "scalar" | "grouped", empty).  Raises
-    _Bail."""
+    _Bail.  `eprobes` are existence-probe specs (`exec.
+    _plan_exist_probes`) run on this table's rows."""
     from liquid_tpu_torch.sql.device_agg import KeyCodec
     p = _Plan()
     for s in slots:
@@ -1637,6 +1704,12 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
                                        KeyCodec(table.field(c).type)))
                 if not empty and prep_of(c).kind == "planes":
                     p.key_payloads[c] = prep_of(c).payloads
+                elif not empty and prep_of(c).kind == "linear":
+                    # sorted keys (l_orderkey) are linear-coded: their
+                    # block bounds give the dense domain direct
+                    # addressing needs (1.5M orders at SF1 overflow the
+                    # hash ladder's largest table)
+                    p.key_bounds[c] = payload_bounds(prep_of(c))
             needed.add(c)
         else:
             try:
@@ -1656,6 +1729,13 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
                 else ("codec", KeyCodec(_expr_key_type(ge, dt))))
             needed |= cols
     p.key_out = list(key_names)
+    for sp in eprobes:
+        for c in (sp["col"], sp["mmcol"]):
+            if c is None:
+                continue
+            if kind_of(c) != "planes":
+                raise _Bail(f"existence-probe column kind {kind_of(c)}")
+            needed.add(c)
 
     if empty:
         _plan_slots(p, slots, slot_irs, rew_inputs, table)
@@ -1663,6 +1743,7 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
 
     for c in sorted(needed):
         register_col(p, c, prep_of(c), c in remap_cols)
+    add_exist_probes(p, eprobes, dev)
 
     for gi, g in enumerate(plan_scan.pushdown):
         if gi in skip_groups:
@@ -1685,6 +1766,20 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
     _plan_slots(p, slots, slot_irs, rew_inputs, table, bounds_of, scaledres,
                 n_upper)
     return p, mode, False
+
+
+def add_exist_probes(p: _Plan, eprobes, dev) -> None:
+    """Put existence-probe specs into the plan (`exist_probes`)."""
+    for sp in eprobes:
+        pr = sp["probe"]
+        mn = mx = -1
+        if sp["mmcol"] is not None:
+            if pr.minv is None:
+                raise _Bail("existence probe without its min / max")
+            mn, mx = _add(p, pr.minv), _add(p, pr.maxv)
+        p.eprobes.append((sp["col"], _add(p, pr.cnt), _add(p, torch.tensor(
+            pr.lo, dtype=torch.int64, device=dev)), sp["mode"], mn, mx,
+            sp["mmcol"] or ""))
 
 
 def _prep_device(pr: _ColPrep) -> torch.device:
@@ -2126,8 +2221,9 @@ def _key_domains(p: _Plan):
 
 
 def _cardinality_bound(p: _Plan) -> Optional[int]:
-    """Upper bound on distinct key tuples from integer domain spans; None
-    when a key is unbounded (floats, linear columns, expressions)."""
+    """Upper bound on distinct key tuples from integer domain spans
+    (payload widths; a linear-coded key's block bounds in `key_bounds`);
+    None when a key is unbounded (floats, expressions)."""
     if p.fd:
         kb = p.key_bounds.get(p.phys_keys[0])
         return None if kb is None else max(min(kb[1] - kb[0] + 1, 1 << 62), 1)
@@ -2401,48 +2497,57 @@ _PLAN_CACHE_CAP = 8
 
 def _plan_cache_key(plan_scan, hints, group, key_names, slots, rew_keys,
                     rew_inputs, q):
-    """Textual identity of everything _plan_query and the top-k / HAVING
-    planning consume (renders carry the literals); paired with the cache
-    epoch it keys a built plan."""
-    from liquid_tpu_torch.sql.physical import render
+    """Identity of everything _plan_query and the top-k / HAVING planning
+    consume; paired with the cache epoch it keys a built plan.  Each
+    expression enters whole (`repr`): its display name shows an IN list,
+    a CASE or a subquery by its kind only."""
     parts = [tuple(key_names), bool(group),
-             tuple(render(e) for e in rew_keys),
-             tuple((s.name, s.kind, render(s.func)) for s in slots),
-             tuple((s.name, render(rew_inputs[s.name])) for s in slots
+             tuple(repr(e) for e in rew_keys),
+             tuple((s.name, s.kind, repr(s.func)) for s in slots),
+             tuple((s.name, repr(rew_inputs[s.name])) for s in slots
                    if s.name in rew_inputs),
-             tuple(render(g.source) for g in plan_scan.pushdown),
-             tuple(render(e) for e in plan_scan.residual),
+             tuple(repr(g.source) for g in plan_scan.pushdown),
+             tuple(repr(e) for e in plan_scan.residual),
              tuple(sorted((c, repr(h)) for c, h in (hints or {}).items()))]
     if q is not None:
         parts.append((q.limit, q.offset,
-                      tuple((render(o.expr), bool(o.desc), o.nulls_first)
+                      tuple((repr(o.expr), bool(o.desc), o.nulls_first)
                             for o in (q.order_by or ())),
-                      render(q.having) if q.having is not None else None))
+                      repr(q.having)))
     return tuple(parts)
 
 
 def try_fused_aggregate(table, plan_scan, hints, group, key_names, slots,
-                        rew_keys, rew_inputs, q=None) -> pa.Table:
+                        rew_keys, rew_inputs, q=None, eprobes=()) -> pa.Table:
     """Run a single-table aggregate on the fused device path -> the
     partial result: key columns then slot columns (one row without GROUP
-    BY).  An unsupported shape, or a key cardinality the hash ladder does
-    not resolve, raises NotImplementedError naming the reason (no classic
+    BY).  `eprobes` are existence probes on the table's rows.  An
+    unsupported shape, or a key cardinality the hash ladder does not
+    resolve, raises NotImplementedError naming the reason (no classic
     path yet)."""
     cache = getattr(table, "_fused_plan_cache", None)
     if cache is None:
         cache = table._fused_plan_cache = {}
+    # a probe's identity pins its build: a rebuilt probe is a new plan
     ck = (table.cache.epoch, _plan_cache_key(
-        plan_scan, hints, group, key_names, slots, rew_keys, rew_inputs, q))
+        plan_scan, hints, group, key_names, slots, rew_keys, rew_inputs, q),
+        tuple((sp["key"], sp["probe"].gen) for sp in eprobes))
     hit = cache.get(ck)
     if hit is None:
         try:
             hit = _plan_query(table, plan_scan, hints, key_names, slots,
-                              rew_keys, rew_inputs)
+                              rew_keys, rew_inputs, eprobes)
         except _Bail as e:
             hit = str(e)
-        if len(cache) >= _PLAN_CACHE_CAP:
-            cache.pop(next(iter(cache)))
-        cache[ck] = hit
+        # a plan pins its existence builds' tensors: it is cached only
+        # while every one of them is charged to the budget, and leaves the
+        # cache when one of them is evicted
+        if isinstance(hit, str) or all(sp["probe"].cached for sp in eprobes):
+            if len(cache) >= _PLAN_CACHE_CAP:
+                cache.pop(next(iter(cache)))
+            cache[ck] = hit
+            for sp in eprobes:
+                sp["probe"].pin(ck, cache)
     if isinstance(hit, str):  # a (cached) bailout
         STATS["fused_bailouts"] += 1
         STATS["last_bail"] = hit

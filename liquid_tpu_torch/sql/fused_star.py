@@ -1,8 +1,8 @@
 """Fused device star/snowflake join + aggregation (port of
-`liquid_tpu/sql/fused_star.py`, single-column keys).
+`liquid_tpu/sql/fused_star.py`).
 
-A fact table joined to a tree of N:1 dimensions on single-column integer
-or date keys runs on the device without a host Arrow round trip:
+A fact table joined to a tree of N:1 dimensions on integer or date keys
+runs on the device without a host Arrow round trip:
 
     dimension (children first): encoded scan -> packed predicates
         -> residual IR -> child-probe semijoins
@@ -24,12 +24,21 @@ NULL keys never match, and only INNER (and cross) joins are planned.
 count(DISTINCT col) over a star runs as the host fold
 (`fused_agg.distinct_two_level`) over one star aggregate grouped by the
 keys and the DISTINCT columns.  `_MiniPlanner` gives the fused bare
-SELECT (`fused_agg.try_fused_select`) this module's planner surface over
-one table.
+SELECT (`fused_agg.try_fused_select`) and the existence builds this
+module's planner surface over one table.
 
-Not ported yet, each raising NotImplementedError that names it: composite
-two-column keys (TPC-H q9), existence probes (EXISTS / IN subqueries;
-q4, q16, q21, q22), aliased relations and self-joins (q7, q8).
+Also planned here:
+- aliased relations and self-joins (`_AliasedTable`: TPC-H q7 / q8's
+  nation n1 / n2, q21's lineitem l1), reading their base table's cached
+  blocks, preps and row-valid stacks;
+- composite two-column keys (the sorted chain index: q9's partsupp on
+  (ps_partkey, ps_suppkey)), at most `MAX_COMPOSITE_DUP` rows per first
+  key;
+- existence probes (`build_exist_probe`): a correlated EXISTS / NOT
+  EXISTS / [NOT] IN conjunct reduces its inner relation to a per-key
+  count (and min / max of one disambiguator column, q21) over the key's
+  dense domain, probed from the fact's rows (q21), or from the one table
+  of a single-table aggregate (q4, q22; `exec._plan_exist_probes`).
 """
 from __future__ import annotations
 
@@ -41,20 +50,30 @@ import torch
 
 from liquid_tpu_torch.arrays.base import BLOCK_ROWS
 from liquid_tpu_torch.ops import mask as mops
+from liquid_tpu_torch.ops.hashagg import TRASH, _dropped
 from liquid_tpu_torch.sql import ast
 from liquid_tpu_torch.sql.fused_agg import (
     _AGG_KINDS, STATS, _add, _as_f64, _Bail, _bool_nonnull, _build_vocab,
     _compile_bool, _compile_expr, _Decoders, _expr_key_type, _gid_stack,
     _ir_dtype, _like_regex, _Plan, _plan_cache_key, _plan_slots, _rowvalid,
     _scaled_col_info, _schema_kind, _select_blocks, _selection_packed,
-    _table_prep, _value_type, execute_plan, payload_bounds, plan_having,
-    plan_topk, pred_alt, probe_dims, register_col,
+    _table_prep, _value_type, add_exist_probes, execute_plan,
+    payload_bounds, plan_having, plan_topk, pred_alt, probe_dims,
+    register_col,
 )
 from liquid_tpu_torch.sql.physical import collect_columns, render
-from liquid_tpu_torch.sql.planner import plan_scan_filters, split_conjuncts
+from liquid_tpu_torch.sql.planner import (
+    and_all, plan_scan_filters, split_conjuncts, subqueries)
 
 #: index tables larger than this are refused (2^27 int32 entries, 512 MB)
 MAX_DIM_SPAN = 1 << 27
+
+#: a composite-key probe tries this many dimension rows per first key;
+#: a deeper chain belongs on the classic join path
+MAX_COMPOSITE_DUP = 8
+
+#: existence builds cached per inner table
+_EXIST_CACHE_CAP = 8
 
 #: built dimensions cached per table, and star plans per executor
 _PROBE_CACHE_CAP = 4
@@ -74,12 +93,15 @@ def _gen_of(pp) -> int:
 
 # -- dimension build ----------------------------------------------------------
 
-def _dim_build(p: _Plan, key_name: str, tblsize: int, pays, lo_ix: int
-               ) -> List[torch.Tensor]:
+def _dim_build(p: _Plan, key_name: str, tblsize: int, pays, lo_ix: int,
+               key2=None) -> List[torch.Tensor]:
     """One dimension's device build: filter -> residuals -> child-probe
     semijoins -> the unique-key direct-address index and the payload
     decode.  -> [idx int32[tblsize], dup bool, then vals and nulls per
-    payload (pname, ptype)]."""
+    payload (pname, ptype)].  With `key2` = (column, lo array index), a
+    composite key: the sorted chain index [idx, dup, ord, cnt, vals2,
+    maxdup, vals and nulls...] (`fused_agg.probe_dims`), dup a repeated
+    (key, key2) pair."""
     arrays = p.arrays
     sel = _selection_packed(p.colmap, p.pred_groups, arrays,
                             arrays[p.rv_ix])
@@ -90,18 +112,42 @@ def _dim_build(p: _Plan, key_name: str, tblsize: int, pays, lo_ix: int
         selb = selb & _bool_nonnull(ir, env)
     rel = env.decode(key_name, "i64") - arrays[lo_ix]
     valid = selb & ~env.nulls(key_name) & (rel >= 0) & (rel < tblsize)
-    # torch has no dropping scatter: filtered rows land in a spare entry
-    # past the table, sliced off after
-    slot = torch.where(valid, rel, torch.full_like(rel, tblsize))
-    n = slot.shape[0]
-    rows = torch.arange(n, dtype=torch.int32, device=slot.device)
-    idx = torch.full((tblsize + 1,), -1, dtype=torch.int32,
-                     device=slot.device).scatter_(0, slot, rows)[:tblsize]
-    # exact in any order; a repeated key makes the scatter above pick one
-    # row, and the flag stops the query
-    cnt = torch.zeros(tblsize + 1, dtype=torch.int32, device=slot.device)
-    cnt.index_add_(0, slot, torch.ones_like(rows))
-    outs = [idx, (cnt[:tblsize] > 1).any()]
+    n = rel.shape[0]
+    dev = rel.device
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    if key2 is not None:
+        k2 = env.decode(key2[0], "i64")
+        valid = valid & ~env.nulls(key2[0])
+        # (key, key2) in one i64: the planner proved key2 - lo2 < 2^31
+        skey = torch.where(valid, (rel << 31) | (k2 - arrays[key2[1]]),
+                           torch.full_like(rel, 1 << 62))
+        ordv = torch.argsort(skey, stable=True)
+        ss, vsort = skey[ordv], valid[ordv]
+        dup = ((ss[1:] == ss[:-1]) & vsort[1:]).any()
+        k1s = ss >> 31
+        first = vsort.clone()
+        first[1:] &= k1s[1:] != k1s[:-1]
+        # each first key's first sorted position; the other rows land in
+        # the trash band past the table
+        idx = torch.full((tblsize + TRASH,), -1, dtype=torch.int32,
+                         device=dev).scatter_(
+            0, _dropped(k1s, first, tblsize), pos)[:tblsize]
+        cnt = torch.zeros(tblsize + TRASH, dtype=torch.int32,
+                          device=dev).index_add_(
+            0, _dropped(k1s, vsort, tblsize), torch.ones_like(pos))[:tblsize]
+        vals2 = torch.where(vsort, k2[ordv], torch.full_like(k2, -(1 << 62)))
+        outs = [idx, dup, ordv.to(torch.int32), cnt, vals2, cnt.max()]
+    else:
+        # torch has no dropping scatter: filtered rows land in a spare
+        # entry past the table, sliced off after
+        slot = torch.where(valid, rel, torch.full_like(rel, tblsize))
+        idx = torch.full((tblsize + 1,), -1, dtype=torch.int32,
+                         device=dev).scatter_(0, slot, pos)[:tblsize]
+        # exact in any order; a repeated key makes the scatter above pick
+        # one row, and the flag stops the query
+        cnt = torch.zeros(tblsize + 1, dtype=torch.int32, device=dev)
+        cnt.index_add_(0, slot, torch.ones_like(pos))
+        outs = [idx, (cnt[:tblsize] > 1).any()]
     for pname, ptype in pays:
         outs.append(env.decode(pname, "f64" if ptype == "f64" else "i64"))
         outs.append(env.nulls(pname))
@@ -110,32 +156,48 @@ def _dim_build(p: _Plan, key_name: str, tblsize: int, pays, lo_ix: int
 
 # -- planning -----------------------------------------------------------------
 
-class _Probe:
-    """Runtime handle of one built dimension (device tensors)."""
+class _Build:
+    """A device build held by a table's cache and charged to the budget;
+    the cached plans that pin its tensors are dropped with it."""
 
-    __slots__ = ("idx", "lo", "hi", "dup", "verified", "payload", "vocabs",
-                 "pay_bounds", "nbytes", "cache_key", "nrows", "cached",
-                 "plans")
+    __slots__ = ("nbytes", "cached", "plans")
 
     def __init__(self):
-        self.dup = None          # device bool scalar until verified
-        self.verified = False
-        self.payload = {}        # name -> (vals, nulls, ptype)
-        self.vocabs = {}         # name -> vocabulary (gid payloads)
-        self.pay_bounds = {}     # name -> (lo, hi) value bounds
         self.nbytes = 0
-        self.nrows = 1           # dimension scan rows: j in [0, nrows)
-        self.cached = False      # held by the table's probe cache, charged
-        self.plans = {}          # star plan key -> the plan cache holding it
+        self.cached = False      # held by a table's cache, charged
+        self.plans = {}          # plan key -> the plan cache holding it
 
     def evict(self, budget) -> None:
-        """Release the probe's charge and drop the cached star plans whose
+        """Release the build's charge and drop the cached plans whose
         arrays pin its tensors, so the budget bounds what stays alive."""
         budget.release_memory(self.nbytes)
         for ck, cache in self.plans.items():
             cache.pop(ck, None)
         self.plans.clear()
         self.cached = False
+
+    def pin(self, ck, cache) -> None:
+        """Record that cached plan `ck` of `cache` pins this build (keys
+        of plans the cache's cap evicted go)."""
+        self.plans = {k: c for k, c in self.plans.items() if k in c}
+        self.plans[ck] = cache
+
+
+class _Probe(_Build):
+    """Runtime handle of one built dimension (device tensors)."""
+
+    __slots__ = ("idx", "lo", "hi", "dup", "verified", "payload", "vocabs",
+                 "pay_bounds", "cache_key", "nrows", "chain")
+
+    def __init__(self):
+        super().__init__()
+        self.dup = None          # device bool scalar until verified
+        self.verified = False
+        self.payload = {}        # name -> (vals, nulls, ptype)
+        self.vocabs = {}         # name -> vocabulary (gid payloads)
+        self.pay_bounds = {}     # name -> (lo, hi) value bounds
+        self.nrows = 1           # dimension scan rows: j in [0, nrows)
+        self.chain = None        # composite key: (ord, cnt, vals2, maxdup)
 
 
 class _Fields:
@@ -151,40 +213,11 @@ class _Fields:
         raise KeyError(c)
 
 
-def _has_sub(e) -> bool:
-    if isinstance(e, (ast.Subquery, ast.InSubquery, ast.Exists,
-                      ast.CorrLookup)):
-        return True
-    for f_ in getattr(e, "__dataclass_fields__", {}):
-        v = getattr(e, f_)
-        if isinstance(v, ast.Expr) and _has_sub(v):
-            return True
-        if isinstance(v, (list, tuple)):
-            for x in v:
-                if isinstance(x, ast.Expr) and _has_sub(x):
-                    return True
-                if isinstance(x, tuple) and any(
-                        isinstance(y, ast.Expr) and _has_sub(y) for y in x):
-                    return True
-    return False
-
-
-def _and_all(exprs):
-    out = None
-    for e in exprs:
-        out = e if out is None else ast.Binary("and", out, e)
-    return out
-
-
 def _next_pow2(n: int) -> int:
     m = 1
     while m < n:
         m <<= 1
     return m
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} over a star join is not ported yet")
 
 
 class _StarPlanner:
@@ -220,10 +253,6 @@ class _StarPlanner:
             elif isinstance(rel, ast.TableRef):
                 if rel.name not in self.ex.catalog:
                     raise _Bail(f"non-parquet relation {rel.name}")
-                if rel.prefix:
-                    raise _not_ported(f"the aliased relation {rel.name} "
-                                      f"{rel.alias or ''} (_AliasedTable, "
-                                      f"self-joins)")
                 leaves.append(rel)
             else:
                 raise _Bail("derived-table relation")
@@ -233,9 +262,13 @@ class _StarPlanner:
             raise _Bail("single relation")
         self.tables = {}
         for leaf in leaves:
-            if leaf.name in self.tables:
-                raise _Bail(f"duplicate relation {leaf.name}")
-            self.tables[leaf.name] = self.ex.catalog[leaf.name]
+            # an aliased relation (a self-join's side) is its own relation
+            key = (leaf.alias or leaf.name) if leaf.prefix else leaf.name
+            if key in self.tables:
+                raise _Bail(f"duplicate relation {key}")
+            base = self.ex.catalog[leaf.name]
+            self.tables[key] = (_aliased_table(self.ex, base, leaf.prefix)
+                                if leaf.prefix else base)
         names = list(self.tables)
         self.owner: Dict[str, str] = {}
         for n in names:
@@ -247,11 +280,12 @@ class _StarPlanner:
         edges: List[Tuple[str, str, str, str]] = []
         self.per_table: Dict[str, List[ast.Expr]] = {n: [] for n in names}
         self.cross: List[ast.Expr] = []
+        #: correlated subquery conjuncts: existence probes on the fact
+        self.sub_conjs: List[ast.Expr] = []
         for e in split_conjuncts(self.where) + ons:
-            if _has_sub(e):
-                raise _not_ported("a WHERE subquery (an existence probe "
-                                  "for EXISTS / IN, build_exist_probe; a "
-                                  "correlated scalar lookup)")
+            if subqueries(e):
+                self.sub_conjs.append(e)
+                continue
             cols: set = set()
             collect_columns(e, cols)
             owners = set()
@@ -303,24 +337,54 @@ class _StarPlanner:
         if visited != set(names):
             raise _Bail("disconnected join graph")
         # a leftover equality between a child and its own tree parent is
-        # the second column of a composite key; other leftovers (cycles)
-        # stay fact-level residuals over gathered payloads
+        # the second column of a composite key (q9's partsupp on
+        # (ps_partkey, ps_suppkey)): the child builds a sorted chain index.
+        # Other leftovers (cycles) stay fact-level residuals over gathered
+        # payloads
+        self.tree2: Dict[str, Tuple[str, str]] = {}
         for i, (a, b, ta, tb) in enumerate(edges):
             if i in used:
                 continue
-            if (ta in self.tree and self.tree[ta][0] == tb) or (
-                    tb in self.tree and self.tree[tb][0] == ta):
-                raise _not_ported("a composite two-column join key "
-                                  f"({a} = {b}; the sorted chain index)")
+            child = None
+            if ta in self.tree and self.tree[ta][0] == tb:
+                child, pcol2, ccol2 = ta, b, a
+            elif tb in self.tree and self.tree[tb][0] == ta:
+                child, pcol2, ccol2 = tb, a, b
+            if child is not None and child not in self.tree2:
+                self.tree2[child] = (pcol2, ccol2)
+                continue
             self.cross.append(ast.Binary("=", ast.Column(a), ast.Column(b)))
 
         # join keys must decode to i64 planes
-        for child, (_p, pcol, ccol) in self.tree.items():
+        pairs = [(ch, pcol, ccol) for ch, (_p, pcol, ccol)
+                 in self.tree.items()]
+        pairs += [(ch, pcol, ccol) for ch, (pcol, ccol)
+                  in self.tree2.items()]
+        for child, pcol, ccol in pairs:
             for tbl, col in ((child, ccol), (self.owner[pcol], pcol)):
                 t = self.tables[tbl].field(col).type
                 if not (pa.types.is_integer(t) or pa.types.is_date32(t)
                         or pa.types.is_timestamp(t)):
                     raise _Bail(f"join key type {t}")
+
+        # subquery conjuncts -> existence probes on the fact (q21: two
+        # correlated lineitem lookups); one no probe takes stops the plan
+        self.eprobe_specs: List[dict] = []
+        fact_table = self.tables[self.fact]
+        for e in self.sub_conjs:
+            spec = self.ex._exist_spec(e, fact_table)
+            if spec is None:
+                raise _Bail(f"a correlated subquery {render(e)[:60]!r} that "
+                            f"no existence probe takes (a correlated lookup)")
+            probe = build_exist_probe(
+                spec["table"], spec["key"], spec["local"], spec["mm_inner"],
+                require_nonnull_key=spec["mode"] == "anti_nn")
+            if probe is None:
+                raise _Bail(f"an existence probe on {spec['key']} that does "
+                            f"not build")
+            self.eprobe_specs.append(
+                {"mode": spec["mode"], "col": spec["col"],
+                 "mmcol": spec["mmcol"], "probe": probe, "key": repr(e)})
 
         self.children: Dict[str, List[str]] = {n: [] for n in names}
         for child, (par, _p, _c) in self.tree.items():
@@ -377,7 +441,7 @@ class _StarPlanner:
 
     def _scan(self, tbl: str):
         if tbl not in self.plans:
-            plan = plan_scan_filters(_and_all(self.per_table[tbl]))
+            plan = plan_scan_filters(and_all(self.per_table[tbl]))
             self.plans[tbl] = plan
             self.blocks[tbl] = _select_blocks(self.tables[tbl], plan)
         return self.plans[tbl], self.blocks[tbl]
@@ -519,6 +583,215 @@ def _prep_has_nulls(table, prep, blocks) -> bool:
     return False
 
 
+# -- aliased relations ----------------------------------------------------------
+
+class _AliasedTable:
+    """A parquet table under an alias prefix (self-joins; TPC-H nation n1 /
+    n2, lineitem l1): its column names carry the prefix, everything else
+    is the base table's with the prefix stripped.  Blocks, preps and
+    row-valid stacks are the base's (`fused_agg._table_prep` and
+    `_rowvalid` read through `base`), and so is the dimension-build
+    cache.  One object per (table, prefix) lives on the executor."""
+
+    def __init__(self, base, prefix: str):
+        self.base = base
+        self.prefix = prefix
+        self.column_names = [prefix + c for c in base.column_names]
+
+    def base_name(self, c: str) -> str:
+        return c[len(self.prefix):] if c.startswith(self.prefix) else c
+
+    def field(self, c: str) -> pa.Field:
+        return self.base.field(self.base_name(c))
+
+    def prune_row_groups(self, preds):
+        return self.base.prune_row_groups(
+            [(self.base_name(c), pr) for c, pr in preds])
+
+    def batch_may_match(self, rg, c, b, pred) -> bool:
+        return self.base.batch_may_match(rg, self.base_name(c), b, pred)
+
+    def num_batches(self, rg):
+        return self.base.num_batches(rg)
+
+    def batch_length(self, rg, b):
+        return self.base.batch_length(rg, b)
+
+    def ensure_cached(self, rg, c, hint=None):
+        return self.base.ensure_cached(rg, self.base_name(c), hint)
+
+    @property
+    def zone_prunes(self):
+        return self.base.zone_prunes
+
+    @zone_prunes.setter
+    def zone_prunes(self, v):
+        self.base.zone_prunes = v
+
+    @property
+    def _star_probe_cache(self):
+        return self.base.__dict__.setdefault("_star_probe_cache", {})
+
+    @property
+    def num_rows(self):
+        return self.base.num_rows
+
+    @property
+    def num_row_groups(self):
+        return self.base.num_row_groups
+
+    @property
+    def cache(self):
+        return self.base.cache
+
+
+def _aliased_table(ex, base, prefix: str) -> _AliasedTable:
+    cache = ex.__dict__.setdefault("_alias_tables", {})
+    t = cache.get((id(base), prefix))
+    if t is None or t.base is not base:
+        t = cache[(id(base), prefix)] = _AliasedTable(base, prefix)
+    return t
+
+
+# -- existence probes -----------------------------------------------------------
+#
+# A correlated EXISTS with one equality correlation is a semijoin: the
+# inner relation reduces to a per-key count (and the min / max of one
+# disambiguator column, q21's `l2.l_suppkey <> l1.l_suppkey`) over the
+# key's dense domain, built on the device once and probed from the outer
+# rows with gathers (`fused_agg.exist_probes`).  Existence does not care
+# about duplicates, so fact-to-fact correlations (orders to lineitem) fuse.
+
+class _ExistProbe(_Build):
+    """One inner relation's existence table: cnt int32[span + 1] over keys
+    lo .. lo + span, and min / max int64[span + 1] of the disambiguator
+    (None without one).  `gen` is unique per build (plan-cache keys)."""
+
+    __slots__ = ("cnt", "lo", "span", "minv", "maxv", "gen")
+
+    def __init__(self, cnt, lo: int, span: int, minv=None, maxv=None):
+        super().__init__()
+        self.cnt, self.lo, self.span = cnt, lo, span
+        self.minv, self.maxv = minv, maxv
+        self.gen = _PAYLOAD_GEN()
+
+
+def _exist_build(p: _Plan, key_name: str, span: int, mm_name, lo_ix: int
+                 ) -> List[torch.Tensor]:
+    """selection -> key decode -> per-key count (and min / max of
+    `mm_name`) over the dense key domain -> [cnt(, minv, maxv)].  Rows
+    that do not count (filtered, a NULL key, a NULL disambiguator: it
+    never witnesses `<>`) land in the trash band past the domain."""
+    arrays = p.arrays
+    sel = _selection_packed(p.colmap, p.pred_groups, arrays,
+                            arrays[p.rv_ix])
+    selb = mops.unpack_bits(sel).reshape(-1)
+    env = _Decoders(p.colmap, arrays, selb.shape[0], selb.device)
+    for ir in p.resids:
+        selb = selb & _bool_nonnull(ir, env)
+    rel = env.decode(key_name, "i64") - arrays[lo_ix]
+    valid = selb & ~env.nulls(key_name) & (rel >= 0) & (rel <= span)
+    if mm_name:
+        valid = valid & ~env.nulls(mm_name)
+    m = span + 1
+    slot = _dropped(rel, valid, m)
+    dev = rel.device
+    cnt = torch.zeros(m + TRASH, dtype=torch.int32, device=dev).index_add_(
+        0, slot, torch.ones(slot.shape[0], dtype=torch.int32, device=dev))
+    outs = [cnt[:m]]
+    if mm_name:
+        v = env.decode(mm_name, "i64")
+        big = (1 << 63) - 1
+        for fill, op in ((big, "amin"), (-big - 1, "amax")):
+            outs.append(torch.full((m + TRASH,), fill, dtype=torch.int64,
+                                   device=dev).scatter_reduce_(
+                0, slot, v, op, include_self=True)[:m])
+    return outs
+
+
+def build_exist_probe(table, key_col: str, local_where, mm_col=None,
+                      require_nonnull_key: bool = False):
+    """The existence table of `EXISTS (SELECT .. FROM table WHERE key_col
+    = <outer> AND local_where)` -> _ExistProbe, or None when the shape
+    does not build (an unbounded or non-integer key, a predicate with no
+    device form, a non-resident block; NOT IN over a key with a NULL,
+    which makes the predicate never true: the reference does not probe
+    it either).  Cached on the table per (key, disambiguator, predicates,
+    blocks, payload identity) and charged to the budget."""
+    plan_scan = plan_scan_filters(local_where)
+    try:
+        blocks = _select_blocks(table, plan_scan)
+        if not blocks:  # nothing exists
+            probe = _ExistProbe(torch.zeros(1, dtype=torch.int32,
+                                            device=table.cache.device), 0, 0)
+            probe.cached = True  # holds nothing worth a charge
+            return probe
+        mp = _MiniPlanner(table, blocks)
+        kpr = mp.prep_of(None, key_col)
+        kb = payload_bounds(kpr)
+        if kb is None:
+            return None
+        if require_nonnull_key and _prep_has_nulls(table, kpr, blocks):
+            return None
+        lo, hi = kb
+        span = int(hi - lo)
+        if span + 2 > MAX_DIM_SPAN:
+            return None
+        if mm_col is not None and mp.kind_of(mm_col) != "planes":
+            return None  # a non-integer disambiguator
+        ck = (key_col, mm_col,
+              tuple(repr(g.source) for g in plan_scan.pushdown),
+              tuple(repr(e) for e in plan_scan.residual), blocks,
+              tuple(_gen_of(pp) for pp in kpr.payloads))
+        cache = table.__dict__.setdefault("_exist_probe_cache", {})
+        hit = cache.get(ck)
+        if hit is not None:
+            return hit
+        p = _Plan()
+        registered: set = set()
+        kinds_view = _MiniPlanner._KV(mp)
+        resid_cols: set = set()
+
+        def resid(e):
+            ir, cols = _compile_bool(e, kinds_view, mp.dictres)
+            p.resids.append(ir)
+            resid_cols.update(cols)
+
+        for g in plan_scan.pushdown:
+            if any(mp.prep_of(None, c).kind == "linear"
+                   for c, _pr in g.alternatives):
+                resid(g.source)  # no packed interval over linear codes
+                continue
+            alts = []
+            for c, pred in g.alternatives:
+                _register_col(p, mp, None, c, registered)
+                alts.append(pred_alt(p, c, pred, mp.prep_of(None, c)))
+            p.pred_groups.append(tuple(alts))
+        for e in plan_scan.residual:
+            resid(e)
+        for c in sorted(resid_cols | {key_col} | (
+                {mm_col} if mm_col is not None else set())):
+            _register_col(p, mp, None, c, registered,
+                          c in resid_cols and mp.kind_of(c) == "dict")
+        p.rv_ix = _add(p, _rowvalid(table, blocks))
+        lo_ix = _add(p, torch.tensor(lo, dtype=torch.int64,
+                                     device=table.cache.device))
+    except _Bail:
+        return None
+    outs = _exist_build(p, key_col, span, mm_col, lo_ix)
+    probe = _ExistProbe(outs[0], int(lo), span, *outs[1:])
+    probe.nbytes = sum(a.numel() * a.element_size() for a in outs)
+    budget = table.cache.budget
+    if budget.try_reserve_memory(probe.nbytes):
+        if len(cache) >= _EXIST_CACHE_CAP:
+            cache.pop(next(iter(cache))).evict(budget)
+        cache[ck] = probe
+        probe.cached = True
+    else:
+        probe.nbytes = 0  # not cached, not charged: no plan may keep it
+    return probe
+
+
 def _register_col(p: _Plan, planner: _StarPlanner, tbl: str, c: str,
                   registered: set, gids: bool = False) -> None:
     """Register one owned column in a plan once; a later request for its
@@ -568,12 +841,49 @@ def _add_payloads(p: _Plan, pid: int, probe: _Probe) -> None:
                           "vals": _add(p, vals), "nulls": _add(p, nulls)}
 
 
+def _add_probe(p: _Plan, planner: _StarPlanner, pid: int, child: str,
+               pb: _Probe, reg) -> None:
+    """Probe `pid` of a child dimension in a parent's plan, in the
+    composite form for a chain index, with the child's payload columns;
+    reg(column) registers a parent column the probe reads."""
+    dev = pb.idx.device
+    pcol = planner.tree[child][1]
+    reg(pcol)
+    entry = (pid, pcol, _add(p, pb.idx),
+             _add(p, torch.tensor(pb.lo, dtype=torch.int64, device=dev)))
+    if pb.chain is not None:
+        pcol2 = planner.tree2[child][0]
+        reg(pcol2)
+        ordv, cnt, vals2, maxdup = pb.chain
+        entry += (pcol2, _add(p, ordv), _add(p, cnt), _add(p, vals2),
+                  maxdup)
+    p.probes.append(entry)
+    _add_payloads(p, pid, pb)
+
+
 def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
     """Build (or reuse) one dimension's probe, children first."""
     table = planner.tables[tbl]
     dev = table.cache.device
     plan_scan, blocks = planner._scan(tbl)
     key_col = planner.tree[tbl][2]
+    key2_col = planner.tree2.get(tbl, (None, None))[1]
+    if key2_col is not None and blocks:
+        # direct addressing on the wider key: the chain unrolls at most
+        # MAX_COMPOSITE_DUP rows per first key, so the narrow key rides
+        # second (partsupp: 200k part keys x 4 suppliers, not 10k x 80)
+        b1 = payload_bounds(planner.prep_of(tbl, key_col))
+        b2 = payload_bounds(planner.prep_of(tbl, key2_col))
+        if b1 is None or b2 is None:
+            raise _Bail("composite key bounds unknown")
+        if b2[1] - b2[0] > b1[1] - b1[0]:
+            par, pcol1, _c = planner.tree[tbl]
+            pcol2, _c2 = planner.tree2[tbl]
+            planner.tree[tbl] = (par, pcol2, key2_col)
+            planner.tree2[tbl] = (pcol1, key_col)
+            key_col, key2_col, b2 = key2_col, key_col, b1
+        if b2[1] - b2[0] + 1 >= (1 << 31):
+            raise _Bail("composite second key domain too wide")
 
     child_probes: List[Tuple[str, _Probe]] = [
         (ch, _build_dim(planner, ch)) for ch in planner.children[tbl]]
@@ -581,7 +891,8 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
     # payloads: own exports and the children's cascaded ones.  The own
     # join key always exports: probe-index grouping recovers the key as
     # vals[j] at pack time
-    own = set(planner.needed_by[tbl]) | {key_col}
+    own = set(planner.needed_by[tbl]) | {key_col} | (
+        {key2_col} if key2_col is not None else set())
     pays = [(c, _payload_type(planner, c)) for c in sorted(own)]
     for _ch, pb in child_probes:
         pays += [(name, ptype) for name, (_v, _n, ptype)
@@ -633,15 +944,14 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
         _register_col(p, planner, tbl, c, registered,
                       planner.kind_of(c) == "dict")
     _register_col(p, planner, tbl, key_col, registered)
+    if key2_col is not None:
+        _register_col(p, planner, tbl, key2_col, registered)
 
     vocabs: Dict[str, list] = {}
     pay_bounds: Dict[str, tuple] = {}
     for pid, (ch, pb) in enumerate(child_probes):
-        cpcol = planner.tree[ch][1]
-        _register_col(p, planner, tbl, cpcol, registered)
-        p.probes.append((pid, cpcol, _add(p, pb.idx), _add(p, torch.tensor(
-            pb.lo, dtype=torch.int64, device=dev))))
-        _add_payloads(p, pid, pb)
+        _add_probe(p, planner, pid, ch, pb,
+                   lambda c: _register_col(p, planner, tbl, c, registered))
         vocabs.update(pb.vocabs)
         pay_bounds.update(pb.pay_bounds)
     for c in sorted(planner.needed_by[tbl]):
@@ -656,13 +966,14 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
     p.rv_ix = _add(p, _rowvalid(table, blocks))
     klo_ix = _add(p, torch.tensor(lo, dtype=torch.int64, device=dev))
 
-    # predicate literals, residuals, the blocks and the key payloads'
+    # predicates and residuals whole (`repr`: a display name shows an IN
+    # list or a CASE by its kind only), the blocks and the key payloads'
     # identity pin a cached build
     cache_key = (tbl, key_col, tblsize, tuple(pays),
-                 tuple(render(g.source) for g in plan_scan.pushdown),
-                 tuple(render(e) for e in plan_scan.residual), blocks,
+                 tuple(repr(g.source) for g in plan_scan.pushdown),
+                 tuple(repr(e) for e in plan_scan.residual), blocks,
                  tuple(_gen_of(pp) for pp in kpr.payloads),
-                 tuple(pb.cache_key for _ch, pb in child_probes))
+                 tuple(pb.cache_key for _ch, pb in child_probes), key2_col)
     cache = getattr(table, "_star_probe_cache", None)
     if cache is None:
         cache = table._star_probe_cache = {}
@@ -672,7 +983,11 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
         planner.probe_by_dim[tbl] = hit
         return hit
 
-    outs = _dim_build(p, key_col, tblsize, pays, klo_ix)
+    key2 = None
+    if key2_col is not None:
+        key2 = (key2_col, _add(p, torch.tensor(b2[0], dtype=torch.int64,
+                                               device=dev)))
+    outs = _dim_build(p, key_col, tblsize, pays, klo_ix, key2)
     probe = _Probe()
     probe.idx, probe.dup = outs[0], outs[1]
     probe.lo, probe.hi = int(lo), int(hi)
@@ -680,8 +995,19 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
     probe.vocabs = vocabs
     probe.pay_bounds = pay_bounds
     probe.cache_key = cache_key
-    for k, (name, ptype) in enumerate(pays):
-        probe.payload[name] = (outs[2 + 2 * k], outs[3 + 2 * k], ptype)
+    k = 2
+    if key2 is not None:
+        maxdup = int(outs[5])
+        if maxdup > MAX_COMPOSITE_DUP:
+            raise NotImplementedError(
+                f"composite chain depth {maxdup} on {tbl} (more than "
+                f"{MAX_COMPOSITE_DUP} rows per {key_col}): the classic join "
+                f"path is not ported yet")
+        probe.chain = (outs[2], outs[3], outs[4], maxdup)
+        k = 6
+    for name, ptype in pays:
+        probe.payload[name] = (outs[k], outs[k + 1], ptype)
+        k += 2
     probe.nbytes = sum(a.numel() * a.element_size() for a in outs)
     budget = table.cache.budget
     if budget.try_reserve_memory(probe.nbytes):
@@ -727,6 +1053,8 @@ def _detect_fd(planner: _StarPlanner, p: _Plan) -> None:
         if cand is None or cand not in planner.probe_by_dim:
             continue
         pb = planner.probe_by_dim[cand]
+        if pb.chain is not None:
+            continue  # one key of a composite pair determines no row
         others = [(i, c) for i, c in enumerate(key_cols) if i != rep_pos]
         if not all(c in pb.payload for _i, c in others):
             continue
@@ -868,15 +1196,17 @@ def _plan_fact(planner: _StarPlanner, dims: Dict[str, _Probe]):
     # probes of the fact-adjacent dimensions and their payload columns
     adjacent = sorted(ch for ch in dims if planner.tree[ch][0] == fact)
     for pid, child in enumerate(adjacent):
-        probe = dims[child]
-        pcol = planner.tree[child][1]
-        reg(pcol)
-        p.probes.append((pid, pcol, _add(p, probe.idx), _add(p, torch.tensor(
-            probe.lo, dtype=torch.int64, device=dev))))
-        _add_payloads(p, pid, probe)
+        _add_probe(p, planner, pid, child, dims[child], reg)
 
     # the remaining fact columns the program reads
     needed: set = set(resid_cols) | key_expr_cols
+    for sp in planner.eprobe_specs:
+        for c in (sp["col"], sp["mmcol"]):
+            if c is None:
+                continue
+            if planner.owner.get(c) != fact or planner.kind_of(c) != "planes":
+                raise _Bail(f"existence-probe column {c}")
+            needed.add(c)
     for s in planner.slots:
         if s.name in slot_irs:
             needed |= slot_irs[s.name][1]
@@ -932,6 +1262,7 @@ def _plan_fact(planner: _StarPlanner, dims: Dict[str, _Probe]):
     _plan_slots(p, planner.slots, slot_irs, planner.rew_inputs, fields,
                 bounds_of, scaledres, n_upper)
     p.rv_ix = _add(p, _rowvalid(table, blocks))
+    add_exist_probes(p, planner.eprobe_specs, dev)
     return p, ("grouped" if planner.key_names else "scalar"), False
 
 
@@ -965,17 +1296,16 @@ def _star_cache_key(executor, q, group, key_names, slots, rew_keys,
     frm = []
     f = q.from_
     while isinstance(f, ast.Join):
-        frm.append((f.kind, render(f.on) if f.on is not None else None))
-        frm.append(getattr(f.right, "name", None))
+        frm.append((f.kind, repr(f.on)))
+        frm.append((getattr(f.right, "name", None),
+                    getattr(f.right, "prefix", None)))
         f = f.left
-    frm.append(getattr(f, "name", None))
+    frm.append((getattr(f, "name", None), getattr(f, "prefix", None)))
     epoch, tabs = 0, []
     for name, t in sorted(executor.catalog.items()):
         epoch = max(epoch, t.cache.epoch)
         tabs.append((name, id(t)))
-    return (base, tuple(frm),
-            render(q.where) if q.where is not None else None,
-            tuple(tabs), epoch)
+    return (base, tuple(frm), repr(q.where), tuple(tabs), epoch)
 
 
 def try_fused_star(executor, q, group, key_names, slots, rew_keys,
@@ -1024,13 +1354,13 @@ def try_fused_star(executor, q, group, key_names, slots, rew_keys,
         # every built one (an empty dimension has no dup flag) is charged
         # to the budget, and leaves the cache when one of them is evicted
         built = [pb for pb in planner.all_probes if pb.dup is not None]
+        built += [sp["probe"] for sp in getattr(planner, "eprobe_specs", ())]
         if len(hit) == 1 or all(pb.cached for pb in built):
             if len(cache) >= _PLAN_CACHE_CAP:
                 cache.pop(next(iter(cache)))
             cache[ck] = hit
-            for pb in built:  # keys of plans the cap evicted go too
-                pb.plans = {k: c for k, c in pb.plans.items() if k in c}
-                pb.plans[ck] = cache
+            for pb in built:
+                pb.pin(ck, cache)
     if len(hit) == 1:  # a (cached) bailout
         raise NotImplementedError(
             f"fused star path cannot run this query ({hit[0]}); the classic "

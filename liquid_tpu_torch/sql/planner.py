@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 from liquid_tpu_torch.arrays.base import Predicate
 from liquid_tpu_torch.cache.expressions import ExtractDate32, SubstringSearch
 from liquid_tpu_torch.sql import ast
+from liquid_tpu_torch.sql.qualify import map_expr
 
 _CMP_FLIP = {"=": "=", "<>": "<>", "<": ">", "<=": ">=", ">": "<", ">=": "<="}
 _CMP_TO_PRED = {"=": "eq", "<>": "ne", "<": "lt", "<=": "lt_eq",
@@ -46,6 +47,32 @@ def split_conjuncts(e: Optional[ast.Expr]) -> List[ast.Expr]:
                 out.extend(split_conjuncts(h))
             return out
     return [e]
+
+
+def and_all(exprs: List[ast.Expr]) -> Optional[ast.Expr]:
+    """The conjunction of `exprs` (None for none): `split_conjuncts`'s
+    inverse."""
+    out = None
+    for e in exprs:
+        out = e if out is None else ast.Binary("and", out, e)
+    return out
+
+
+SUBQUERY_NODES = (ast.Subquery, ast.InSubquery, ast.Exists)
+
+
+def subqueries(e: Optional[ast.Expr]) -> List[ast.Expr]:
+    """The subquery nodes of `e` that are not inside another subquery."""
+    out: List[ast.Expr] = []
+
+    def walk(x):
+        if isinstance(x, SUBQUERY_NODES):
+            out.append(x)
+            return x
+        return None
+    if e is not None:
+        map_expr(e, walk)
+    return out
 
 
 def _flatten_or(e: ast.Expr) -> List[ast.Expr]:

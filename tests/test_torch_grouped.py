@@ -68,7 +68,7 @@ QUERIES = [
 def sessions(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_grouped")
     paths = {"hits": NANO_HITS, "lineitem": str(d / "lineitem.parquet"),
-             "t": str(d / "t.parquet")}
+             "t": str(d / "t.parquet"), "lin": str(d / "lin.parquet")}
     pq.write_table(ttpch.generate(0.01)["lineitem"], paths["lineitem"],
                    row_group_size=1 << 14)
     # 65,536 rows: a key whose domain passes the K2 gates, the same key
@@ -83,6 +83,15 @@ def sessions(tmp_path_factory):
         "s16": pa.array(rng.integers(-30000, 30000, n).astype(np.int16)),
         "v": pa.array(rng.integers(0, 1 << 24, n))}), paths["t"],
         row_group_size=1 << 15)
+    # 32,768 rows of two sorted keys the transcoder codes as linear
+    # blocks: a narrow domain (i // 3) and a wide one (~1M apart, with
+    # residual noise)
+    i = np.arange(1 << 15, dtype=np.int64)
+    pq.write_table(pa.table({
+        "ln": pa.array(i // 3),
+        "lw": pa.array(i * 1_000_003 + rng.integers(0, 8, i.shape[0])),
+        "v": pa.array(rng.integers(0, 1000, i.shape[0]))}), paths["lin"],
+        row_group_size=1 << 14)
     jctx, _ = JBuilder().with_max_memory_bytes(1 << 30).build()
     tctx, _ = (LiquidCacheLocalBuilder(device="cpu")
                .with_max_memory_bytes(1 << 30).build())
@@ -148,4 +157,25 @@ def test_host_sort_on_an_accelerator_matches_reference(sessions):
         ours = tctx.sql(sql).to_arrow()
     finally:
         tctx._exec.device = dev
+    _assert_same_answer(ours, ref)
+
+
+@pytest.mark.parametrize("col,tier", [("ln", "direct"), ("lw", "hash")])
+def test_linear_key_direct_only_within_the_table_cap(sessions, col, tier):
+    """A GROUP BY key coded as linear blocks gets its blocks' value bounds
+    as its domain: a narrow one is addressed directly (TPC-H q18's
+    1.5M l_orderkey groups), while a wide one (~3.3e10 values here)
+    stays off a direct table larger than its cap and takes the hash
+    ladder.  Both answer as the reference, which hashes both."""
+    from liquid_tpu_torch.ops import hashagg
+    jctx, tctx = sessions
+    sql = (f"SELECT {col}, COUNT(*) AS c, SUM(v) AS s FROM lin "
+           f"GROUP BY {col} ORDER BY {col}")
+    ref = jctx.sql(sql).to_arrow()
+    tiers = dict(hashagg.TIERS)
+    ours = tctx.sql(sql).to_arrow()
+    preps = tctx._tables["lin"]._fused_prep[col].values()
+    assert preps and all(ent[1].kind == "linear" for ent in preps)
+    moved = {k for k, n in hashagg.TIERS.items() if n != tiers[k]}
+    assert moved and ((moved == {"hash"}) == (tier == "hash")), moved
     _assert_same_answer(ours, ref)

@@ -48,7 +48,8 @@ def test_importing_every_module_loads_no_jax():
         m.name for m in pkgutil.walk_packages([PKG], "liquid_tpu_torch.")]
     for name in ("sql.fused_agg", "_native", "arrays.fsst",
                  "arrays.prefixkeys", "arrays.byteview", "bench.runner",
-                 "bench.main", "bench.oracle"):
+                 "bench.main", "bench.oracle", "bench.tpch_queries",
+                 "sql.exec", "sql.fused_star"):
         assert f"liquid_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

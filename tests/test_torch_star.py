@@ -2,8 +2,9 @@
 against the JAX package's, both on the CPU, through each package's
 `LiquidCacheLocalBuilder`.
 
-Every in-slice case of `tests/test_fused_star.py` (single-column keys,
-star and snowflake trees, INNER joins) and TPC-H q3 (the bench's text,
+Every in-slice case of `tests/test_fused_star.py` (star and snowflake
+trees, INNER joins), composite keys, existence probes and aliased
+relations, and TPC-H q3 (the bench's text,
 with its `l_orderkey` tie-break), q5, q10 and q19 at sf 0.005 must take
 the star route in both packages (`STATS["star_queries"]` +1) and give
 the same answer: keys, counts, strings and integers exactly, floats to
@@ -119,6 +120,11 @@ def _synthetic_tables() -> dict:
                    "ps_sk": pa.array([s for _, s in pairs], pa.int64()),
                    "ps_cost": pa.array([(p * 31 + s * 7) % 97 + 0.25
                                         for p, s in pairs])})
+    # nine suppliers per part: a chain deeper than MAX_COMPOSITE_DUP
+    deep = [(p, s) for p in range(1, 41) for s in range(1, 10)]
+    psdeep = pa.table({"ps_pk": pa.array([p for p, _ in deep], pa.int64()),
+                       "ps_sk": pa.array([s for _, s in deep], pa.int64()),
+                       "ps_cost": pa.array([float(p + s) for p, s in deep])})
     # more groups than the packed fetch holds (65,536): the re-packed
     # full fetch re-attaches the FD keys
     rng = np.random.default_rng(6)
@@ -130,7 +136,8 @@ def _synthetic_tables() -> dict:
     return {"fact": fact, "dim": dim, "nfact": nfact, "ddim": ddim,
             "sffact": sf_fact, "mid": mid, "leaf": leaf, "cxfact": cx_fact,
             "da": da, "db": db, "dtfact": dt_fact, "dtdim": dt_dim,
-            "psfact": ps_fact, "ps": ps, "bigfact": big_fact,
+            "psfact": ps_fact, "ps": ps, "psdeep": psdeep,
+            "bigfact": big_fact,
             "bigdim": big_dim}
 
 
@@ -159,6 +166,21 @@ CASES = [
      "ON fk = dk GROUP BY grp ORDER BY d DESC, grp LIMIT 4"),
     ("count_distinct_fold_scalar", "SELECT count(DISTINCT qty), "
      "count(DISTINCT fk), max(amt) FROM fact, dim WHERE fk = dk AND w > 3"),
+    # composite keys, existence probes and aliased relations
+    ("composite_key", "SELECT l_sk, SUM(ps_cost * l_qty) AS amount "
+     "FROM psfact, ps WHERE ps_pk = l_pk AND ps_sk = l_sk GROUP BY l_sk "
+     "ORDER BY l_sk"),
+    ("exists_probe", "SELECT grp, count(*) c FROM fact, dim WHERE fk = dk "
+     "AND EXISTS (SELECT * FROM mid WHERE m_id = qty) GROUP BY grp "
+     "ORDER BY grp"),
+    ("not_exists_probe", "SELECT grp, sum(amt) s FROM fact, dim "
+     "WHERE fk = dk AND NOT EXISTS (SELECT * FROM mid WHERE m_id = qty "
+     "AND lk > 2) GROUP BY grp ORDER BY grp"),
+    ("aliased", "SELECT d.grp, count(*) FROM fact f JOIN dim d "
+     "ON f.fk = d.dk GROUP BY d.grp ORDER BY 1"),
+    ("self_join_aliases", "SELECT d1.a_tag, d2.a_tag AS t2, sum(v) s "
+     "FROM cxfact, da d1, da d2 WHERE ak = d1.a_id AND bk = d2.a_id "
+     "GROUP BY d1.a_tag, d2.a_tag ORDER BY 1, 2"),
     ("tpch_q3", Q3),
     ("tpch_q5", Q5),
     ("tpch_q10", Q10),
@@ -232,17 +254,17 @@ OUT_OF_SLICE = [
     ("outer_join", "SELECT grp, count(*) c FROM fact LEFT JOIN dim "
      "ON fk = dk GROUP BY grp ORDER BY grp", "left join"),
     ("composite_key", "SELECT l_sk, SUM(ps_cost * l_qty) AS amount "
-     "FROM psfact, ps WHERE ps_pk = l_pk AND ps_sk = l_sk GROUP BY l_sk",
-     "composite two-column join key"),
+     "FROM psfact, psdeep WHERE ps_pk = l_pk AND ps_sk = l_sk GROUP BY l_sk",
+     "composite chain depth 9"),
     ("exists", "SELECT grp, count(*) c FROM fact, dim WHERE fk = dk AND "
-     "EXISTS (SELECT * FROM mid WHERE m_id = qty) GROUP BY grp",
-     "existence probe for EXISTS"),
+     "EXISTS (SELECT * FROM mid WHERE m_id > qty) GROUP BY grp",
+     "no existence probe takes"),
     # count(DISTINCT column) folds on the host (CASES); of an expression
     # it has no route
     ("count_distinct", "SELECT grp, count(DISTINCT qty + 1) FROM fact JOIN "
      "dim ON fk = dk GROUP BY grp", "aggregate kind count_distinct"),
-    ("aliased", "SELECT d.grp, count(*) FROM fact f JOIN dim d "
-     "ON f.fk = d.dk GROUP BY d.grp", "_AliasedTable"),
+    ("aliased", "SELECT d.grp, count(*) FROM fact f JOIN (SELECT dk, grp "
+     "FROM dim) d ON f.fk = d.dk GROUP BY d.grp", "derived-table relation"),
 ]
 
 
