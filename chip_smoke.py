@@ -80,17 +80,33 @@ Phases (any failure raises and the script exits non-zero):
    asserted (`K1_PER_RUN`, `K1_FIRST_RUN`), the first run and the best
    of three warm runs timed; counts set to 0 just before this phase and
    read after;
+   6e. the classic path on the same session: TPC-H q2, q13, q15 (its
+   view, as three statements), q17 and q20 at this run's scale, and
+   ClickBench q19, q23 and q39 on the hits rows (`classic_queries`);
+   answers (first run and last warm run) checked against pyarrow (the
+   tie rule where a LIMIT cuts), the classic counter of `exec.STATS`
+   asserted per run, K1's single-form launches per run equal to
+   `classic_k1_per_run` in every run; in the phase, at least
+   one sort-merge join on the card (`device_join.STATS`), one grouped
+   device aggregation (`device_agg.STATS`) and one single-form K1
+   launch; the first run and the best of three warm runs timed, and the
+   device time of the joins' sorts and probes (CUDA events around the
+   `ops/join.py` calls); every (planes, constants) the runs gave K1's
+   single form captured by wrapping the wrapper from here; counts set
+   to 0 just before this phase and read after;
 7. K1's interval form checked bit-exact against its plain version and
    timed (CUDA events, L2 flushed before each timed call) on the exact
    (planes, lo, hi) the main path gave it -- the single-table plans'
    and the star phase's, dimension builds included -- beside the two
    single-constant launches it replaces (as a pair after one flush, and
-   one alone), the plain version and the byte bound;
+   one alone), the plain version and the byte bound; its single form
+   checked bit-exact on every input phase 6e captured and the largest
+   timed beside its plain version and byte bound (`time_k1_single`);
 8. K2 timed the same way on the inputs captured in phase 6, beside its
    plain version, one `index_add_` call on the same
    inputs (stacked to int64 outside the timing) and its byte bound, with
    the bytes its CTAs' flush adds into the output;
-9. one warm run of each query (phases 6c's and 6d's too) under
+9. one warm run of each query (phases 6c's, 6d's and 6e's too) under
    torch.profiler:
    device-busy time,
    the device's idle share, the device operations that took longest and
@@ -346,6 +362,52 @@ MULTI_QUERIES = [
 def multi_sql(qid: int) -> str:
     from liquid_tpu_torch.bench.tpch_queries import QUERIES
     return QUERIES[qid]
+
+
+#: phase 6e: the classic path -- (name, its SQL (a statement list for
+#: q15's view), the classic counter of `exec.STATS` its run moves).  TPC-H
+#: q2 and q20 are bare SELECTs over joins, q13 an aggregate over a
+#: derived table with a left join inside, q15 a join with an aggregate
+#: view, q17 a join with a correlated scalar lookup; ClickBench q19 is a
+#: bare SELECT the fused select passes on (UserID's 64 planes), q23
+#: SELECT *, q39 a string-valued CASE key
+def classic_queries():
+    from liquid_tpu_torch.bench.tpch_queries import QUERIES
+    return [("tpch_q2", QUERIES[2], "classic_joins"),
+            ("tpch_q13", QUERIES[13], "classic_joins"),
+            ("tpch_q15", QUERIES[15], "classic_joins"),
+            ("tpch_q17", QUERIES[17], "classic_joins"),
+            ("tpch_q20", QUERIES[20], "classic_joins"),
+            ("cb_q19", slice_sql(19), "classic_selects"),
+            ("cb_q23", slice_sql(23), "classic_selects"),
+            ("cb_q39", slice_sql(39), "classic_aggregates")]
+
+
+def classic_k1_per_run(ctx) -> dict:
+    """K1 single-form launches (`bitpack_cuda.cmp_const_many`) per run of
+    each phase-6e query: one per row group x pushdown predicate x width
+    bucket of two or more blocks (no zone map here prunes a row group's
+    blocks below two).  q2: part's p_size = 15 and the dynamic ps_suppkey
+    range on partsupp (ps_partkey is linear-coded: decoded and compared);
+    q19: UserID's equality, per hits row group.  The others filter on
+    strings, IN lists, linear-coded keys (q17's part takes lineitem's
+    l_partkey range on its sorted p_partkey) or zone maps alone."""
+    def rgs(name):
+        return ctx._tables[name].num_row_groups
+    out = {q: 0 for q, _s, _c in classic_queries()}
+    out.update(tpch_q2=rgs("part") + rgs("partsupp"), cb_q19=rgs("hits"))
+    return out
+
+
+def run_statements(ctx, sql):
+    """A query's answer: a statement list runs whole and answers with its
+    SELECT."""
+    out = None
+    for stmt in (sql if isinstance(sql, list) else [sql]):
+        got = ctx.sql(stmt).to_arrow()
+        if stmt.strip().lower().startswith("select"):
+            out = got
+    return out
 
 
 #: the route counters phase 6c reads
@@ -1191,6 +1253,148 @@ def run_multi_path(torch, ctx, expect: dict):
     return report, k1_inputs, k2_inputs
 
 
+def run_classic_path(torch, ctx, expect: dict):
+    """Phase 6e: the classic path on the session -> (per-query report,
+    [(planes, cs, label)] of every K1 single-form input the runs gave).
+    Each answer (first run and last warm run) is checked against pyarrow
+    (`bench/oracle.py`, the tie rule where a LIMIT cuts), the classic
+    counter named in `classic_queries` moves on every run, and K1's
+    single-form launches in every run equal `classic_k1_per_run`; every
+    single-form launch is one call of the
+    wrapper, counted and captured by wrapping it from here.  The device
+    time of the joins' sorts and probes (`ops/join.py`) is read from CUDA
+    events around each call."""
+    from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    from liquid_tpu_torch.ops import join as jops
+    from liquid_tpu_torch.sql import exec as sql_exec
+    calls, events = [], []
+    wrapped = k1.cmp_const_many
+    join_ops = {n: getattr(jops, n) for n in ("sort_build", "probe_bounds",
+                                               "expand_matches",
+                                               "matched_flags")}
+
+    def capture(planes, cs):
+        if planes.shape[0] * planes.shape[1]:
+            calls.append((planes, cs))
+        return wrapped(planes, cs)
+
+    def timed(fn):
+        def run(*a):
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            s.record()
+            out = fn(*a)
+            e.record()
+            events.append((s, e))
+            return out
+        return run
+
+    k1.cmp_const_many = capture
+    for name, fn in join_ops.items():
+        setattr(jops, name, timed(fn))
+    report, inputs, seen = {}, [], set()
+    k1_want = classic_k1_per_run(ctx)
+    try:
+        for qname, sql, counter in classic_queries():
+            torch.cuda.reset_peak_memory_stats()
+
+            def run_once():
+                st = dict(sql_exec.STATS)
+                launches = k1.LAUNCHES["cmp_const_many"]
+                calls.clear()
+                events.clear()
+                out = run_statements(ctx, sql)
+                torch.cuda.synchronize()
+                if sql_exec.STATS[counter] <= st[counter]:
+                    raise AssertionError(f"{qname} left the classic route: "
+                                         f"{sql_exec.STATS} vs {st}")
+                join_ms = sum(s.elapsed_time(e) for s, e in events)
+                return (out, k1.LAUNCHES["cmp_const_many"] - launches,
+                        list(calls), join_ms, len(events))
+
+            t0 = time.perf_counter()
+            out, first_k1, first_calls, first_join_ms, _ = run_once()
+            t_first = time.perf_counter() - t0
+            outs, warm, singles = {"first": out}, [], [len(first_calls)]
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out, per_run, warm_calls, join_ms, join_calls = run_once()
+                warm.append(time.perf_counter() - t0)
+                singles.append(len(warm_calls))
+            outs["last warm"] = out
+            for what, got in outs.items():
+                if not oracle.same_table(got, expect[qname],
+                                         oracle.CUTS.get(qname)):
+                    raise AssertionError(f"{qname} ({what} run): port "
+                                         f"{got.to_pylist()[:2]} != pyarrow")
+            if set(singles) != {k1_want[qname]}:
+                raise AssertionError(f"{qname}: K1 single-form launches per "
+                                     f"run {singles}, expected "
+                                     f"{k1_want[qname]} in each")
+            for run, got in (("first", first_calls), ("warm", warm_calls)):
+                for i, (planes, cs) in enumerate(got):
+                    key = (planes.data_ptr(), tuple(planes.shape),
+                           cs.data_ptr())
+                    if key not in seen:
+                        seen.add(key)
+                        inputs.append((planes, cs,
+                                       f"classic {qname} {run} run #{i}"))
+            report[qname] = dict(
+                answer_rows=out.num_rows, route=counter,
+                first_run_s=t_first, first_run_k1=first_k1,
+                warm_best_ms=min(warm) * 1e3,
+                warm_ms=[w * 1e3 for w in warm], k1_launches_per_run=per_run,
+                k1_single_form_per_run=singles[-1],
+                join_device_ms=join_ms, join_ops=join_calls,
+                first_run_join_device_ms=first_join_ms,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+            log(f"[classic] {qname}: {json.dumps(report[qname])}")
+    finally:
+        k1.cmp_const_many = wrapped
+        for name, fn in join_ops.items():
+            setattr(jops, name, fn)
+    return report, inputs
+
+
+def k1_single_bytes(bsz: int, width: int) -> int:
+    """Bytes K1's single form must move: planes and the constants read
+    once, both masks written."""
+    return bsz * width * 256 * 4 + bsz * 8 + 2 * bsz * 256 * 4
+
+
+def time_k1_single(torch, inputs: list) -> dict:
+    """Phase 7, the single form: every (planes, cs) phase 6e gave K1
+    checked bit-exact against `cmp_const_many_ref`, and the largest timed
+    (timer B, L2 flushed) beside its plain version and its byte bound."""
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    if not inputs:
+        raise AssertionError("phase 6e left no K1 single-form inputs")
+    worst = 0
+    for planes, cs, _label in inputs:
+        worst = max(worst, _max_abs_err(torch, k1.cmp_const_many(planes, cs),
+                                        k1.cmp_const_many_ref(planes, cs)))
+    if worst:
+        raise AssertionError(f"K1's single form != plain on phase 6e's "
+                             f"inputs: {worst}")
+    planes, cs, label = max(inputs, key=lambda x: x[0].numel())
+    bsz, width, _ = planes.shape
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    t_bytes = k1_single_bytes(bsz, width) / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * width * bsz * 256 / WORD_OPS_PER_S * 1e3
+    row = dict(inputs=len(inputs), column=label, B=bsz, w=width,
+               bytes=k1_single_bytes(bsz, width),
+               ms=time_cold(torch, lambda: k1.cmp_const_many(planes, cs),
+                            flush, 100),
+               plain_ms=time_cold(torch, lambda: k1.cmp_const_many_ref(
+                   planes, cs), flush, 20),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               max_abs_err=worst)
+    log(f"[k1-single] {json.dumps(row)}")
+    return row
+
+
 def main_path_k1_inputs(ctx):
     """(planes, lo, hi, query table) for every interval the main path's
     cached plans fed to K1."""
@@ -1313,12 +1517,12 @@ def device_breakdown(torch, ctx, sql: str, warm_best_ms: float) -> dict:
     and upload again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    ctx.sql(sql).to_arrow()
+    run_statements(ctx, sql)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ctx.sql(sql).to_arrow()
+        run_statements(ctx, sql)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1557,10 +1761,27 @@ def main(argv=None) -> int:
     multi_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
     if multi_launches["cmp_const_many"] <= 0:
         raise AssertionError(f"phase 6d did not launch K1: {multi_launches}")
+    # 6e. the classic path, counts reset just before and read just after
+    from liquid_tpu_torch.sql import device_agg, device_join
+    _reset(counters)
+    join0, agg0 = dict(device_join.STATS), dict(device_agg.STATS)
+    classic_report, classic_k1_inputs = run_classic_path(torch, ctx, expect)
+    classic_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
+    joins = {k: v - join0[k] for k, v in device_join.STATS.items()}
+    aggs = {k: v - agg0[k] for k, v in device_agg.STATS.items()}
+    log(f"[classic] joins {json.dumps(joins)}; aggregators "
+        f"{json.dumps(aggs)}; K1 single-form inputs "
+        f"{len(classic_k1_inputs)}")
+    if joins["device_joins"] <= 0 or aggs["device_grouped_updates"] <= 0 \
+            or not classic_k1_inputs:
+        raise AssertionError(f"phase 6e: no sort-merge join on the card, "
+                             f"no grouped device aggregation or no K1 "
+                             f"single-form launch: {joins} {aggs}")
     log(f"[launches] scalar path {json.dumps(scalar_launches)}; grouped "
         f"path {json.dumps(grouped_launches)}; star path "
         f"{json.dumps(star_launches)}; slice {json.dumps(slice_launches)}; "
-        f"multi-table {json.dumps(multi_launches)}")
+        f"multi-table {json.dumps(multi_launches)}; classic "
+        f"{json.dumps(classic_launches)}")
 
     # 7. K1's interval form checked and timed on the main path's own
     #    inputs, the star and multi-table phases' included
@@ -1569,6 +1790,7 @@ def main(argv=None) -> int:
     log(f"[k1] largest input {top['column']}: interval / two single "
         f"launches {top['over_two_single']:.3f}, / twice one single "
         f"{top['over_twice_single']:.3f}")
+    single = time_k1_single(torch, classic_k1_inputs)
 
     # 8. K2 checked and timed on the grouped and multi-table phases' own
     #    inputs
@@ -1578,7 +1800,7 @@ def main(argv=None) -> int:
     # 9. where a warm query's device time goes
     warm = {q: r["warm_best_ms"] for q, r in
             {**report, **greport, **sreport, **slice_report,
-             **multi_report}.items()}
+             **multi_report, **classic_report}.items()}
     for qname, sql in (("cb_filter", CB_FILTER), ("cb_like", CB_LIKE),
                        ("tpch_q6", TPCH_Q6), ("cb_groupby", CB_GROUPBY),
                        ("cb_q15", CB_Q15),
@@ -1589,7 +1811,8 @@ def main(argv=None) -> int:
                            (q, slice_sql(query))
                            for q, query, _r, _c in SLICE_QUERIES) + tuple(
                            (q, multi_sql(qid))
-                           for q, qid, _r, _c in MULTI_QUERIES):
+                           for q, qid, _r, _c in MULTI_QUERIES) + tuple(
+                           (q, sql) for q, sql, _r in classic_queries()):
         bd = device_breakdown(torch, ctx, sql, warm[qname])
         del bd["ms_by_name"]
         log(f"[profile] {qname}: {json.dumps(bd)}")
@@ -1618,14 +1841,15 @@ def main(argv=None) -> int:
     k34 = time_k34(torch)
     phases = {"scalar": scalar_launches, "grouped": grouped_launches,
               "star": star_launches, "slice": slice_launches,
-              "multi": multi_launches, "harness": harness_launches,
+              "multi": multi_launches, "classic": classic_launches,
+              "harness": harness_launches,
               "harness_operator_timing": op_launches}
 
     def launches(name):
         # the main path's launches: the query phases and the micro line
         return sum(phases[p][name]
                    for p in ("scalar", "grouped", "star", "slice", "multi",
-                             "harness"))
+                             "classic", "harness"))
 
     def by_phase(name):
         return {p: d.get(name, 0) for p, d in phases.items()}
@@ -1636,13 +1860,17 @@ def main(argv=None) -> int:
         "replaces": "liquid_tpu/ops/bitpack_pallas.py:212",
         "launches": launches("cmp_const_many"),
         "launches_by_phase": by_phase("cmp_const_many"),
-        "max_abs_err": max(err1, timing["max_abs_err"]), "tolerance": 0,
+        "max_abs_err": max(err1, timing["max_abs_err"],
+                           single["max_abs_err"]), "tolerance": 0,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None, "form": "interval",
         "two_single_ms": top["two_single_ms"],
         "single_ms": top["single_ms"],
         "shape": [top["B"], top["w"], 256], "column": top["column"],
+        "single_form": {k: single[k] for k in (
+            "inputs", "column", "B", "w", "ms", "plain_ms", "bound_ms",
+            "bound_by")},
         "matches_plain": True,
     }, {
         "name": "group_accumulate", "route": "cuda",
@@ -1673,7 +1901,7 @@ def main(argv=None) -> int:
             "shape": [row["w"], row["rows"] // 32], "matches_plain": True,
         })
     summary = {**report, **greport, **sreport, **slice_report,
-               **multi_report}
+               **multi_report, **classic_report}
     log(f"[summary] {json.dumps(summary)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -75,6 +75,22 @@ def pack_validity(valid_bools: Optional[np.ndarray], length: int):
     return mops.pack_bools_host(v)
 
 
+def validity_mask_or_full(validity: Optional[np.ndarray], length: int,
+                          device) -> torch.Tensor:
+    """A block's packed validity on `device`: its own words, or the first
+    `length` rows set when it has none."""
+    from liquid_tpu_torch.device import words_to_tensor
+    if validity is None:
+        validity = mops.all_set_host(BLOCK_ROWS, length)
+    return words_to_tensor(validity, device)
+
+
+def const_words(value: bool, device) -> torch.Tensor:
+    """int32[256]: every row's bit set (value) or none."""
+    return torch.full((BLOCK_ROWS // 32,), -1 if value else 0,
+                      dtype=torch.int32, device=device)
+
+
 def np_dtype_for(t: pa.DataType) -> np.dtype:
     if pa.types.is_boolean(t):
         return np.dtype(np.bool_)

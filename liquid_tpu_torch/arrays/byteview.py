@@ -317,6 +317,11 @@ class LiquidByteViewArray(LiquidArray):
         verdict = self.dict_verdict(pred)
         if verdict is None:
             return None
+        return self._mask_from_verdict(verdict, device)
+
+    def _mask_from_verdict(self, verdict: np.ndarray, device
+                           ) -> mops.BoolMask:
+        """Per-dictionary-entry verdicts -> packed row mask (one gather)."""
         codes, valid = self.to_device(device)
         bits = verdict_gather(torch.from_numpy(verdict).to(device), codes)
         if valid is None:
@@ -338,3 +343,11 @@ def verdict_gather(verdict: torch.Tensor, codes: torch.Tensor
     """bool[dict] verdict, int32[N] codes -> packed int32[N/32] row mask
     (one gather, then the bits packed into words)."""
     return mops.pack_bools(verdict[codes.to(torch.int64)])
+
+
+def _verdict_gather_many(verdicts: torch.Tensor, codes: torch.Tensor
+                         ) -> torch.Tensor:
+    """The row-group form: bool[B, max_dict] verdicts (each block's padded
+    to the widest dictionary) and int32[B, N] codes -> packed int32[B,
+    N/32] row masks from one gather."""
+    return mops.pack_bools(torch.gather(verdicts, 1, codes.to(torch.int64)))

@@ -16,8 +16,10 @@ import pyarrow as pa
 import torch
 
 from liquid_tpu_torch.arrays.base import (
-    BLOCK_ROWS, LiquidArray, pack_validity,
+    BLOCK_ROWS, LiquidArray, Predicate, const_words, pack_validity,
+    validity_mask_or_full,
 )
+from liquid_tpu_torch.device import words_to_numpy, words_to_tensor
 from liquid_tpu_torch.ops import mask as mops
 from liquid_tpu_torch.ops import bitpack as bp
 
@@ -131,8 +133,9 @@ class LiquidFloatArray(LiquidArray):
             n += self.validity_np.size * 4
         return n + 64
 
-    def decode_host(self) -> np.ndarray:
-        off = bp.unpack_bitplanes_host(self.planes_np)
+    def decode_host(self, off=None) -> np.ndarray:
+        if off is None:
+            off = bp.unpack_bitplanes_host(self.planes_np)
         enc = off.astype(np.int64) + self.reference_value
         vals = enc.astype(np.float64) * self.inv
         vals[self.patch_idx] = self.patch_vals
@@ -149,7 +152,12 @@ class LiquidFloatArray(LiquidArray):
         return torch.from_numpy(vals).to(device), valid
 
     def to_arrow(self) -> pa.Array:
-        vals = self.decode_host()[: self.length]
+        return self.decode_from_offsets(None)
+
+    def decode_from_offsets(self, off) -> pa.Array:
+        """Finish decoding from offsets unpacked elsewhere (None: unpack
+        here)."""
+        vals = self.decode_host(off)[: self.length]
         if pa.types.is_float32(self._arrow_type):
             vals = vals.astype(np.float32)
         if self.validity_np is not None:
@@ -187,3 +195,57 @@ class LiquidFloatArray(LiquidArray):
             else:
                 lo = mid
         return hi
+
+    def try_eval_predicate(self, pred: Predicate, device):
+        """Packed row mask of `pred` on `device`: the float literal becomes
+        offset thresholds (the decode map is monotone), compared on the
+        planes; patch rows are settled on the host from their exact
+        values.  None without such a form."""
+        if pred.op not in ("eq", "ne", "lt", "lt_eq", "gt", "gt_eq"):
+            return None
+        lit = pred.literal
+        if isinstance(lit, bool) or not isinstance(
+                lit, (int, float, np.integer, np.floating)):
+            return None
+        lit = float(lit)
+        op = pred.op
+        if np.isnan(lit):
+            bits = const_words(op == "ne", device)
+        else:
+            planes = words_to_tensor(self.planes_np, device)
+            t_ge = self.lower_bound(lit, strict=False)
+            t_gt = self.lower_bound(lit, strict=True)
+            lt_ge = self._off_lt(planes, t_ge, device)
+            lt_gt = self._off_lt(planes, t_gt, device)
+            bits = {"lt": lambda: lt_ge, "lt_eq": lambda: lt_gt,
+                    "gt": lambda: ~lt_gt, "gt_eq": lambda: ~lt_ge,
+                    "eq": lambda: ~lt_ge & lt_gt,
+                    "ne": lambda: lt_ge | ~lt_gt}[op]()
+        if self.num_patches:
+            fns = {"eq": np.equal, "ne": np.not_equal, "lt": np.less,
+                   "lt_eq": np.less_equal, "gt": np.greater,
+                   "gt_eq": np.greater_equal}
+            # SQL promotes an f32 column to f64 before comparing
+            pv = self.patch_vals
+            if pa.types.is_float32(self._arrow_type):
+                pv = pv.astype(np.float32).astype(np.float64)
+            verdict = fns[op](pv, np.float64(lit))
+            if pred.keep_nan:
+                verdict = verdict | np.isnan(pv)  # NaN lives in patches
+            host = words_to_numpy(bits).copy()
+            words = self.patch_idx // 32
+            set_bits = np.uint32(1) << (self.patch_idx % 32).astype(np.uint32)
+            np.bitwise_and.at(host, words, ~set_bits)
+            np.bitwise_or.at(host, words, np.where(verdict, set_bits,
+                                                   np.uint32(0)))
+            bits = words_to_tensor(host, device)
+        return mops.BoolMask(bits, validity_mask_or_full(
+            self.validity_np, self.length, device))
+
+    def _off_lt(self, planes, t: int, device):
+        max_off = (1 << self.width) - 1 if self.width else 0
+        if t <= 0:
+            return const_words(False, device)
+        if t > max_off:
+            return const_words(True, device)
+        return bp.cmp_const(planes, t)[0]

@@ -9,6 +9,7 @@ device can land one off at some i).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -16,9 +17,11 @@ import pyarrow as pa
 import torch
 
 from liquid_tpu_torch.arrays.base import (
-    BLOCK_ROWS, LiquidArray, arrow_with_validity, np_dtype_for,
+    BLOCK_ROWS, LiquidArray, Predicate, arrow_with_validity, const_words,
+    np_dtype_for, validity_mask_or_full,
 )
 from liquid_tpu_torch.arrays.primitive import LiquidPrimitiveArray
+from liquid_tpu_torch.ops import mask as mops
 
 
 def linear_term(slope: float) -> np.ndarray:
@@ -89,3 +92,47 @@ class LiquidLinearArray(LiquidArray):
                 + linear_term(self.slope))
         return arrow_with_validity(host, self._arrow_type, self.validity_np,
                                    self.length)
+
+    def try_eval_predicate(self, pred: Predicate, device):
+        """Packed row mask of `pred` on `device`: the block decoded on the
+        device and compared (linear codes have no packed-domain form).
+        None for other predicates."""
+        if pred.op not in ("eq", "ne", "lt", "lt_eq", "gt", "gt_eq"):
+            return None
+        r = _int_literal(pred)
+        if r is None:
+            return None
+        op, lit = r
+        valid = validity_mask_or_full(self.validity_np, self.length, device)
+        if op == "const":
+            return mops.BoolMask(const_words(lit, device), valid)
+        vals, _ = self.to_device(device)
+        cmp = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt,
+               "lt_eq": torch.le, "gt": torch.gt, "gt_eq": torch.ge}[op]
+        return mops.BoolMask(mops.pack_bools(cmp(vals, lit)), valid)
+
+
+def _int_literal(pred: Predicate):
+    """A numeric literal normalized for an integer compare -> (op, int),
+    ("const", bool) or None."""
+    lit, op = pred.literal, pred.op
+    if isinstance(lit, bool) or not isinstance(
+            lit, (int, float, np.integer, np.floating)):
+        return None
+    if isinstance(lit, (float, np.floating)):
+        f = float(lit)
+        if math.isnan(f):
+            return ("const", op == "ne")
+        if math.isinf(f):
+            pos = f > 0
+            return ("const", {"eq": False, "ne": True, "lt": pos,
+                              "lt_eq": pos, "gt": not pos,
+                              "gt_eq": not pos}[op])
+        if f != int(f):
+            if op in ("eq", "ne"):
+                return ("const", op == "ne")
+            if op in ("lt", "lt_eq"):
+                return ("lt_eq", math.floor(f))
+            return ("gt_eq", math.ceil(f))
+        lit = int(f)
+    return (op, int(lit))

@@ -17,11 +17,12 @@ import numpy as np
 import pyarrow as pa
 
 from liquid_tpu_torch.arrays.base import (
-    BLOCK_ROWS, LiquidArray, Predicate, arrow_with_validity, np_dtype_for,
-    pack_validity,
+    BLOCK_ROWS, LiquidArray, Predicate, arrow_with_validity, const_words,
+    np_dtype_for, pack_validity, validity_mask_or_full,
 )
 from liquid_tpu_torch.device import words_to_tensor, wrap_i64
 from liquid_tpu_torch.ops import bitpack as bp
+from liquid_tpu_torch.ops import mask as mops
 
 
 def is_supported_type(t: pa.DataType) -> bool:
@@ -107,9 +108,32 @@ class LiquidPrimitiveArray(LiquidArray):
         return vals, valid
 
     def to_arrow(self) -> pa.Array:
-        host = self.offsets_host().astype(np.int64) + self.reference_value
+        return self.decode_from_offsets(self.offsets_host())
+
+    def decode_from_offsets(self, off: np.ndarray) -> pa.Array:
+        """Finish decoding from offsets unpacked elsewhere (the cache's
+        batched decode unpacks many blocks at once)."""
+        host = off.astype(np.int64) + self.reference_value
         return arrow_with_validity(host, self._arrow_type, self.validity_np,
                                    self.length)
+
+    def try_eval_predicate(self, pred: Predicate, device):
+        """Packed row mask of `pred` on `device`, or None without a
+        packed-domain form."""
+        plan = self.packed_plan(pred)
+        if plan is None:
+            return None
+        if plan[0] == "const":
+            return self._const_mask(plan[1], device)
+        _, u, op = plan
+        bits = bp.cmp_const_op(words_to_tensor(self.planes_np, device),
+                               int(u), op)
+        return mops.BoolMask(bits, validity_mask_or_full(
+            self.validity_np, self.length, device))
+
+    def _const_mask(self, value: bool, device) -> mops.BoolMask:
+        return mops.BoolMask(const_words(value, device), validity_mask_or_full(
+            self.validity_np, self.length, device))
 
     def packed_plan(self, pred: Predicate):
         """Host range analysis of a predicate against this block's packed

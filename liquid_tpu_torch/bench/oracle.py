@@ -451,6 +451,113 @@ def _tpch_q22(paths) -> List[pa.Array]:
     return [g["cntrycode"], g["c_custkey_count"], g["c_acctbal_sum"]]
 
 
+# -- the classic path's TPC-H queries (phase 6e) --------------------------
+
+def _europe_suppliers(paths) -> pa.Table:
+    """Suppliers in EUROPE with their nation's name."""
+    r = _read(paths, "region", ["r_regionkey", "r_name"])
+    r = r.filter(pc.equal(r["r_name"], "EUROPE"))
+    n = _join(_read(paths, "nation", ["n_nationkey", "n_name",
+                                      "n_regionkey"]),
+              r.select(["r_regionkey"]), "n_regionkey", "r_regionkey")
+    s = _read(paths, "supplier", ["s_suppkey", "s_name", "s_address",
+                                  "s_nationkey", "s_phone", "s_acctbal",
+                                  "s_comment"])
+    return _join(s, n.select(["n_nationkey", "n_name"]), "s_nationkey",
+                 "n_nationkey")
+
+
+def _tpch_q2(paths) -> List[pa.Array]:
+    s = _europe_suppliers(paths)
+    ps = _join(_read(paths, "partsupp", ["ps_partkey", "ps_suppkey",
+                                         "ps_supplycost"]),
+               s, "ps_suppkey", "s_suppkey")
+    low = ps.group_by("ps_partkey").aggregate([("ps_supplycost", "min")])
+    p = _read(paths, "part", ["p_partkey", "p_mfgr", "p_type", "p_size"])
+    p = p.filter(pc.and_(pc.equal(p["p_size"], 15),
+                         pc.match_like(p["p_type"], "%BRASS")))
+    j = _join(_join(ps, p, "ps_partkey", "p_partkey"), low, "ps_partkey",
+              "ps_partkey")
+    j = j.filter(pc.equal(j["ps_supplycost"], j["ps_supplycost_min"]))
+    # the join keeps ps_partkey, which equals p_partkey
+    j = _sorted(j, [("s_acctbal", "descending"), ("n_name", "ascending"),
+                    ("s_name", "ascending"), ("ps_partkey", "ascending")]
+                ).slice(0, 100)
+    return [j[c] for c in ("s_acctbal", "s_name", "n_name", "ps_partkey",
+                           "p_mfgr", "s_address", "s_phone", "s_comment")]
+
+
+def _tpch_q13(paths) -> List[pa.Array]:
+    o = _read(paths, "orders", ["o_orderkey", "o_custkey", "o_comment"])
+    o = o.filter(pc.invert(pc.match_like(o["o_comment"],
+                                         "%special%requests%")))
+    per = o.group_by("o_custkey").aggregate([("o_orderkey", "count")])
+    c = _read(paths, "customer", ["c_custkey"])
+    j = c.join(per, "c_custkey", "o_custkey", join_type="left outer")
+    counts = pc.fill_null(j["o_orderkey_count"], 0)
+    g = pa.table({"c_count": counts}).group_by("c_count").aggregate(
+        [("c_count", "count", _EVERY)])
+    g = _sorted(g, [("c_count_count", "descending"),
+                    ("c_count", "descending")])
+    return [g["c_count"], g["c_count_count"]]
+
+
+def _tpch_q15(paths) -> List[pa.Array]:
+    rev = _tpch_q15_revenue(paths)
+    best = pc.max(rev[1]).as_py()
+    top = pa.table({"supplier_no": rev[0], "total_revenue": rev[1]})
+    top = top.filter(pc.equal(top["total_revenue"], best))
+    s = _read(paths, "supplier", ["s_suppkey", "s_name", "s_address",
+                                  "s_phone"])
+    j = _join(s, top, "s_suppkey", "supplier_no").sort_by("s_suppkey")
+    return [j[c] for c in ("s_suppkey", "s_name", "s_address", "s_phone",
+                           "total_revenue")]
+
+
+def _tpch_q17(paths) -> List[pa.Array]:
+    p = _read(paths, "part", ["p_partkey", "p_brand", "p_container"])
+    p = p.filter(pc.and_(pc.equal(p["p_brand"], "Brand#23"),
+                         pc.equal(p["p_container"], "MED BOX")))
+    li = _read(paths, "lineitem", ["l_partkey", "l_quantity",
+                                   "l_extendedprice"])
+    avg = li.group_by("l_partkey").aggregate([("l_quantity", "mean")])
+    j = _join(_join(li, p.select(["p_partkey"]), "l_partkey", "p_partkey"),
+              avg, "l_partkey", "l_partkey")
+    j = j.filter(pc.less(j["l_quantity"],
+                         pc.multiply(j["l_quantity_mean"], 0.2)))
+    total = pc.sum(j["l_extendedprice"]).as_py()
+    return [pa.array([None if total is None else total / 7.0],
+                     pa.float64())]
+
+
+def _tpch_q20(paths) -> List[pa.Array]:
+    p = _read(paths, "part", ["p_partkey", "p_name"])
+    forest = p.filter(pc.starts_with(p["p_name"], "forest"))["p_partkey"]
+    li = _read(paths, "lineitem", ["l_partkey", "l_suppkey", "l_quantity",
+                                   "l_shipdate"])
+    li = li.filter(pc.and_(
+        pc.greater_equal(li["l_shipdate"], _date(1994, 1, 1)),
+        pc.less(li["l_shipdate"], _date(1995, 1, 1))))
+    qty = li.group_by(["l_partkey", "l_suppkey"]).aggregate(
+        [("l_quantity", "sum")])
+    ps = _read(paths, "partsupp", ["ps_partkey", "ps_suppkey",
+                                   "ps_availqty"])
+    ps = ps.filter(pc.is_in(ps["ps_partkey"], value_set=forest))
+    j = ps.join(qty, ["ps_partkey", "ps_suppkey"], ["l_partkey",
+                                                    "l_suppkey"])
+    ok = pc.unique(j.filter(pc.greater(
+        j["ps_availqty"], pc.multiply(j["l_quantity_sum"], 0.5)))[
+            "ps_suppkey"])
+    n = _read(paths, "nation", ["n_nationkey", "n_name"])
+    n = n.filter(pc.equal(n["n_name"], "CANADA"))
+    s = _read(paths, "supplier", ["s_suppkey", "s_name", "s_address",
+                                  "s_nationkey"])
+    s = _join(s.filter(pc.is_in(s["s_suppkey"], value_set=ok)),
+              n.select(["n_nationkey"]), "s_nationkey", "n_nationkey")
+    s = s.sort_by("s_name")
+    return [s["s_name"], s["s_address"]]
+
+
 # -- ClickBench queries of the single-table slice (benchmark/clickbench) --
 
 def _hits(paths, cols) -> pa.Table:
@@ -570,6 +677,54 @@ def _minute_views(paths, counter: bool, offset: int) -> List[pa.Array]:
     return [g["M"], g["M_count"]]
 
 
+def _cb_q19(paths) -> List[pa.Array]:
+    u = _hits(paths, ["UserID"])["UserID"]
+    return [u.filter(pc.equal(u, 435090932899640449)).combine_chunks()]
+
+
+def _cb_q23(paths) -> List[pa.Array]:
+    """Every column of the rows whose URL holds 'google', ordered by
+    EventTime, cut after the rows tied with the tenth (the tie rule of
+    `CUTS`)."""
+    t = _hits(paths, ["URL", "EventTime"])
+    times = t.filter(pc.match_like(t["URL"], "%google%"))["EventTime"]
+    if len(times) == 0:
+        whole = pq.read_schema(paths["hits"])
+        return [pa.array([], f.type) for f in whole]
+    tenth = pc.sort_indices(times)[min(9, len(times) - 1)].as_py()
+    cut = times[tenth].as_py()
+    import pyarrow.dataset as ds
+    rows = ds.dataset(paths["hits"]).to_table(filter=(
+        ds.field("EventTime") <= cut) & pc.match_like(ds.field("URL"),
+                                                     "%google%"))
+    rows = rows.take(pc.sort_indices(rows["EventTime"]))
+    return [rows[c].combine_chunks() for c in rows.column_names]
+
+
+def _cb_q39(paths) -> List[pa.Array]:
+    """Page views by source and destination of CounterID 62 in July 2013
+    without refreshes, rows 1001-1010 by count."""
+    t = _hits(paths, ["TraficSourceID", "SearchEngineID", "AdvEngineID",
+                      "Referer", "URL", "CounterID", "EventDate",
+                      "IsRefresh"])
+    day = pc.cast(pc.cast(t["EventDate"], pa.int32()), pa.date32())
+    t = t.filter(pc.and_(pc.and_(pc.equal(t["CounterID"], 62),
+                                 _between(day, _date(2013, 7, 1),
+                                          _date(2013, 7, 31))),
+                         pc.equal(t["IsRefresh"], 0)))
+    direct = pc.and_(pc.equal(t["SearchEngineID"], 0),
+                     pc.equal(t["AdvEngineID"], 0))
+    src = pc.if_else(direct, t["Referer"], pa.scalar("", pa.string()))
+    keys = ["TraficSourceID", "SearchEngineID", "AdvEngineID", "Src", "Dst"]
+    g = pa.table({"TraficSourceID": t["TraficSourceID"],
+                  "SearchEngineID": t["SearchEngineID"],
+                  "AdvEngineID": t["AdvEngineID"], "Src": src,
+                  "Dst": t["URL"]}).group_by(keys).aggregate(
+        [("Dst", "count", _EVERY)])
+    g = _sorted(g, [("Dst_count", "descending")])
+    return [g[k] for k in keys] + [g["Dst_count"]]
+
+
 def _cb_distinct_chained(paths) -> List[pa.Array]:
     h = _hits(paths, ["RegionID", "UserID"])
     g = h.group_by("RegionID").aggregate([_count_distinct("UserID")])
@@ -608,7 +763,10 @@ ORACLES = {"cb_filter": _cb_filter, "cb_like": _cb_like,
            "cb_q42": lambda paths: _minute_views(paths, True, 1000),
            "cb_q42_open": lambda paths: _minute_views(paths, False, 0),
            "cb_distinct_chained": _cb_distinct_chained,
-           "cb_distinct_fold": _cb_distinct_fold}
+           "cb_distinct_fold": _cb_distinct_fold,
+           "tpch_q2": _tpch_q2, "tpch_q13": _tpch_q13, "tpch_q15": _tpch_q15,
+           "tpch_q17": _tpch_q17, "tpch_q20": _tpch_q20, "cb_q19": _cb_q19,
+           "cb_q23": _cb_q23, "cb_q39": _cb_q39}
 
 #: answers cut by a LIMIT that may split rows tied on the ORDER BY keys:
 #: (positions of the order-key columns, OFFSET, LIMIT); their oracles
@@ -620,7 +778,10 @@ CUTS: Dict[str, Tuple[Tuple[int, ...], int, int]] = {
     # TPC-H: q18's o_totalprice, o_orderdate and q21's numwait, s_name
     # under LIMIT 100; q11 orders its whole answer by a value that may tie
     "tpch_q18": ((4, 3), 0, 100), "tpch_q21": ((1, 0), 0, 100),
-    "tpch_q11": ((1,), 0, 1 << 40)}
+    "tpch_q11": ((1,), 0, 1 << 40),
+    # ClickBench q23 orders SELECT * by EventTime (column 4), which ties;
+    # q39's page-view counts tie at its OFFSET 1000 and LIMIT 10 cuts
+    "cb_q23": ((4,), 0, 10), "cb_q39": ((5,), 1000, 10)}
 
 
 def answers(paths: Dict[str, str], names: Iterable[str]

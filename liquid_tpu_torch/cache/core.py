@@ -9,7 +9,12 @@ ported yet, so an insert that does not fit the memory budget raises
 NotImplementedError instead of spilling.
 
 The cache owns the `device` its queries run on; encoded blocks stay on
-the host until the fused path stacks them into device tensors.  A string
+the host until the fused path stacks them into device tensors.  The
+classic scan evaluates predicates on the encodings
+(`eval_predicate_many`: the primitive blocks of one width bucket stacked
+and compared in one K1 launch, `ops/bitpack.cmp_const_op_many`; string
+blocks by dictionary verdicts and one gather) and decodes blocks in
+batches (`get_arrow_many`: one unpack per width bucket, one fetch).  A string
 column trains one FSST compressor on its first block and shares it with
 the column's later blocks (`DefaultCacheMetadata`).
 """
@@ -17,13 +22,16 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import pyarrow as pa
+import torch
 
 from liquid_tpu_torch.cache import policies as pol
 from liquid_tpu_torch.cache import transcode as tc
 from liquid_tpu_torch.cache.budget import BudgetAccounting
 from liquid_tpu_torch.cache.expressions import HintVote
 from liquid_tpu_torch.cache.observer import Observer
+from liquid_tpu_torch.arrays.base import BLOCK_ROWS
 from liquid_tpu_torch.device import resolve_device
 from liquid_tpu_torch.utils import sync as _sync
 from liquid_tpu_torch.utils.tracing import TRACER
@@ -160,6 +168,160 @@ class LiquidCache:
             obs.stats.bump("cache_hits")
             state, payload = e.state, e.payload
         return payload if state == MEMORY_ARROW else payload.to_arrow()
+
+    # -- predicate evaluation on the encodings ------------------------------
+
+    @TRACER.trace("cache.eval_predicate")
+    def eval_predicate(self, entry_id: int, pred):
+        """A BoolMask of `pred` evaluated on the encoded entry, or None
+        (the entry is absent, arrow, or has no encoded form for `pred`:
+        the caller decodes and evaluates)."""
+        obs = self.observer
+        obs.stats.bump("predicate_evals")
+        with self._lock:
+            e = self._entries.get(entry_id)
+        if e is None or e.state != MEMORY_LIQUID:
+            return None
+        out = e.payload.try_eval_predicate(pred, self.device)
+        if out is not None:
+            obs.stats.bump("predicate_evals_on_encoded")
+        return out
+
+    @TRACER.trace("cache.eval_predicate_many")
+    def eval_predicate_many(self, entry_ids, pred):
+        """Batched evaluation over many entries (a row group's blocks of
+        one column): primitive blocks of one width bucket are stacked and
+        compared in ONE launch (`bitpack.cmp_const_op_many`, K1 on the
+        card), string blocks gather their dictionary verdicts in one
+        call, the rest go one by one.  -> BoolMask | None per entry id."""
+        from liquid_tpu_torch.arrays.base import validity_mask_or_full
+        from liquid_tpu_torch.arrays.byteview import (
+            LiquidByteViewArray, _verdict_gather_many)
+        from liquid_tpu_torch.arrays.primitive import LiquidPrimitiveArray
+        from liquid_tpu_torch.device import u64_to_i64, words_to_tensor
+        from liquid_tpu_torch.ops import bitpack as bp
+        from liquid_tpu_torch.ops import mask as mops
+        obs = self.observer
+        dev = self.device
+        results: list = [None] * len(entry_ids)
+        prim: Dict[tuple, list] = {}  # (bucket, op) -> [(i, payload, u)]
+        bv: list = []                 # [(i, payload)] string blocks
+        slow: list = []
+        with self._lock:
+            for i, eid in enumerate(entry_ids):
+                e = self._entries.get(eid)
+                if e is None:
+                    continue
+                p = e.payload
+                if e.state == MEMORY_LIQUID and isinstance(
+                        p, LiquidPrimitiveArray):
+                    plan = p.packed_plan(pred)
+                    if plan is None:
+                        continue
+                    obs.stats.bump("predicate_evals")
+                    obs.stats.bump("predicate_evals_on_encoded")
+                    if plan[0] == "const":
+                        results[i] = p._const_mask(plan[1], dev)
+                    else:
+                        prim.setdefault((p.planes_np.shape[0], plan[2]),
+                                        []).append((i, p, plan[1]))
+                elif e.state == MEMORY_LIQUID and isinstance(
+                        p, LiquidByteViewArray):
+                    bv.append((i, p))
+                else:
+                    slow.append((i, eid))
+        for (_bucket, op), items in prim.items():
+            if len(items) == 1:
+                i, p, u = items[0]
+                bits = bp.cmp_const_op(words_to_tensor(p.planes_np, dev),
+                                       int(u), op)
+                results[i] = mops.BoolMask(bits, validity_mask_or_full(
+                    p.validity_np, p.length, dev))
+                continue
+            stack = words_to_tensor(np.stack([p.planes_np
+                                              for _, p, _ in items]), dev)
+            cs = torch.from_numpy(u64_to_i64(
+                [u for _, _, u in items])).to(dev)
+            bits_all = bp.cmp_const_op_many(stack, cs, op)
+            valid_all = words_to_tensor(np.stack([
+                p.validity_np if p.validity_np is not None
+                else mops.all_set_host(BLOCK_ROWS, p.length)
+                for _, p, _ in items]), dev)
+            for j, (i, _p, _u) in enumerate(items):
+                results[i] = mops.BoolMask(bits_all[j], valid_all[j])
+        evald = []
+        for i, p in bv:
+            vd = p.dict_verdict(pred)
+            if vd is None:
+                slow.append((i, entry_ids[i]))
+                continue
+            obs.stats.bump("predicate_evals")
+            obs.stats.bump("predicate_evals_on_encoded")
+            evald.append((i, p, vd))
+        if len(evald) == 1:
+            i, p, vd = evald[0]
+            results[i] = p._mask_from_verdict(vd, dev)
+        elif evald:
+            # per-dictionary verdicts padded to the widest, ONE gather
+            max_d = max(len(vd) for _, _, vd in evald)
+            verdicts = np.zeros((len(evald), max_d), dtype=bool)
+            for j, (_i, _p, vd) in enumerate(evald):
+                verdicts[j, :len(vd)] = vd
+            codes = torch.from_numpy(np.stack(
+                [p.codes_np for _, p, _ in evald])).to(dev)
+            bits_all = _verdict_gather_many(
+                torch.from_numpy(verdicts).to(dev), codes)
+            valid_all = words_to_tensor(np.stack([
+                p.validity_np if p.validity_np is not None
+                else mops.all_set_host(BLOCK_ROWS, p.length)
+                for _, p, _ in evald]), dev)
+            for j, (i, _p, _vd) in enumerate(evald):
+                results[i] = mops.BoolMask(bits_all[j], valid_all[j])
+        for i, eid in slow:
+            results[i] = self.eval_predicate(eid, pred)
+        return results
+
+    @TRACER.trace("cache.get_arrow_many")
+    def get_arrow_many(self, entry_ids):
+        """Batched decode: primitive and float bit-plane blocks unpack in
+        ONE call per width bucket and ONE fetch; the rest go through
+        `get`.  -> pa.Array | None per entry id."""
+        from liquid_tpu_torch.device import words_to_tensor
+        from liquid_tpu_torch.ops import bitpack as bp
+        obs = self.observer
+        results: list = [None] * len(entry_ids)
+        grouped: Dict[int, list] = {}  # bucket -> [(i, payload)]
+        slow: list = []
+        with self._lock:
+            for i, eid in enumerate(entry_ids):
+                e = self._entries.get(eid)
+                if e is None:
+                    obs.stats.bump("gets")
+                    obs.stats.bump("cache_misses")
+                    continue
+                p = e.payload
+                if e.state == MEMORY_LIQUID and hasattr(
+                        p, "decode_from_offsets") and hasattr(p, "planes_np"):
+                    obs.stats.bump("gets")
+                    obs.stats.bump("cache_hits")
+                    grouped.setdefault(p.planes_np.shape[0], []).append(
+                        (i, p))
+                else:
+                    slow.append((i, eid))
+        for _bucket, items in grouped.items():
+            if len(items) == 1:
+                i, p = items[0]
+                results[i] = p.to_arrow()
+                continue
+            stack = words_to_tensor(np.stack([p.planes_np
+                                              for _, p in items]),
+                                    self.device)
+            offs = bp.unpack_bitplanes_many(stack).cpu().numpy()
+            for j, (i, p) in enumerate(items):
+                results[i] = p.decode_from_offsets(offs[j])
+        for i, eid in slow:
+            results[i] = self.get(eid)
+        return results
 
     # -- admin -------------------------------------------------------------
 

@@ -39,6 +39,8 @@ def resolve_device(device=None) -> torch.device:
 def words_to_tensor(a: np.ndarray, device=None) -> torch.Tensor:
     """numpy uint32 words -> int32 tensor with the same bits."""
     a = np.ascontiguousarray(a, dtype=np.uint32)
+    if not a.flags.writeable:  # a cached constant: torch wants its own
+        a = a.copy()
     t = torch.from_numpy(a.view(np.int32))
     return t if device is None else t.to(device)
 

@@ -173,3 +173,44 @@ class ParquetTable:
                 if not self.cache.contains(eid):
                     self.cache.insert(eid, chunk, hint=hint)
         return ids
+
+    def get_batch(self, rg: int, col_name: str, batch: int,
+                  hint=None) -> pa.Array:
+        """One decoded block of (rg, col) as arrow (dictionaries decoded)."""
+        eid = self.entry_id(rg, col_name, batch)
+        out = self.cache.get(eid)
+        if out is None:
+            self.ensure_cached(rg, col_name, hint)
+            out = self.cache.get(eid)
+        if pa.types.is_dictionary(out.type):
+            out = out.cast(out.type.value_type)
+        return out
+
+    def get_batches(self, rg: int, col_name: str, hint=None, batches=None):
+        """The requested blocks of (rg, col) in one batched cache decode
+        -> {batch: pa.Array}."""
+        ids = self.ensure_cached(rg, col_name, hint)
+        want = list(range(len(ids)) if batches is None else batches)
+        out = {}
+        for b, arr in zip(want, self.cache.get_arrow_many(
+                [ids[b] for b in want])):
+            if arr is None:
+                arr = self.get_batch(rg, col_name, b, hint)
+            if pa.types.is_dictionary(arr.type):
+                arr = arr.cast(arr.type.value_type)
+            out[b] = arr
+        return out
+
+    def eval_predicate(self, rg: int, col_name: str, batch: int,
+                       pred: Predicate, hint=None):
+        ids = self.ensure_cached(rg, col_name, hint)
+        return self.cache.eval_predicate(ids[batch], pred)
+
+    def eval_predicate_many(self, rg: int, col_name: str, pred: Predicate,
+                            hint=None, batches=None):
+        """`pred` over the requested blocks of (rg, col) in one batched
+        cache call -> {batch: BoolMask | None}."""
+        ids = self.ensure_cached(rg, col_name, hint)
+        want = list(range(len(ids)) if batches is None else batches)
+        return dict(zip(want, self.cache.eval_predicate_many(
+            [ids[b] for b in want], pred)))

@@ -16,6 +16,10 @@ Both return the reference's packed single-fetch output: an int64 matrix
 prefix-packed, f64 rows as bit images), plus the slot-ordered columns
 for a re-pack when there are more than PACK_CAP groups.
 
+`hash_group_reduce[_packed]` is the classic aggregators' single-table
+form: one salt, one table, `clean` False when any slot collides (the
+caller retries or sorts).
+
 The reference's scatters drop out-of-bounds indices (`mode="drop"`);
 `index_add_` and `scatter_reduce_` have no such mode, so every scatter
 table here has a band of TRASH rows past its m slots: dead row r lands in
@@ -351,6 +355,91 @@ def hash_rounds_reduce_packed(codes: Sequence[torch.Tensor],
         pos, kcat, ncat, ocat, ccat, w)
     mat = _pack_outputs(clean, n_groups, ukeys, uknulls, outs, vcounts, w)
     return (mat, clean, n_groups, (occ_all,) + kcat + ncat + ocat + ccat)
+
+
+def hash_group_reduce(codes: Sequence[torch.Tensor],
+                      knulls: Sequence[torch.Tensor], valid: torch.Tensor,
+                      vals: Sequence[torch.Tensor],
+                      vnulls: Sequence[torch.Tensor], kinds: Sequence[str],
+                      n_slots: int, salt: int):
+    """Grouped reduction by hashing into one table of `n_slots` slots: the
+    contract of `groupby.group_reduce` plus a leading `clean` flag.
+
+    -> (clean, n_groups, ukeys, uknulls, outs, vcounts), every per-group
+    array [n_slots] with the groups packed at [0, n_groups).  `clean`
+    False means a slot took two distinct key tuples: the other outputs
+    are garbage and the caller retries (another salt, a bigger table) or
+    sorts.  Invalid rows land in the trash band."""
+    n = valid.shape[0]
+    dev = valid.device
+    if codes:
+        h = torch.full((n,), wrap_i64(salt), dtype=_I64, device=dev)
+        for c, nl in zip(codes, knulls):
+            h = _mix(h, c)
+            h = _mix(h, nl.to(_I64))
+    else:
+        h = torch.zeros(n, dtype=_I64, device=dev)
+    slot = h & (n_slots - 1)
+    drop = _dropped(slot, valid, n_slots)
+    occ = torch.zeros(n_slots + TRASH, dtype=torch.bool, device=dev)
+    occ[drop] = True
+    occ = occ[:n_slots]
+    # exact collision check: per slot, every key column's code (and NULL
+    # flag) has min == max
+    clean = torch.ones((), dtype=torch.bool, device=dev)
+    kreps, nreps = [], []
+    for c, nl in zip(codes, knulls):
+        cmin = _scatter(drop, c[:, None], n_slots, "min")[:, 0]
+        cmax = _scatter(drop, c[:, None], n_slots, "max")[:, 0]
+        nl8 = nl.to(torch.int32)[:, None]
+        nmin = torch.full((n_slots + TRASH, 1), 2, dtype=torch.int32,
+                          device=dev)
+        nmin.scatter_reduce_(0, drop[:, None], nl8, "amin", include_self=True)
+        nmax = torch.full((n_slots + TRASH, 1), -1, dtype=torch.int32,
+                          device=dev)
+        nmax.scatter_reduce_(0, drop[:, None], nl8, "amax", include_self=True)
+        nmin, nmax = nmin[:n_slots, 0], nmax[:n_slots, 0]
+        clean = clean & torch.where(occ, (cmin == cmax) & (nmin == nmax),
+                                    True).all()
+        kreps.append(cmin)
+        nreps.append(nmin == 1)
+    # occupied slots packed to the prefix
+    pos = torch.cumsum(occ.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_groups = occ.sum(dtype=torch.int32)
+    dest = _dropped(pos, occ, n_slots)
+
+    def packed(r, dt):
+        out = torch.zeros(n_slots + TRASH, dtype=dt, device=dev)
+        out[dest] = r
+        return out[:n_slots]
+
+    ukeys = tuple(packed(r, c.dtype) for c, r in zip(codes, kreps))
+    uknulls = tuple(packed(r, torch.bool) for r in nreps)
+    outs, vcounts = [], []
+    for v, vn, kind in zip(vals, vnulls, kinds):
+        contrib = valid & ~vn
+        cslot = _dropped(slot, contrib, n_slots)
+        cnt = _scatter(cslot, torch.ones(n, 1, dtype=_I64, device=dev),
+                       n_slots, "add")[:, 0]
+        acc = _scatter(cslot, v[:, None], n_slots,
+                       "add" if kind == "sum" else kind)[:, 0]
+        outs.append(packed(acc, v.dtype))
+        vcounts.append(packed(cnt, _I64))
+    return clean, n_groups, ukeys, uknulls, tuple(outs), tuple(vcounts)
+
+
+def hash_group_reduce_packed(codes, knulls, valid, vals, vnulls, kinds,
+                             n_slots: int, salt: int):
+    """`hash_group_reduce` with every output in ONE int64 matrix
+    [1 + 2*nk + 2*nv, min(n_slots, PACK_CAP)] for a single bounded fetch
+    (row 0 the header [clean, n_groups, 0, ...]; f64 rows as bit images).
+    -> (matrix, clean, n_groups, ukeys, uknulls, outs, vcounts); with
+    more groups than the cap the caller fetches the full arrays."""
+    clean, ng, ukeys, uknulls, outs, vcounts = hash_group_reduce(
+        codes, knulls, valid, vals, vnulls, kinds, n_slots, salt)
+    w = min(n_slots, PACK_CAP)
+    mat = _pack_outputs(clean, ng, ukeys, uknulls, outs, vcounts, w)
+    return mat, clean, ng, ukeys, uknulls, outs, vcounts
 
 
 def _pack_by_search(pos, kcat, ncat, ocat, ccat, w: int):

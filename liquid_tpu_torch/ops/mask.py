@@ -83,6 +83,11 @@ def count(words: torch.Tensor) -> torch.Tensor:
     return popcount32(words).to(torch.int64).sum()
 
 
+def count_many(words: torch.Tensor) -> torch.Tensor:
+    """Set bits per row of packed masks int32[B, W] -> int64[B]."""
+    return popcount32(words).to(torch.int64).sum(-1)
+
+
 def count_host(words: np.ndarray) -> int:
     return int(np.unpackbits(np.asarray(words).view(np.uint8)).sum())
 

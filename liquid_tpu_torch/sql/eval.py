@@ -2,8 +2,12 @@
 `liquid_tpu/sql/eval.py`).
 
 pyarrow compute kernels with DataFusion semantics (Kleene logic, SQL
-type coercion).  The grouped path evaluates its post-projection, HAVING
-and ORDER BY over the aggregate result here.  Variant functions belong to
+type coercion).  The fused paths evaluate their post-projection, HAVING
+and ORDER BY over the aggregate result here; the classic path evaluates
+residual filters, projections and aggregate inputs over decoded blocks
+and joined tables.  A scalar subquery calls back into the executor; a
+decorrelated subquery (`ast.CorrLookup`) is a lookup into its
+precomputed inner table by a pyarrow join.  Variant functions belong to
 the variant arrays, which are not ported yet, and raise.
 """
 from __future__ import annotations
@@ -69,8 +73,9 @@ def _lit_scalar(value):
 class Evaluator:
     """Evaluates ast.Expr -> pa.Array | pa.Scalar over a Batch."""
 
-    def __init__(self, batch: Batch):
+    def __init__(self, batch: Batch, scalar_subquery_exec=None):
         self.b = batch
+        self._subq = scalar_subquery_exec
 
     def arr(self, e: ast.Expr) -> pa.Array:
         return _as_array(self.eval(e), self.b.length)
@@ -139,9 +144,65 @@ class Evaluator:
             return self._extract(e.field, e.operand)
         if isinstance(e, ast.Func):
             return self._func(e)
-        if isinstance(e, (ast.Subquery, ast.CorrLookup)):
-            raise NotImplementedError("subqueries are not ported yet")
+        if isinstance(e, ast.Subquery):
+            if self._subq is None:
+                raise NotImplementedError("a scalar subquery here")
+            return self._subq(e.query)
+        if isinstance(e, ast.CorrLookup):
+            return self._corr_lookup(e)
         raise NotImplementedError(f"eval {type(e).__name__}")
+
+    def _corr_lookup(self, e: ast.CorrLookup):
+        """A decorrelated subquery: the outer rows' equality keys joined
+        (pyarrow) against the precomputed inner table.  "scalar" maps a
+        row to the inner `__v` of its key (no match: NULL); "exists" marks
+        the rows with a match, after the `extra` residual over the matched
+        pairs.  A NULL key matches nothing, on either side."""
+        n = self.b.length
+        kn = [f"__k{i}" for i in range(len(e.keys))]
+        kcols = list(e.key_cols)
+        inner = e.table
+        outer_cols = {"__rowid": pa.array(np.arange(n, dtype=np.int64))}
+        icols = {}
+        for name, k, kc in zip(kn, e.keys, kcols):
+            a, b = _join_pair(_plain(self.arr(k)),
+                              _plain(inner.column(kc).combine_chunks()))
+            outer_cols[name], icols[kc] = a, b
+        outer = pa.table(outer_cols)
+        outer = outer.filter(_all_valid(outer, kn))
+        icols["__idx"] = pa.array(np.arange(inner.num_rows, dtype=np.int64))
+        itab = pa.table(icols)
+        itab = itab.filter(_all_valid(itab, kcols))
+        if itab.num_rows > 4 * outer.num_rows:
+            # a lookup per scanned block: hash the block's few keys, not
+            # the whole inner table, and join what can match
+            itab = itab.filter(pc.is_in(itab[kcols[0]],
+                                        value_set=outer[kn[0]]))
+        if e.kind == "scalar":
+            m = outer.join(itab, keys=kn, right_keys=kcols,
+                           join_type="inner", use_threads=False)
+            full = np.full(n, -1, dtype=np.int64)
+            full[np.asarray(m["__rowid"])] = np.asarray(m["__idx"])
+            idx = pa.array(full, pa.int64(), mask=full < 0)
+            return inner.column("__v").combine_chunks().take(idx)
+        m = outer.join(itab, keys=kn, right_keys=kcols, join_type="inner",
+                       use_threads=False)
+        rowid = np.asarray(m["__rowid"].combine_chunks(), np.int64)
+        if e.extra is not None and m.num_rows:
+            take = pa.array(np.asarray(m["__idx"].combine_chunks()),
+                            pa.int64())
+            cols = {c: inner.column(c).combine_chunks().take(take)
+                    for c in inner.column_names}
+            for i, r in enumerate(e.outer_refs):
+                cols[f"__outer{i}"] = self.arr(r).take(
+                    pa.array(rowid, pa.int64()))
+            keep = Evaluator(Batch(cols, m.num_rows), self._subq).arr(
+                e.extra)
+            rowid = rowid[np.asarray(pc.fill_null(keep.cast(pa.bool_()),
+                                                  False))]
+        hit = np.zeros(n, dtype=bool)
+        hit[rowid] = True
+        return pa.array(~hit if e.negated else hit)
 
     # -- pieces ------------------------------------------------------------
 
@@ -307,6 +368,30 @@ class Evaluator:
             raise NotImplementedError(
                 f"{name}: the variant arrays are not ported yet")
         raise NotImplementedError(f"function {name}")
+
+
+def _plain(a: pa.Array) -> pa.Array:
+    return a.cast(a.type.value_type) if pa.types.is_dictionary(a.type) else a
+
+
+def _join_pair(a: pa.Array, b: pa.Array):
+    """Two join-key columns cast to one type (the join compares values of
+    one type): both numeric -> int64, or float64 when either is a float."""
+    if a.type == b.type:
+        return a, b
+    num = (pa.types.is_integer, pa.types.is_floating)
+    if any(f(a.type) for f in num) and any(f(b.type) for f in num):
+        t = pa.float64() if (pa.types.is_floating(a.type)
+                             or pa.types.is_floating(b.type)) else pa.int64()
+        return a.cast(t), b.cast(t)
+    return a.cast(b.type), b
+
+
+def _all_valid(t: pa.Table, names) -> pa.Array:
+    ok = pa.array(np.ones(t.num_rows, dtype=bool))
+    for nm in names:
+        ok = pc.and_(ok, pc.is_valid(t[nm]))
+    return ok
 
 
 def _is_null_typed(v) -> bool:

@@ -17,8 +17,8 @@ jit-compiles this program per query shape; the port runs it eagerly and
 keeps the reference's per-table plan cache, so a warm query skips
 planning and every upload.
 
-Supported shape (anything else raises NotImplementedError naming the
-reason -- the port has no classic path to fall back to yet):
+Supported shape (anything else returns None, the reason counted in
+`STATS`, and the classic path in `sql/exec.py` takes the query):
 - single parquet source; WHERE a conjunction of column-vs-literal
   comparisons (OR groups allowed; a string column's comparison becomes a
   per-block verdict LUT over its dictionary codes) plus residual
@@ -97,7 +97,8 @@ _STAGES_XL = _STAGES + ((1 << 23, 0x94D049BB133111EB),)
 #: host fold)
 STATS = {"fused_queries": 0, "fused_grouped": 0, "fused_scalar": 0,
          "fused_bailouts": 0, "fused_retries": 0, "fused_pallas": 0,
-         "star_queries": 0, "fused_selects": 0, "distinct_sort": 0,
+         "star_queries": 0, "star_bailouts": 0, "star_dup_bails": 0,
+         "fused_selects": 0, "select_bailouts": 0, "distinct_sort": 0,
          "distinct_chained": 0, "distinct_fold": 0}
 
 _AGG_KINDS = frozenset({"count_star", "count", "sum", "avg", "min", "max",
@@ -2518,13 +2519,14 @@ def _plan_cache_key(plan_scan, hints, group, key_names, slots, rew_keys,
 
 
 def try_fused_aggregate(table, plan_scan, hints, group, key_names, slots,
-                        rew_keys, rew_inputs, q=None, eprobes=()) -> pa.Table:
+                        rew_keys, rew_inputs, q=None, eprobes=()
+                        ) -> Optional[pa.Table]:
     """Run a single-table aggregate on the fused device path -> the
     partial result: key columns then slot columns (one row without GROUP
-    BY).  `eprobes` are existence probes on the table's rows.  An
-    unsupported shape, or a key cardinality the hash ladder does not
-    resolve, raises NotImplementedError naming the reason (no classic
-    path yet)."""
+    BY).  `eprobes` are existence probes on the table's rows.  None when
+    the shape is unsupported or the hash ladder does not resolve the key
+    cardinality (`STATS["fused_bailouts"]`, the reason in
+    `STATS["last_bail"]`): the classic path takes the query."""
     cache = getattr(table, "_fused_plan_cache", None)
     if cache is None:
         cache = table._fused_plan_cache = {}
@@ -2551,9 +2553,7 @@ def try_fused_aggregate(table, plan_scan, hints, group, key_names, slots,
     if isinstance(hit, str):  # a (cached) bailout
         STATS["fused_bailouts"] += 1
         STATS["last_bail"] = hit
-        raise NotImplementedError(
-            f"fused path cannot run this query ({hit}); the classic path "
-            f"is not ported yet")
+        return None
     STATS["fused_queries"] += 1
     p, mode, empty = hit
     topk = None
@@ -2564,9 +2564,6 @@ def try_fused_aggregate(table, plan_scan, hints, group, key_names, slots,
     if result is None:
         STATS["fused_bailouts"] += 1
         STATS["last_bail"] = "hash ladder did not converge"
-        raise NotImplementedError(
-            "the grouped hash ladder did not converge for this key "
-            "cardinality; the classic path is not ported yet")
     return result
 
 
@@ -2807,9 +2804,9 @@ def distinct_two_level(slots, group, key_names, rew_keys, rew_inputs,
     sums of sums, min of mins, avg as sum and count -- and a pyarrow fold
     over its rows (NULL keys form one group).  `run_inner(group2,
     key_names2, slots2, rew_keys2, rew_inputs2)` runs the inner aggregate
-    on the caller's fused engine (single table or star) and raises when
-    it cannot.  None when the query has no count(DISTINCT) over plain
-    columns."""
+    on the caller's fused engine (single table or star), None when it
+    cannot.  None when the query has no count(DISTINCT) over plain
+    columns or the inner aggregate does not run."""
     dcols = _distinct_columns(slots, rew_inputs)
     if not dcols:
         return None
@@ -2822,6 +2819,8 @@ def distinct_two_level(slots, group, key_names, rew_keys, rew_inputs,
                       list(rew_keys) + [ast.Column(d) for d in dcols],
                       {s.name: s.input for s in inner_slots
                        if s.input is not None})
+    if inner is None:
+        return None
     keyn = [nm for _, nm in group]
     # per outer slot: the inner columns it folds and how.  Counts add with
     # min_count 0 (an empty scan without keys counts 0); sums of a group
@@ -2895,8 +2894,8 @@ def distinct_two_level(slots, group, key_names, rew_keys, rew_inputs,
 # path; the device sorts every row whatever k2 is, so the port fetches the
 # cap at once (ClickBench's EventTime repeats about 160 times per value at
 # 4M rows).  A tie at the cap, a NaN order key, a nullable one and an
-# unordered scan too large to fetch raise NotImplementedError naming
-# themselves (the classic path is not ported).  Only the rows ranked no
+# unordered scan too large to fetch go to the classic path, as every
+# other shape the fused select does not take.  Only the rows ranked no
 # later than the k-th are read: the others cannot reach the first k.
 
 SELECT_K_CAP = 4096
@@ -2935,17 +2934,25 @@ def _fused_select_run(p: _Plan, resids, oir, desc: bool, k2: int):
     return count, idx[:k2], ranks[:k2]
 
 
-def _select_refused(why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"SELECT without aggregates (the classic path): the fused select "
-        f"does not take {why}; the classic path is not ported yet")
+class _Refused(Exception):
+    """A bare SELECT the fused select does not take."""
 
 
-def try_fused_select(executor, table, q, where) -> pa.Table:
+def try_fused_select(executor, table, q, where) -> Optional[pa.Table]:
     """A bare single-table SELECT on the device: LIMIT queries ordered by
     one leading numeric or string expression (further keys sort on the
-    host over the fetched superset), and small unordered filters.  Every
-    shape it does not take raises NotImplementedError naming it."""
+    host over the fetched superset), and small unordered filters.  None
+    for every shape it does not take (`STATS["select_bailouts"]`, the
+    reason in `STATS["last_bail"]`): the classic path takes it."""
+    try:
+        return _fused_select(executor, table, q, where)
+    except _Refused as e:
+        STATS["select_bailouts"] += 1
+        STATS["last_bail"] = str(e)
+        return None
+
+
+def _fused_select(executor, table, q, where) -> pa.Table:
     from liquid_tpu_torch.sql.eval import Batch, Evaluator
     from liquid_tpu_torch.sql.fused_star import (_MiniPlanner,
                                                  _prep_has_nulls,
@@ -2953,17 +2960,17 @@ def try_fused_select(executor, table, q, where) -> pa.Table:
     from liquid_tpu_torch.sql.physical import collect_columns, render
     from liquid_tpu_torch.sql.planner import plan_scan_filters
     if q.distinct:
-        raise _select_refused("SELECT DISTINCT")
+        raise _Refused("SELECT DISTINCT")
     if any(isinstance(it.expr, ast.Star) for it in q.items):
-        raise _select_refused("SELECT *")
+        raise _Refused("SELECT *")
     if any(o.nulls_first is not None for o in q.order_by):
-        raise _select_refused("a stated NULLS FIRST / LAST")
+        raise _Refused("a stated NULLS FIRST / LAST")
     k = (q.limit + (q.offset or 0)) if q.limit is not None else None
     if k is not None and k * 4 + 64 > SELECT_K_CAP:
-        raise _select_refused(f"LIMIT {k} (more than {SELECT_K_CAP} rows "
+        raise _Refused(f"LIMIT {k} (more than {SELECT_K_CAP} rows "
                               f"to fetch)")
     if q.order_by and k is None:
-        raise _select_refused("ORDER BY without LIMIT")
+        raise _Refused("ORDER BY without LIMIT")
     try:
         plan_scan = plan_scan_filters(where)
         blocks = _select_blocks(table, plan_scan)
@@ -3009,7 +3016,7 @@ def try_fused_select(executor, table, q, where) -> pa.Table:
                     raise _Bail("a nullable order key")
                 _register_col(p, mp, None, c, registered, pr.kind == "dict")
     except _Bail as e:
-        raise _select_refused(str(e)) from None
+        raise _Refused(str(e)) from None
     if k is None:
         k = SELECT_K_CAP // 4  # unordered without LIMIT: small results only
     k2 = SELECT_K_CAP
@@ -3022,14 +3029,14 @@ def try_fused_select(executor, table, q, where) -> pa.Table:
                             idx_t.to(torch.float64), ranks_t]).cpu().numpy()
         count = int(packed[0])
         if count < 0:
-            raise _select_refused("a NaN order key (the host's NaN order)")
+            raise _Refused("a NaN order key (the host's NaN order)")
         got = packed[1:1 + k2].astype(np.int64)
         ranks = packed[1 + k2:]
         if q.order_by and count > k2 and (not np.isfinite(ranks[k2 - 1])
                                           or not ranks[k - 1] < ranks[k2 - 1]):
-            raise _select_refused("a tie at the fetched boundary")
+            raise _Refused("a tie at the fetched boundary")
         if q.limit is None and count > k2:
-            raise _select_refused(f"an unordered scan of {count} rows")
+            raise _Refused(f"an unordered scan of {count} rows")
         take = min(count, k2)
         idx = got[:take]
         if q.order_by and take:
@@ -3051,7 +3058,7 @@ def try_fused_select(executor, table, q, where) -> pa.Table:
         if arr is None:
             arr = table.cache.get(table.ensure_cached(rg, c)[b])
             if arr is None:
-                raise _select_refused(f"an uncached block of {c}")
+                raise _Refused(f"an uncached block of {c}")
             blocks_arr[(rg, b, c)] = arr
         return arr
 

@@ -17,9 +17,10 @@ runs on the device without a host Arrow round trip:
 The only fetches are one combined key-uniqueness flag vector on a first
 run and the result.  Join semantics are guarded, never approximated:
 each dimension must be unique on its join key after its filters (the
-build counts duplicates on the device; a repeated key raises, since the
-classic join path that would keep the row multiplicity is not ported),
-NULL keys never match, and only INNER (and cross) joins are planned.
+build counts duplicates on the device; with a repeated key the query
+goes to the classic join path, which keeps the row multiplicity), NULL
+keys never match, and only INNER (and cross) joins are planned.  Every
+shape not planned here returns None and the classic path takes it.
 
 count(DISTINCT col) over a star runs as the host fold
 (`fused_agg.distinct_two_level`) over one star aggregate grouped by the
@@ -42,7 +43,7 @@ Also planned here:
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -999,10 +1000,8 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
     if key2 is not None:
         maxdup = int(outs[5])
         if maxdup > MAX_COMPOSITE_DUP:
-            raise NotImplementedError(
-                f"composite chain depth {maxdup} on {tbl} (more than "
-                f"{MAX_COMPOSITE_DUP} rows per {key_col}): the classic join "
-                f"path is not ported yet")
+            raise _Bail(f"composite chain depth {maxdup} on {tbl} (more "
+                        f"than {MAX_COMPOSITE_DUP} rows per {key_col})")
         probe.chain = (outs[2], outs[3], outs[4], maxdup)
         k = 6
     for name, ptype in pays:
@@ -1309,12 +1308,13 @@ def _star_cache_key(executor, q, group, key_names, slots, rew_keys,
 
 
 def try_fused_star(executor, q, group, key_names, slots, rew_keys,
-                   rew_inputs, where) -> pa.Table:
+                   rew_inputs, where) -> Optional[pa.Table]:
     """Run an aggregate over a star/snowflake join on the device -> the
-    partial result (key columns + slot columns).  An unsupported shape,
-    or a dimension that repeats a join key (an N:M join), raises
-    NotImplementedError naming the reason: the classic join path is not
-    ported yet."""
+    partial result (key columns + slot columns).  None for an unsupported
+    shape (`STATS["star_bailouts"]`, the reason in
+    `STATS["star_last_bail"]`) and for a dimension that repeats a join key
+    (an N:M join, `STATS["star_dup_bails"]`): the classic join path takes
+    the query."""
     cache = getattr(executor, "_star_plan_cache", None)
     if cache is None:
         cache = executor._star_plan_cache = {}
@@ -1344,9 +1344,10 @@ def try_fused_star(executor, q, group, key_names, slots, rew_keys,
             if unverified:
                 flags = torch.stack([pb.dup for pb in unverified]).cpu()
                 if bool(flags.any()):
-                    raise NotImplementedError(
-                        "N:M join: a dimension repeats a join key after its "
-                        "filters; the classic join path is not ported yet")
+                    # N:M: the classic join keeps the exact multiplicity
+                    STATS["star_dup_bails"] += 1
+                    STATS["star_bailouts"] += 1
+                    return None
                 for pb in unverified:
                     pb.verified = True
             hit = (p, mode, empty, planner.tables[planner.fact])
@@ -1362,9 +1363,9 @@ def try_fused_star(executor, q, group, key_names, slots, rew_keys,
             for pb in built:
                 pb.pin(ck, cache)
     if len(hit) == 1:  # a (cached) bailout
-        raise NotImplementedError(
-            f"fused star path cannot run this query ({hit[0]}); the classic "
-            f"join path is not ported yet")
+        STATS["star_bailouts"] += 1
+        STATS["star_last_bail"] = hit[0]
+        return None
     p, mode, empty, fact_table = hit
     STATS["star_queries"] += 1
     topk = None
@@ -1373,7 +1374,5 @@ def try_fused_star(executor, q, group, key_names, slots, rew_keys,
         p.having = plan_having(q, slots, p)
     result = execute_plan(p, mode, empty, slots, fact_table, topk)
     if result is None:
-        raise NotImplementedError(
-            "the grouped hash ladder did not converge for this key "
-            "cardinality; the classic path is not ported yet")
+        STATS["star_bailouts"] += 1
     return result

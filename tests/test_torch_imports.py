@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of `liquid_tpu_torch`, and not
-`chip_smoke.py`, imports jax or the JAX package, and the port never picks
-the CPU on its own."""
+`chip_smoke.py`, imports jax, the JAX package or pandas (the card's
+machine has no pandas), and the port never picks the CPU on its own."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -24,7 +24,7 @@ def _port_sources():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "liquid_tpu")
+    return top in ("jax", "jaxlib", "liquid_tpu", "pandas")
 
 
 def test_no_jax_or_reference_imports_in_sources():
@@ -49,13 +49,15 @@ def test_importing_every_module_loads_no_jax():
     for name in ("sql.fused_agg", "_native", "arrays.fsst",
                  "arrays.prefixkeys", "arrays.byteview", "bench.runner",
                  "bench.main", "bench.oracle", "bench.tpch_queries",
-                 "sql.exec", "sql.fused_star"):
+                 "sql.exec", "sql.fused_star", "sql.device_join",
+                 "sql.device_agg", "sql.physical", "ops.join",
+                 "ops.groupby"):
         assert f"liquid_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'liquid_tpu'))\n"
+            "('jax', 'jaxlib', 'liquid_tpu', 'pandas'))\n"
             "print(bad)\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -3,8 +3,8 @@ query on the vendored `nano_hits.parquet`, through the port and the JAX
 package, both on the CPU.
 
 `ANSWERED` pins, as a set that may only grow, the queries the port
-answers equal to the reference; every other query must raise
-NotImplementedError naming what is missing.  The reference's own fused
+answers equal to the reference: all 43 since the classic path (q19,
+q23 and q39 run it, `CLASSIC`).  The reference's own fused
 set (`tests/test_route_fence.py::EXPECT_CB_FUSED`) must answer through
 the port's fused route (aggregate or bare SELECT).
 
@@ -25,7 +25,9 @@ import pyarrow as pa  # noqa: E402
 
 from liquid_tpu.sql.session import LiquidCacheLocalBuilder as JBuilder  # noqa: E402
 from liquid_tpu_torch.bench.hits import NANO_HITS  # noqa: E402
+from liquid_tpu_torch.bench import oracle  # noqa: E402
 from liquid_tpu_torch.bench.oracle import same_table  # noqa: E402
+from liquid_tpu_torch.sql import exec as texec  # noqa: E402
 from liquid_tpu_torch.sql import fused_agg as tfa  # noqa: E402
 from liquid_tpu_torch.sql.parser import parse_statement  # noqa: E402
 from liquid_tpu_torch.sql.session import LiquidCacheLocalBuilder  # noqa: E402
@@ -37,19 +39,18 @@ EXPECT_CB_FUSED = [1, 2, 3, 4, 7, 8, 9, 12, 13, 14, 15, 16, 17, 18,
                    21, 22, 24, 26, 27, 28, 30, 34, 35, 40, 42]
 
 #: ClickBench queries the port answers equal to the reference -- grow-only
-ANSWERED = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17,
-            18, 20, 21, 22, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34,
-            35, 36, 37, 38, 40, 41, 42}
+ANSWERED = set(range(43))
 
 #: what each query the port does not answer yet raises for
-#: q19: once UserID is cached, the port's zone maps leave one block, whose
-#: 64 bit-planes have no interval form; the reference's fused select hands
-#: that case to its classic path.  (On a fresh session the port keeps three
-#: blocks, one of them linear-coded, runs the predicate as residual IR and
-#: answers; the reference keeps three blocks in both states.)
-RAISES = {19: "predicate eq on UserID",
-          23: "SELECT \\*",
-          39: "literal ''"}              # a string-valued CASE
+RAISES: dict = {}
+
+#: the queries the fused routes pass to the classic path, with the reason
+#: they give.  q19: once UserID is cached, the port's zone maps leave one
+#: block, whose 64 bit-planes have no interval form (on a fresh session
+#: the port keeps three blocks, one of them linear-coded, and its fused
+#: select answers; the reference keeps three in both states).  q23:
+#: SELECT *.  q39: a string-valued CASE.
+CLASSIC = {19: "predicate eq on UserID", 23: "SELECT *", 39: "literal ''"}
 
 
 def _sql(i: int) -> str:
@@ -123,18 +124,34 @@ def test_fence_sets_cover_every_query():
 def test_clickbench_query(sessions, i):
     jctx, tctx = sessions
     sql = _sql(i)
+    if i == 19:  # the hand-off needs UserID's zone maps: cache it first
+        tctx.sql('SELECT MAX("UserID") FROM hits').to_arrow()
     if i not in ANSWERED:
-        if i == 19:  # the raise needs UserID's zone maps: cache it first
-            tctx.sql('SELECT MAX("UserID") FROM hits').to_arrow()
         with pytest.raises(NotImplementedError, match=RAISES[i]):
             tctx.sql(sql).to_arrow()
         return
     before = (tfa.STATS["fused_queries"], tfa.STATS["fused_selects"])
+    c0 = dict(texec.STATS)
     ours = tctx.sql(sql).to_arrow()
     if i in EXPECT_CB_FUSED:
         assert (tfa.STATS["fused_queries"], tfa.STATS["fused_selects"]) \
             != before, "left the fused route"
+    if i in CLASSIC:
+        assert CLASSIC[i] in tfa.STATS["last_bail"]
+        assert texec.STATS != c0, "the classic path did not run"
     assert_same_answer(ours, jctx, sql)
+
+
+@pytest.mark.parametrize("i", sorted(CLASSIC))
+def test_classic_oracle_matches_the_reference(sessions, i):
+    """The pyarrow oracle phase 6e of `chip_smoke.py` holds the port to,
+    against the reference's answer (its whole answer where a LIMIT cuts
+    through ties, under the tie rule of `oracle.CUTS`)."""
+    jctx, _ = sessions
+    name = f"cb_q{i}"
+    want = oracle.answers({"hits": NANO_HITS}, [name])[name]
+    assert oracle.same_table(jctx.sql(_sql(i)).to_arrow(), want,
+                             oracle.CUTS.get(name))
 
 
 def test_tie_rule_compares_only_the_count_at_the_cut():

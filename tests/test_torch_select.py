@@ -9,11 +9,11 @@ same order -- including which of the rows tied at the LIMIT cut it keeps:
 both pick the lower row ids first.  The port fetches the cap's rows at
 once where the reference fetches 4k + 64: where the k-th row ties the
 reference's boundary the port must give the reference's classic answer.
-Each case where the port cannot answer (a tie at the fetch cap's boundary,
-a NaN or nullable order key, an unordered scan too large to fetch,
-SELECT *, SELECT DISTINCT, a stated NULL placement, a LIMIT beyond the
-fetch cap) sends the reference to its classic path and must raise
-NotImplementedError naming it in the port."""
+Each case the fused select does not take (a tie at the fetch cap's
+boundary, a NaN or nullable order key, an unordered scan too large to
+fetch, SELECT *, SELECT DISTINCT, a stated NULL placement, a LIMIT beyond
+the fetch cap) sends both packages to their classic paths, which give
+the same answer."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -21,12 +21,15 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 import pyarrow as pa  # noqa: E402
 import pyarrow.parquet as pq  # noqa: E402
+import re  # noqa: E402
 
 from liquid_tpu.sql import fused_agg as jfa  # noqa: E402
 from liquid_tpu.sql.session import LiquidCacheLocalBuilder as JBuilder  # noqa: E402
 from liquid_tpu_torch.bench.hits import NANO_HITS  # noqa: E402
+from liquid_tpu_torch.sql import exec as texec  # noqa: E402
 from liquid_tpu_torch.sql import fused_agg as tfa  # noqa: E402
 from liquid_tpu_torch.sql.session import LiquidCacheLocalBuilder  # noqa: E402
+from tests.test_torch_route_fence import assert_same_answer  # noqa: E402
 
 N = 30_000
 
@@ -159,13 +162,20 @@ REFUSED = [
                          ids=[q[0] for q in REFUSED])
 def test_refused_shapes_raise_where_the_reference_goes_classic(
         sessions, name, sql, names):
+    """The fused select refuses these in both packages (the port names
+    why in `last_bail`); the classic scan then answers as the
+    reference's does.  Each was a raise before the classic path."""
     jctx, tctx = sessions
     j0, t0 = jfa.STATS.get("fused_selects", 0), tfa.STATS["fused_selects"]
-    jctx.sql(sql).to_arrow()
+    c0 = texec.STATS["classic_selects"]
+    ref = jctx.sql(sql).to_arrow()
     assert jfa.STATS.get("fused_selects", 0) == j0
-    with pytest.raises(NotImplementedError, match=names):
-        tctx.sql(sql).to_arrow()
+    ours = tctx.sql(sql).to_arrow()
     assert tfa.STATS["fused_selects"] == t0
+    assert re.search(names, tfa.STATS["last_bail"])
+    assert texec.STATS["classic_selects"] == c0 + 1
+    assert_same_answer(ours, jctx, sql)
+    assert ours.num_rows == ref.num_rows
 
 
 def test_select_run_ranks_and_ids(monkeypatch):

@@ -14,6 +14,7 @@ import os  # noqa: E402
 
 import numpy as np  # noqa: E402
 import pyarrow as pa  # noqa: E402
+import pyarrow.compute as pc  # noqa: E402
 import pyarrow.parquet as pq  # noqa: E402
 
 from liquid_tpu.bench import tpch_data as jtpch  # noqa: E402
@@ -22,8 +23,10 @@ from liquid_tpu.sql.session import LiquidCacheLocalBuilder as JBuilder  # noqa: 
 from liquid_tpu_torch.bench import tpch_data as ttpch  # noqa: E402
 from liquid_tpu_torch.bench.hits import NANO_HITS  # noqa: E402
 from liquid_tpu_torch.ops import bitpack_cuda  # noqa: E402
+from liquid_tpu_torch.sql import exec as texec  # noqa: E402
 from liquid_tpu_torch.sql import fused_agg as tfa  # noqa: E402
 from liquid_tpu_torch.sql.session import LiquidCacheLocalBuilder  # noqa: E402
+from tests.test_torch_route_fence import assert_same_answer  # noqa: E402
 
 Q6 = """SELECT sum(l_extendedprice * l_discount) as revenue
  FROM lineitem WHERE l_shipdate >= date '1994-01-01'
@@ -59,11 +62,11 @@ QUERIES = [
 ]
 
 UNSUPPORTED = [
-    # shapes the port does not take yet: count(DISTINCT) of an expression
-    # (count(DISTINCT column) answers since the distinct routes were
-    # ported: tests/test_torch_distinct.py), a string ordering inside a
-    # residual condition, SELECT DISTINCT and SELECT * (an unordered bare
-    # SELECT answers through the fused select: tests/test_torch_select.py)
+    # shapes no fused route takes, which the classic path answers:
+    # count(DISTINCT) of an expression (count(DISTINCT column) has device
+    # routes: tests/test_torch_distinct.py), a string ordering inside a
+    # residual condition, SELECT DISTINCT (an unordered bare SELECT answers
+    # through the fused select: tests/test_torch_select.py)
     'SELECT COUNT(DISTINCT "SearchPhrase" || \'x\') FROM hits',
     'SELECT COUNT(*) FROM hits WHERE "URL" < \'b\' OR "AdvEngineID" + 1 = 3',
     'SELECT COUNT(DISTINCT "UserID" + 1) FROM hits',
@@ -148,9 +151,14 @@ def test_metadata_count_matches_reference(sessions):
 
 @pytest.mark.parametrize("sql", UNSUPPORTED)
 def test_unsupported_shape_raises(sessions, sql):
-    _, tctx = sessions
-    with pytest.raises(NotImplementedError):
-        tctx.sql(sql)
+    """Shapes no fused route takes: each was a raise before the classic
+    path; now the classic path answers them as the reference does."""
+    jctx, tctx = sessions
+    c0 = dict(texec.STATS)
+    ours = tctx.sql(sql).to_arrow()
+    assert (texec.STATS["classic_aggregates"] + texec.STATS["classic_selects"]
+            == c0["classic_aggregates"] + c0["classic_selects"] + 1)
+    assert_same_answer(ours, jctx, sql)
 
 
 def test_scalar_star_join_matches_reference(sessions):
@@ -166,12 +174,20 @@ def test_scalar_star_join_matches_reference(sessions):
 
 
 def test_arrow_mode_block_raises_naming_the_reason(paths):
+    """Arrow-form blocks have no fused form (`last_bail` names the block
+    that is not MEMORY_LIQUID); it was a raise before the classic path,
+    whose scan now evaluates the predicate on the decoded blocks."""
     ctx, _ = (LiquidCacheLocalBuilder(device="cpu")
               .with_transcode_on_insert(False).build())
     ctx.register_parquet("lineitem", paths["lineitem"])
-    with pytest.raises(NotImplementedError, match="MEMORY_LIQUID"):
-        ctx.sql("SELECT COUNT(*) FROM lineitem WHERE l_quantity < 24")
+    c0 = texec.STATS["classic_aggregates"]
+    got = ctx.sql("SELECT COUNT(*) FROM lineitem WHERE l_quantity < 24"
+                  ).to_arrow().column(0)[0].as_py()
     assert tfa.STATS["last_bail"].startswith("block")
+    assert "MEMORY_LIQUID" in tfa.STATS["last_bail"]
+    assert texec.STATS["classic_aggregates"] == c0 + 1
+    q = pq.read_table(paths["lineitem"], columns=["l_quantity"])
+    assert got == pc.sum(pc.less(q["l_quantity"], 24)).as_py()
 
 
 def test_reregistration_releases_budget(paths):

@@ -9,8 +9,8 @@ with its `l_orderkey` tie-break), q5, q10 and q19 at sf 0.005 must take
 the star route in both packages (`STATS["star_queries"]` +1) and give
 the same answer: keys, counts, strings and integers exactly, floats to
 rtol 1e-9.  The TPC-H tables come from each package's own generator with the
-same seed.  Shapes outside the slice raise NotImplementedError naming
-themselves.  The probe and the q3 dimension build are held bit for bit
+same seed.  Shapes the star route does not take pass to the classic
+join path, which answers as the reference's does.  The probe and the q3 dimension build are held bit for bit
 against the reference's."""
 import pytest
 
@@ -30,9 +30,11 @@ from liquid_tpu.sql.session import LiquidCacheLocalBuilder as JBuilder  # noqa: 
 from liquid_tpu_torch.bench import main as bench  # noqa: E402
 from liquid_tpu_torch.bench import tpch_data as ttpch  # noqa: E402
 from liquid_tpu_torch.ops import bitpack_cuda  # noqa: E402
+from liquid_tpu_torch.sql import exec as texec  # noqa: E402
 from liquid_tpu_torch.sql import fused_agg as tfa  # noqa: E402
 from liquid_tpu_torch.sql import fused_star as tstar  # noqa: E402
 from liquid_tpu_torch.sql.session import LiquidCacheLocalBuilder  # noqa: E402
+from tests.test_torch_route_fence import assert_same_answer  # noqa: E402
 
 SF = 0.005
 Q3 = next(q[3] for q in bench.queries(1, 1) if q[0] == "tpch_q3")
@@ -247,7 +249,7 @@ def test_cpu_star_run_launches_no_kernel(sessions):
     assert bitpack_cuda.LAUNCHES["cmp_const_many"] == before
 
 
-#: (case, sql, what the NotImplementedError names)
+#: (case, sql, the reason the star route gives for passing it on)
 OUT_OF_SLICE = [
     ("duplicate_dim_key", "SELECT grp, count(*) c FROM fact JOIN ddim "
      "ON fk = dk GROUP BY grp ORDER BY grp", "N:M join"),
@@ -258,7 +260,7 @@ OUT_OF_SLICE = [
      "composite chain depth 9"),
     ("exists", "SELECT grp, count(*) c FROM fact, dim WHERE fk = dk AND "
      "EXISTS (SELECT * FROM mid WHERE m_id > qty) GROUP BY grp",
-     "no existence probe takes"),
+     "a correlated subquery"),
     # count(DISTINCT column) folds on the host (CASES); of an expression
     # it has no route
     ("count_distinct", "SELECT grp, count(DISTINCT qty + 1) FROM fact JOIN "
@@ -271,12 +273,33 @@ OUT_OF_SLICE = [
 @pytest.mark.parametrize("name,sql,names", OUT_OF_SLICE,
                          ids=[c[0] for c in OUT_OF_SLICE])
 def test_out_of_slice_shapes_raise(sessions, name, sql, names):
-    _, tctx = sessions
-    t0 = tfa.STATS["star_queries"]
-    for _ in range(2):  # a cached refusal raises again
-        with pytest.raises(NotImplementedError, match=names):
+    """Shapes the star route does not take: it passes them on (the
+    reason in `star_last_bail` or the fused aggregate's `last_bail`) and
+    the classic join path answers as the reference's does.  Each was a
+    raise before the classic path."""
+    jctx, tctx = sessions
+    if name == "exists":
+        # no equality correlation: the reference's lookup fails on it
+        # (a merge without keys) and the port names it
+        with pytest.raises(NotImplementedError,
+                           match="no equality correlation"):
             tctx.sql(sql).to_arrow()
+        return
+    ref = jctx.sql(sql).to_arrow()
+    t0 = tfa.STATS["star_queries"]
+    for _ in range(2):  # a cached refusal hands over again
+        c0 = texec.STATS["classic_aggregates"]
+        d0 = tfa.STATS["star_dup_bails"]
+        ours = tctx.sql(sql).to_arrow()
+        assert texec.STATS["classic_aggregates"] == c0 + 1
+        if names == "N:M join":  # found by the uniqueness fetch
+            assert tfa.STATS["star_dup_bails"] == d0 + 1
+        else:
+            assert names in (tfa.STATS.get("star_last_bail", "")
+                             + tfa.STATS.get("last_bail", ""))
+        assert_same_answer(ours, jctx, sql)
     assert tfa.STATS["star_queries"] == t0
+    assert ours.num_rows == ref.num_rows
 
 
 class _Env:

@@ -23,6 +23,7 @@ from liquid_tpu.sql.parser import parse_sql as jparse  # noqa: E402
 from liquid_tpu.sql.session import LiquidCacheLocalBuilder as JBuilder  # noqa: E402
 from liquid_tpu_torch.bench.oracle import same_table  # noqa: E402
 from liquid_tpu_torch.sql import ast as tast  # noqa: E402
+from liquid_tpu_torch.sql import exec as texec  # noqa: E402
 from liquid_tpu_torch.sql import fused_agg as tfa  # noqa: E402
 from liquid_tpu_torch.sql.parser import parse_sql as tparse  # noqa: E402
 from liquid_tpu_torch.sql.session import LiquidCacheLocalBuilder  # noqa: E402
@@ -159,10 +160,14 @@ def test_derived_table_inlines_onto_the_fused_route(sessions):
 
 
 def test_derived_table_that_does_not_inline_raises(sessions):
-    _, tctx = sessions
-    with pytest.raises(NotImplementedError, match="classic join"):
-        tctx.sql("SELECT max(n) FROM (SELECT a, count(*) AS n FROM t "
-                 "GROUP BY a) AS d").to_arrow()
+    """A derived table that does not inline (an aggregate inside) was a
+    raise before the classic path; now the join source executes it and
+    the classic aggregator answers as the reference does."""
+    sql = "SELECT max(n) FROM (SELECT a, count(*) AS n FROM t GROUP BY a) AS d"
+    c0 = texec.STATS["classic_aggregates"]
+    ours, ref = _both(sessions, sql)
+    assert texec.STATS["classic_aggregates"] == c0 + 1
+    _same(ours, ref, ordered=True)
 
 
 def _rewritten(ctx, parse, sql):
@@ -216,15 +221,32 @@ def test_uncorrelated_subquery_answers(sessions, sql):
 
 def test_not_in_a_list_with_null_raises(sessions):
     """NOT IN over a subquery that returns a NULL is never true: the
-    reference neither probes it nor fuses it (its classic path answers)."""
-    _, tctx = sessions
-    with pytest.raises(NotImplementedError, match="NOT IN with NULL"):
-        tctx.sql("SELECT count(*) FROM t WHERE b NOT IN (SELECT ua FROM u "
-                 "WHERE ub < 4)").to_arrow()
+    reference neither probes it nor fuses it, and neither does the port
+    (`NOT IN with NULL item`); its classic path answers, as the
+    reference's does (this was a raise before the classic path)."""
+    jctx, tctx = sessions
+    sql = ("SELECT count(*) FROM t WHERE b NOT IN (SELECT ua FROM u "
+           "WHERE ub < 4)")
+    c0 = texec.STATS["classic_aggregates"]
+    ours = tctx.sql(sql).to_arrow()
+    assert tfa.STATS["last_bail"] == "NOT IN with NULL item"
+    assert texec.STATS["classic_aggregates"] == c0 + 1
+    assert ours.column(0).to_pylist() == [0]
+    # a reference session of its own: its plan cache keys a subquery by
+    # its kind, so after this file's IN query it would reuse that plan
+    fresh, _ = JBuilder().with_max_memory_bytes(1 << 28).build()
+    for name, table in jctx._tables.items():
+        fresh.register_parquet(name, table.path)
+    _same(ours, fresh.sql(sql).to_arrow(), ordered=True)
 
 
 def test_correlated_subquery_no_probe_takes_raises(sessions):
-    _, tctx = sessions
-    with pytest.raises(NotImplementedError, match="correlated subquery"):
-        tctx.sql("SELECT count(*) FROM t WHERE c > (SELECT avg(uc) FROM u "
-                 "WHERE ub = b)").to_arrow()
+    """A correlated scalar subquery no existence probe takes was a raise
+    before the classic path; now it is a lookup (`CorrLookup`) into its
+    inner aggregate, evaluated by the classic scan."""
+    sql = ("SELECT count(*) FROM t WHERE c > (SELECT avg(uc) FROM u "
+           "WHERE ub = b)")
+    c0 = texec.STATS["classic_aggregates"]
+    ours, ref = _both(sessions, sql)
+    assert texec.STATS["classic_aggregates"] == c0 + 1
+    _same(ours, ref, ordered=True)
