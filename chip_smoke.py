@@ -86,7 +86,9 @@ Phases (any failure raises and the script exits non-zero):
    answers (first run and last warm run) checked against pyarrow (the
    tie rule where a LIMIT cuts), the classic counter of `exec.STATS`
    asserted per run, K1's single-form launches per run equal to
-   `classic_k1_per_run` in every run; in the phase, at least
+   `classic_k1_per_run` in every run (one per row group, pushdown
+   predicate and width bucket the scan hands the cache, a bucket of one
+   block included: `k1_groups`); in the phase, at least
    one sort-merge join on the card (`device_join.STATS`), one grouped
    device aggregation (`device_agg.STATS`) and one single-form K1
    launch; the first run and the best of three warm runs timed, and the
@@ -94,6 +96,23 @@ Phases (any failure raises and the script exits non-zero):
    `ops/join.py` calls); every (planes, constants) the runs gave K1's
    single form captured by wrapping the wrapper from here; counts set
    to 0 just before this phase and read after;
+   6f. the cache under a memory budget: W is the bytes the session's
+   cache holds for the columns of the bench's six queries and TPC-H q12,
+   q14 and q19 (`pressure_queries`, `pressure_working_set`), the cap
+   W // 4; two fresh sessions at the cap on the same parquet, each with
+   its own cache directory: the default policy (a first run and three
+   warm runs of each query, and phase 9's profiled run) and
+   `liquid-no-squeeze` (a first run and one warm run); every answer of
+   the first and last run equal to pyarrow, `memory_used <= cap` after
+   every run, disk writes in both, and in the default session squeezes,
+   an entry seen squeezed and a read from one (`squeeze_io_reads` or
+   `squeeze_io_saved`); K1 launches in the phase; logged per query: warm
+   best, first run, busy and idle share, K1 launches per run in both
+   forms; per session: `by_state`, the disk and squeeze counters, the
+   store file's bytes, `DiskIoGuard`'s read and write bytes and peak
+   device memory; every (planes, constants) K1's single form got
+   captured, those of a squeezed array's compare labelled narrow;
+   counts set to 0 just before this phase and read after;
 7. K1's interval form checked bit-exact against its plain version and
    timed (CUDA events, L2 flushed before each timed call) on the exact
    (planes, lo, hi) the main path gave it -- the single-table plans'
@@ -101,7 +120,9 @@ Phases (any failure raises and the script exits non-zero):
    single-constant launches it replaces (as a pair after one flush, and
    one alone), the plain version and the byte bound; its single form
    checked bit-exact on every input phase 6e captured and the largest
-   timed beside its plain version and byte bound (`time_k1_single`);
+   timed beside its plain version and byte bound (`time_k1_single`); and
+   on every input phase 6f captured, the largest narrow one timed the
+   same way (`time_k1_narrow`);
 8. K2 timed the same way on the inputs captured in phase 6, beside its
    plain version, one `index_add_` call on the same
    inputs (stacked to int64 outside the timing) and its byte bound, with
@@ -115,9 +136,11 @@ Phases (any failure raises and the script exits non-zero):
    fused select's host time by step (`host_split`);
    9b. the port's benchmark entry point (`liquid_tpu_torch.bench.main`)
    in this process at this run's sizes, counts set to 0 just before and
-   read after: six queries answered and checked against pyarrow, routes
-   fused and (`tpch_q3`) star, the micro line's K3 launches (at least
-   256); its JSON line is
+   read after: six queries answered in `liquid` mode (routes fused and,
+   `tpch_q3`, star) and in `arrow` mode (every route classic), the two
+   modes' answers equal to each other and to pyarrow, `arrow_ms` and
+   `vs_baseline` reported, the micro line's K3 launches (at least 256);
+   its JSON line is
    printed by it.  The launches of its operator timing loops are
    counted apart: each kernel's `launches` is the query phases' and the
    micro line's, `launches_by_phase` splits it and adds the loops';
@@ -383,20 +406,44 @@ def classic_queries():
             ("cb_q39", slice_sql(39), "classic_aggregates")]
 
 
-def classic_k1_per_run(ctx) -> dict:
-    """K1 single-form launches (`bitpack_cuda.cmp_const_many`) per run of
-    each phase-6e query: one per row group x pushdown predicate x width
-    bucket of two or more blocks (no zone map here prunes a row group's
-    blocks below two).  q2: part's p_size = 15 and the dynamic ps_suppkey
-    range on partsupp (ps_partkey is linear-coded: decoded and compared);
-    q19: UserID's equality, per hits row group.  The others filter on
-    strings, IN lists, linear-coded keys (q17's part takes lineitem's
-    l_partkey range on its sorted p_partkey) or zone maps alone."""
-    def rgs(name):
-        return ctx._tables[name].num_row_groups
-    out = {q: 0 for q, _s, _c in classic_queries()}
-    out.update(tpch_q2=rgs("part") + rgs("partsupp"), cb_q19=rgs("hits"))
-    return out
+def k1_groups(cache, entry_ids, pred) -> int:
+    """K1 single-form launches one `eval_predicate_many` call must make:
+    one per (width bucket, op) among the resident bit-plane blocks whose
+    predicate needs a compare (a bucket of one block included), plus one
+    per threshold of each resident ALP float block it evaluates one by
+    one."""
+    from liquid_tpu_torch.arrays.float_alp import LiquidFloatArray
+    from liquid_tpu_torch.arrays.primitive import LiquidPrimitiveArray
+    from liquid_tpu_torch.cache import core
+    buckets, floats = set(), 0
+    with cache._lock:
+        for eid in entry_ids:
+            e = cache._entries.get(eid)
+            if e is None or e.state != core.MEMORY_LIQUID:
+                continue
+            p = e.payload
+            if isinstance(p, LiquidPrimitiveArray):
+                plan = p.packed_plan(pred)
+                if plan is not None and plan[0] == "cmp":
+                    buckets.add((p.planes_np.shape[0], plan[2]))
+            elif isinstance(p, LiquidFloatArray) and pred.op in (
+                    "eq", "ne", "lt", "lt_eq", "gt", "gt_eq") and isinstance(
+                    pred.literal, (int, float)) and not isinstance(
+                    pred.literal, bool) and pred.literal == pred.literal:
+                strict = {"lt": (False,), "gt_eq": (False,),
+                          "lt_eq": (True,), "gt": (True,)}.get(
+                              pred.op, (False, True))
+                top = (1 << p.width) - 1 if p.width else 0
+                floats += sum(0 < p.lower_bound(float(pred.literal), st)
+                              <= top for st in strict)
+    return len(buckets) + floats
+
+
+def classic_k1_per_run(scans) -> int:
+    """K1 single-form launches a classic run must make, from the scans it
+    handed the cache (`k1_groups` of each `eval_predicate_many` call):
+    one per row group, pushdown predicate and width bucket."""
+    return sum(scans)
 
 
 def run_statements(ctx, sql):
@@ -788,8 +835,17 @@ def run_harness(torch, args):
         raise AssertionError(f"harness routes {res['routes']}")
     if res["micro_packed_compare_rows_per_s"] is None:
         raise AssertionError("harness micro line gave no rate")
-    if set(res["not_ported"]) != {"arrow"}:
+    if res["not_ported"]:
         raise AssertionError(f"harness not_ported {res['not_ported']}")
+    # the entry point raises when the modes' answers differ
+    if res["arrow_ms"] is None or res["vs_baseline"] is None \
+            or set(res["arrow_ms"]) != set(res["queries_ms"]):
+        raise AssertionError(f"harness arrow mode: {res['arrow_ms']} "
+                             f"{res['vs_baseline']}")
+    if res["arrow_routes"] != {q: "classic" for q in res["queries_ms"]}:
+        raise AssertionError(f"harness arrow routes {res['arrow_routes']}")
+    log(f"[harness] arrow over liquid {res['vs_baseline']}: "
+        f"{json.dumps(res['vs_baseline_per_query'])}")
     return res, op_launches
 
 
@@ -1265,11 +1321,13 @@ def run_classic_path(torch, ctx, expect: dict):
     time of the joins' sorts and probes (`ops/join.py`) is read from CUDA
     events around each call."""
     from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.cache.core import LiquidCache
     from liquid_tpu_torch.ops import bitpack_cuda as k1
     from liquid_tpu_torch.ops import join as jops
     from liquid_tpu_torch.sql import exec as sql_exec
-    calls, events = [], []
+    calls, events, scans = [], [], []
     wrapped = k1.cmp_const_many
+    many = LiquidCache.eval_predicate_many
     join_ops = {n: getattr(jops, n) for n in ("sort_build", "probe_bounds",
                                                "expand_matches",
                                                "matched_flags")}
@@ -1278,6 +1336,10 @@ def run_classic_path(torch, ctx, expect: dict):
         if planes.shape[0] * planes.shape[1]:
             calls.append((planes, cs))
         return wrapped(planes, cs)
+
+    def scan(cache, entry_ids, pred):
+        scans.append(k1_groups(cache, entry_ids, pred))
+        return many(cache, entry_ids, pred)
 
     def timed(fn):
         def run(*a):
@@ -1291,10 +1353,10 @@ def run_classic_path(torch, ctx, expect: dict):
         return run
 
     k1.cmp_const_many = capture
+    LiquidCache.eval_predicate_many = scan
     for name, fn in join_ops.items():
         setattr(jops, name, timed(fn))
     report, inputs, seen = {}, [], set()
-    k1_want = classic_k1_per_run(ctx)
     try:
         for qname, sql, counter in classic_queries():
             torch.cuda.reset_peak_memory_stats()
@@ -1304,6 +1366,7 @@ def run_classic_path(torch, ctx, expect: dict):
                 launches = k1.LAUNCHES["cmp_const_many"]
                 calls.clear()
                 events.clear()
+                scans.clear()
                 out = run_statements(ctx, sql)
                 torch.cuda.synchronize()
                 if sql_exec.STATS[counter] <= st[counter]:
@@ -1311,27 +1374,31 @@ def run_classic_path(torch, ctx, expect: dict):
                                          f"{sql_exec.STATS} vs {st}")
                 join_ms = sum(s.elapsed_time(e) for s, e in events)
                 return (out, k1.LAUNCHES["cmp_const_many"] - launches,
-                        list(calls), join_ms, len(events))
+                        list(calls), join_ms, len(events),
+                        classic_k1_per_run(scans))
 
             t0 = time.perf_counter()
-            out, first_k1, first_calls, first_join_ms, _ = run_once()
+            out, first_k1, first_calls, first_join_ms, _, want = run_once()
             t_first = time.perf_counter() - t0
-            outs, warm, singles = {"first": out}, [], [len(first_calls)]
+            outs, warm = {"first": out}, []
+            singles, wants = [len(first_calls)], [want]
             for _ in range(3):
                 t0 = time.perf_counter()
-                out, per_run, warm_calls, join_ms, join_calls = run_once()
+                (out, per_run, warm_calls, join_ms, join_calls,
+                 want) = run_once()
                 warm.append(time.perf_counter() - t0)
                 singles.append(len(warm_calls))
+                wants.append(want)
             outs["last warm"] = out
             for what, got in outs.items():
                 if not oracle.same_table(got, expect[qname],
                                          oracle.CUTS.get(qname)):
                     raise AssertionError(f"{qname} ({what} run): port "
                                          f"{got.to_pylist()[:2]} != pyarrow")
-            if set(singles) != {k1_want[qname]}:
+            if singles != wants:
                 raise AssertionError(f"{qname}: K1 single-form launches per "
-                                     f"run {singles}, expected "
-                                     f"{k1_want[qname]} in each")
+                                     f"run {singles}, expected {wants} "
+                                     f"(classic_k1_per_run)")
             for run, got in (("first", first_calls), ("warm", warm_calls)):
                 for i, (planes, cs) in enumerate(got):
                     key = (planes.data_ptr(), tuple(planes.shape),
@@ -1352,9 +1419,220 @@ def run_classic_path(torch, ctx, expect: dict):
             log(f"[classic] {qname}: {json.dumps(report[qname])}")
     finally:
         k1.cmp_const_many = wrapped
+        LiquidCache.eval_predicate_many = many
         for name, fn in join_ops.items():
             setattr(jops, name, fn)
     return report, inputs
+
+
+#: phase 6f: the bench's six queries, then TPC-H q12, q14 and q19 (with
+#: q1, q3 and q6 the reference's memory-pressure subset,
+#: `tests/test_memory_pressure.py`)
+def pressure_queries():
+    from liquid_tpu_torch.bench.main import queries
+    from liquid_tpu_torch.bench.tpch_queries import QUERIES
+    return [(n, sql) for n, _c, _r, sql in queries(1, 1)] + [
+        (f"tpch_q{q}", QUERIES[q]) for q in (12, 14, 19)]
+
+
+def pressure_working_set(ctx, qs) -> int:
+    """W: the bytes the session's cache holds for the columns the queries
+    name (the sum of their entries' `mem_bytes`), transcoding nothing."""
+    import re
+    cols = set()
+    for t in ctx._tables.values():
+        for i, c in enumerate(t.column_names):
+            if any(re.search(rf"\b{re.escape(c)}\b", sql) for _n, sql in qs):
+                cols.add((t.file_id, i))
+    cache = ctx.cache
+    with cache._lock:
+        return sum(e.mem_bytes for eid, e in cache._entries.items()
+                   if (eid >> 48, (eid >> 16) & 0xFFFF) in cols)
+
+
+def run_pressure_path(torch, paths: dict, expect: dict, cap: int):
+    """Phase 6f: the cache under a memory budget -> (report, [(planes, cs,
+    label)] of every K1 single-form input the phase gave).  Two fresh
+    sessions at `cap`, each with its own cache directory: the default
+    policy (`TranscodeSqueezeEvict`: a first run and three warm runs of
+    each query) and `liquid-no-squeeze` (`bench/runner.make_session`: a
+    first run and one warm run).  Every answer of the first and the last
+    run equals pyarrow; `memory_used <= cap` after every run; disk writes
+    in both; in the default session squeezes, an entry seen squeezed and
+    a read from one.  A compare made inside a squeezed array's predicate
+    is labelled narrow."""
+    import tempfile
+    import threading
+    from liquid_tpu_torch import LiquidCacheLocalBuilder
+    from liquid_tpu_torch.arrays import hybrid
+    from liquid_tpu_torch.arrays.float_alp import SqueezedFloatArray
+    from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.bench.runner import DiskIoGuard, make_session
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    qs = pressure_queries()
+    inputs, counts, state = [], {"single": 0, "interval": 0}, \
+        threading.local()
+    single, interval = k1.cmp_const_many, k1.in_interval_many
+    squeezed = (hybrid.SqueezedPrimitiveArray, hybrid.SqueezedQuantizedArray,
+                hybrid.SqueezedByteViewArray, hybrid.SqueezedDate32Array,
+                SqueezedFloatArray)
+    evals = {c: c.try_eval_predicate for c in squeezed}
+
+    def capture(planes, cs):
+        if planes.shape[0] * planes.shape[1]:
+            counts["single"] += 1
+            inputs.append((planes, cs, getattr(state, "label", "")))
+        return single(planes, cs)
+
+    def capture_interval(planes, lo, hi):
+        if planes.shape[0] * planes.shape[1]:
+            counts["interval"] += 1
+        return interval(planes, lo, hi)
+
+    def narrow(fn):
+        def run(self, pred, io, device):
+            state.label = "narrow"
+            try:
+                return fn(self, pred, io, device)
+            finally:
+                state.label = ""
+        return run
+
+    def session(mode, cache_dir):
+        if mode == "default":
+            ctx, cache = (LiquidCacheLocalBuilder().with_max_memory_bytes(cap)
+                          .with_cache_dir(cache_dir).build())
+        else:
+            ctx, cache = make_session(mode, cap, cache_dir)
+        for name, p in paths.items():
+            ctx.register_parquet(name, p)
+        return ctx, cache
+
+    report = {}
+    k1.cmp_const_many, k1.in_interval_many = capture, capture_interval
+    for c in squeezed:
+        c.try_eval_predicate = narrow(evals[c])
+    try:
+        for mode, warm_runs in (("default", 3), ("liquid-no-squeeze", 1)):
+            torch.cuda.reset_peak_memory_stats()
+            with tempfile.TemporaryDirectory() as d, DiskIoGuard() as io:
+                ctx, cache = session(mode, d)
+                rows, seen_squeezed = {}, 0
+                t_mode = time.perf_counter()
+                for qname, sql in qs:
+                    per_run, times = [], []
+                    for run in range(1 + warm_runs):
+                        state.label = ""
+                        c0 = dict(counts)
+                        t0 = time.perf_counter()
+                        out = ctx.sql(sql).to_arrow()
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                        per_run.append({k: counts[k] - c0[k] for k in c0})
+                        st = cache.stats()
+                        if st["memory_used"] > cap:
+                            raise AssertionError(
+                                f"6f {mode} {qname}: memory_used "
+                                f"{st['memory_used']} > cap {cap}")
+                        seen_squeezed = max(seen_squeezed, st["by_state"].get(
+                            "memory_squeezed", 0))
+                        if run in (0, warm_runs) and not oracle.same_table(
+                                out, expect[qname], oracle.CUTS.get(qname)):
+                            raise AssertionError(
+                                f"6f {mode} {qname} (run {run}): port "
+                                f"{out.to_pylist()[:2]} != pyarrow")
+                    row = dict(first_run_s=times[0],
+                               warm_best_ms=min(times[1:]) * 1e3,
+                               warm_ms=[t * 1e3 for t in times[1:]],
+                               k1_per_run=per_run)
+                    if mode == "default":
+                        bd = device_breakdown(torch, ctx, sql,
+                                              row["warm_best_ms"],
+                                              settle=False)
+                        row.update(device_busy_ms=bd["device_busy_ms"],
+                                   idle_share=bd["idle_share"],
+                                   device_ops=bd["device_ops"])
+                    row["stats"] = {k: st[k] for k in (
+                        "memory_used", "disk_used", "squeezes", "disk_reads",
+                        "disk_writes", "squeeze_io_reads", "squeeze_io_saved",
+                        "hydrations")}
+                    rows[qname] = row
+                    log(f"[pressure] {mode} {qname}: {json.dumps(row)}")
+                st = cache.stats()
+                summary = dict(
+                    seconds=time.perf_counter() - t_mode,
+                    by_state=st["by_state"], entries=st["entries"],
+                    max_squeezed_entries=seen_squeezed,
+                    store_file_bytes=cache.store.file_bytes,
+                    **{k: st[k] for k in (
+                        "memory_used", "disk_used", "squeezes", "disk_reads",
+                        "disk_writes", "squeeze_io_reads",
+                        "squeeze_io_saved", "hydrations", "transcodes")})
+                del ctx, cache
+            summary.update(io_read_bytes=io.read_bytes,
+                           io_write_bytes=io.write_bytes,
+                           max_memory_allocated=torch.cuda
+                           .max_memory_allocated())
+            log(f"[pressure] {mode} summary: {json.dumps(summary)}")
+            if summary["disk_writes"] <= 0:
+                raise AssertionError(f"6f {mode}: no disk write")
+            if mode == "default" and (
+                    summary["squeezes"] <= 0 or seen_squeezed <= 0
+                    or summary["squeeze_io_reads"]
+                    + summary["squeeze_io_saved"] <= 0):
+                raise AssertionError(f"6f default: the squeezed tier did not "
+                                     f"engage: {summary}")
+            report[mode] = {"queries": rows, "summary": summary}
+    finally:
+        k1.cmp_const_many, k1.in_interval_many = single, interval
+        for c in squeezed:
+            c.try_eval_predicate = evals[c]
+    return report, inputs
+
+
+def time_k1_narrow(torch, inputs: list) -> dict:
+    """Phase 7, the pressure phase's inputs: every (planes, cs) phase 6f
+    gave K1's single form checked bit-exact against `cmp_const_many_ref`
+    (stacked by width: each block's result depends on its own planes and
+    constant alone), and the largest narrow one (a squeezed array's
+    compare) timed beside its plain version and its byte bound."""
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    if not inputs:
+        raise AssertionError("phase 6f left no K1 single-form inputs")
+    by_width = {}
+    for planes, cs, _label in inputs:
+        by_width.setdefault(planes.shape[1], []).append((planes, cs))
+    worst = 0
+    for group in by_width.values():
+        for i in range(0, len(group), 4096):
+            part = group[i:i + 4096]
+            planes = torch.cat([p for p, _ in part])
+            cs = torch.cat([c for _, c in part])
+            worst = max(worst, _max_abs_err(
+                torch, k1.cmp_const_many(planes, cs),
+                k1.cmp_const_many_ref(planes, cs)))
+    if worst:
+        raise AssertionError(f"K1's single form != plain on phase 6f's "
+                             f"inputs: {worst}")
+    narrow = [x for x in inputs if x[2] == "narrow"]
+    planes, cs, label = max(narrow or inputs, key=lambda x: x[0].numel())
+    bsz, width, _ = planes.shape
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    t_bytes = k1_single_bytes(bsz, width) / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * width * bsz * 256 / WORD_OPS_PER_S * 1e3
+    row = dict(inputs=len(inputs), narrow_inputs=len(narrow),
+               widths={int(w): len(g) for w, g in sorted(by_width.items())},
+               label=label or "resident", B=bsz, w=width,
+               bytes=k1_single_bytes(bsz, width),
+               ms=time_cold(torch, lambda: k1.cmp_const_many(planes, cs),
+                            flush, 100),
+               plain_ms=time_cold(torch, lambda: k1.cmp_const_many_ref(
+                   planes, cs), flush, 20),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               max_abs_err=worst)
+    log(f"[k1-narrow] {json.dumps(row)}")
+    return row
 
 
 def k1_single_bytes(bsz: int, width: int) -> int:
@@ -1506,7 +1784,8 @@ def time_k2(torch, inputs: dict) -> dict:
     return {"rows": rows, "max_abs_err": worst}
 
 
-def device_breakdown(torch, ctx, sql: str, warm_best_ms: float) -> dict:
+def device_breakdown(torch, ctx, sql: str, warm_best_ms: float,
+                     settle: bool = True) -> dict:
     """Phase 9: one warm run of `sql` under torch.profiler -> device-busy
     ms (union of kernel and copy intervals), the idle share of the
     unprofiled best warm time, the device operation count and the
@@ -1514,11 +1793,13 @@ def device_breakdown(torch, ctx, sql: str, warm_best_ms: float) -> dict:
     so its own wall time is reported but not used for the idle share.
     One unprofiled run first: a cache insert since the query's own warm
     runs (a later phase transcoding its columns) makes its next run plan
-    and upload again."""
+    and upload again; `settle=False` skips it (phase 6f calls this right
+    after the query's warm runs)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    run_statements(ctx, sql)
-    torch.cuda.synchronize()
+    if settle:
+        run_statements(ctx, sql)
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1649,6 +1930,11 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(
         __file__)), help="the tree whose liquid_tpu_torch --trash-band times")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
+
+    def clock(phase):  # when each phase ended, for the time budget
+        log(f"[clock] phase {phase} done at "
+            f"{time.perf_counter() - t_start:.1f} s")
 
     import torch
     if not torch.cuda.is_available():
@@ -1675,6 +1961,7 @@ def main(argv=None) -> int:
     log(f"[device] {kind} x{count}; torch {torch.__version__} "
         f"cuda {torch.version.cuda} numpy {numpy.__version__} pyarrow "
         f"{pyarrow.__version__}; nvidia-smi: {card}")
+    clock("1")
 
     # 2. build the three kernel sources (one nvcc each) and the native
     #    FSST library (g++), all started together
@@ -1687,6 +1974,7 @@ def main(argv=None) -> int:
     log(f"[build] {sorted(os.path.relpath(v) for v in libs.values())} + "
         f"{os.path.relpath(native_lib)} in {time.perf_counter() - t0:.2f} s")
     log(f"[sass] K2 shared atomics {k2_sass_atomics(libs[k2.SOURCE])}")
+    clock("2")
 
     # 3. K1 vs plain, every width and batch shape
     dev = torch.device("cuda")
@@ -1694,6 +1982,7 @@ def main(argv=None) -> int:
     err1 = check_k1(torch, dev)
     log(f"[k1-check] bit-exact over widths 1..64 x B {{1,3,489,4097}}, "
         f"single and interval forms ({time.perf_counter() - t0:.1f} s)")
+    clock("3")
 
     # 4. K2 vs plain, every slot count, width and skew
     t0 = time.perf_counter()
@@ -1701,6 +1990,7 @@ def main(argv=None) -> int:
     log(f"[k2-check] bit-exact over m {{1,63,8889,16385,65535}} x C "
         f"{{1,4,7,16}} x n {{2048,4097,4005888,4005891}} x uniform/zipf "
         f"slots ({time.perf_counter() - t0:.1f} s)")
+    clock("4")
 
     # 4b. K3 and K4 vs plain, every width, three word counts, both forms
     t0 = time.perf_counter()
@@ -1708,6 +1998,7 @@ def main(argv=None) -> int:
     log(f"[k34-check] bit-exact over widths 0..64 x W {{256,4096,2^22}} x "
         f"constants {{0,1,random,2^w-1,>=2^w,2^64-1}}, flat and prepped "
         f"({time.perf_counter() - t0:.1f} s)")
+    clock("4b")
 
     # 5. scalar main path, counts reset just before and read just after
     t0 = time.perf_counter()
@@ -1730,6 +2021,7 @@ def main(argv=None) -> int:
     if scalar_launches["cmp_const_many"] <= 0:
         raise AssertionError(f"the scalar path did not launch K1: "
                              f"{scalar_launches}")
+    clock("5")
 
     # 6. grouped main path, counts reset just before and read just after
     _reset(counters)
@@ -1738,6 +2030,7 @@ def main(argv=None) -> int:
     if grouped_launches["group_accumulate"] <= 0:
         raise AssertionError(f"the grouped path did not launch K2: "
                              f"{grouped_launches}")
+    clock("6")
     # 6b. the star path, counts reset just before and read just after
     _reset(counters)
     sreport, star_k1_inputs = run_star_path(torch, ctx, expect)
@@ -1745,6 +2038,7 @@ def main(argv=None) -> int:
     if star_launches["cmp_const_many"] <= 0:
         raise AssertionError(f"the star path did not launch K1: "
                              f"{star_launches}")
+    clock("6b")
     # 6c. the single-table slice, counts reset just before and read after
     _reset(counters)
     log(f"[slice] the data's distinct UserID values: "
@@ -1753,6 +2047,7 @@ def main(argv=None) -> int:
     slice_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
     if slice_launches["cmp_const_many"] <= 0:
         raise AssertionError(f"the slice did not launch K1: {slice_launches}")
+    clock("6c")
     # 6d. TPC-H's multi-table queries, counts reset just before and read
     #     just after
     _reset(counters)
@@ -1761,6 +2056,7 @@ def main(argv=None) -> int:
     multi_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
     if multi_launches["cmp_const_many"] <= 0:
         raise AssertionError(f"phase 6d did not launch K1: {multi_launches}")
+    clock("6d")
     # 6e. the classic path, counts reset just before and read just after
     from liquid_tpu_torch.sql import device_agg, device_join
     _reset(counters)
@@ -1777,11 +2073,32 @@ def main(argv=None) -> int:
         raise AssertionError(f"phase 6e: no sort-merge join on the card, "
                              f"no grouped device aggregation or no K1 "
                              f"single-form launch: {joins} {aggs}")
+    clock("6e")
+    # 6f. the cache under a memory budget: W, the bytes the session's cache
+    #     holds for the phase's columns, and a cap of W // 4; counts reset
+    #     just before and read just after
+    w_bytes = pressure_working_set(ctx, pressure_queries())
+    cap = w_bytes // 4
+    log(f"[pressure] W {w_bytes} bytes (the earlier phases' entries of the "
+        f"nine queries' columns); cap W // 4 = {cap} bytes")
+    _reset(counters)
+    t0 = time.perf_counter()
+    pressure_report, pressure_inputs = run_pressure_path(torch, paths, expect,
+                                                         cap)
+    pressure_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
+    log(f"[pressure] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(pressure_launches)}; K1 single-form inputs "
+        f"{len(pressure_inputs)}")
+    if pressure_launches["cmp_const_many"] <= 0:
+        raise AssertionError(f"phase 6f did not launch K1: "
+                             f"{pressure_launches}")
     log(f"[launches] scalar path {json.dumps(scalar_launches)}; grouped "
         f"path {json.dumps(grouped_launches)}; star path "
         f"{json.dumps(star_launches)}; slice {json.dumps(slice_launches)}; "
         f"multi-table {json.dumps(multi_launches)}; classic "
-        f"{json.dumps(classic_launches)}")
+        f"{json.dumps(classic_launches)}; pressure "
+        f"{json.dumps(pressure_launches)}")
+    clock("6f")
 
     # 7. K1's interval form checked and timed on the main path's own
     #    inputs, the star and multi-table phases' included
@@ -1791,11 +2108,15 @@ def main(argv=None) -> int:
         f"launches {top['over_two_single']:.3f}, / twice one single "
         f"{top['over_twice_single']:.3f}")
     single = time_k1_single(torch, classic_k1_inputs)
+    narrow = time_k1_narrow(torch, pressure_inputs)
+    del pressure_inputs
+    clock("7")
 
     # 8. K2 checked and timed on the grouped and multi-table phases' own
     #    inputs
     k2_timing = time_k2(torch, {**k2_inputs, **multi_k2_inputs})
     k2_top = k2_timing["rows"]["cb_groupby"]
+    clock("8")
 
     # 9. where a warm query's device time goes
     warm = {q: r["warm_best_ms"] for q, r in
@@ -1819,6 +2140,7 @@ def main(argv=None) -> int:
         if qname in ("cb_q24", "cb_q26"):
             log(f"[host] {qname}: {json.dumps(host_split(ctx, sql))}")
     del ctx
+    clock("9")
 
     # 9b. the benchmark entry point in this process, counts reset just
     #     before and read just after (K3 runs in its micro line)
@@ -1836,20 +2158,21 @@ def main(argv=None) -> int:
             or harness_launches["count_gt"] < 256:
         raise AssertionError(f"the harness did not launch K1 and K3: "
                              f"{harness_launches}")
+    clock("9b")
 
     # 10. K3 and K4 timed on the micro line's input
     k34 = time_k34(torch)
     phases = {"scalar": scalar_launches, "grouped": grouped_launches,
               "star": star_launches, "slice": slice_launches,
               "multi": multi_launches, "classic": classic_launches,
-              "harness": harness_launches,
+              "pressure": pressure_launches, "harness": harness_launches,
               "harness_operator_timing": op_launches}
 
     def launches(name):
         # the main path's launches: the query phases and the micro line
         return sum(phases[p][name]
                    for p in ("scalar", "grouped", "star", "slice", "multi",
-                             "classic", "harness"))
+                             "classic", "pressure", "harness"))
 
     def by_phase(name):
         return {p: d.get(name, 0) for p, d in phases.items()}
@@ -1861,7 +2184,8 @@ def main(argv=None) -> int:
         "launches": launches("cmp_const_many"),
         "launches_by_phase": by_phase("cmp_const_many"),
         "max_abs_err": max(err1, timing["max_abs_err"],
-                           single["max_abs_err"]), "tolerance": 0,
+                           single["max_abs_err"], narrow["max_abs_err"]),
+        "tolerance": 0,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None, "form": "interval",
@@ -1871,6 +2195,9 @@ def main(argv=None) -> int:
         "single_form": {k: single[k] for k in (
             "inputs", "column", "B", "w", "ms", "plain_ms", "bound_ms",
             "bound_by")},
+        "pressure_form": {k: narrow[k] for k in (
+            "inputs", "narrow_inputs", "label", "B", "w", "ms", "plain_ms",
+            "bound_ms", "bound_by")},
         "matches_plain": True,
     }, {
         "name": "group_accumulate", "route": "cuda",
@@ -1901,7 +2228,11 @@ def main(argv=None) -> int:
             "shape": [row["w"], row["rows"] // 32], "matches_plain": True,
         })
     summary = {**report, **greport, **sreport, **slice_report,
-               **multi_report, **classic_report}
+               **multi_report, **classic_report,
+               "pressure": {m: r["summary"] for m, r in
+                            pressure_report.items()},
+               "pressure_cap": cap, "pressure_working_set": w_bytes}
+    clock("10")
     log(f"[summary] {json.dumps(summary)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

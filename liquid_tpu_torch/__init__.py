@@ -14,16 +14,18 @@ copied here, not imported.
 
 Layer map (mirrors `liquid_tpu`):
   arrays/  - liquid encodings (bit-planes, linear, ALP floats, FSST-backed
-             string dictionaries)
+             string dictionaries), their squeezed forms, Liquid IPC
   ops/     - masks, bit-plane compares, grouped reductions, the CUDA
              kernels and their twins
-  cache/   - cache runtime (memory tiers)
+  cache/   - cache runtime: five entry states, squeeze and hydration
+             policies, the disk block store
   io/      - parquet tables: row-group stats and zone-map pruning
   sql/     - SQL frontend and the fused scalar and grouped device paths
   bench/   - the benchmark entry point (`python -m
              liquid_tpu_torch.bench.main`), its pyarrow oracle, and the
              data generators
-  _native/ - ctypes binding of the native FSST codec (built with g++)
+  _native/ - ctypes binding of the native FSST codec and block store
+             (built with g++)
 """
 
 __version__ = "0.1.0"

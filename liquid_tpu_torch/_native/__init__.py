@@ -7,9 +7,9 @@ The port builds its OWN shared library from the repository's
 kernels).  It never writes into, or loads from, the JAX package's
 directory.  Concurrent builders (test workers) each compile to a private
 temp file and `os.replace` it into place, so a reader never sees a
-half-written library.  The ABI is plain C.  Only the FSST entry points
-are declared: the disk block store belongs to the spill tier, which is
-not ported yet.
+half-written library.  The ABI is plain C: the FSST codec's entry points
+(`lqt_fsst_*`) and the disk block store's (`lqt_store_*`,
+`cache/store.py`).
 """
 from __future__ import annotations
 
@@ -100,6 +100,31 @@ def _declare(h: ctypes.CDLL) -> None:
     h.lqt_fsst_decompress_batch.restype = u64
     h.lqt_fsst_decompress_batch.argtypes = [vp, _u8p, _u64p, u64, _u8p, u64,
                                             _u64p]
+    # the block store
+    h.lqt_store_open.restype = vp
+    h.lqt_store_open.argtypes = [ctypes.c_char_p]
+    h.lqt_store_close.restype = None
+    h.lqt_store_close.argtypes = [vp]
+    h.lqt_store_put.restype = ctypes.c_int
+    h.lqt_store_put.argtypes = [vp, u64, _u8p, u64, _u64p]
+    h.lqt_store_get_len.restype = ctypes.c_int64
+    h.lqt_store_get_len.argtypes = [vp, u64]
+    h.lqt_store_get.restype = ctypes.c_int
+    h.lqt_store_get.argtypes = [vp, u64, _u8p, u64]
+    h.lqt_store_read_range.restype = ctypes.c_int
+    h.lqt_store_read_range.argtypes = [vp, u64, u64, _u8p]
+    h.lqt_store_remove.restype = u64
+    h.lqt_store_remove.argtypes = [vp, u64]
+    h.lqt_store_contains.restype = ctypes.c_int
+    h.lqt_store_contains.argtypes = [vp, u64]
+    h.lqt_store_range_of.restype = ctypes.c_int
+    h.lqt_store_range_of.argtypes = [vp, u64, _u64p, _u64p]
+    h.lqt_store_file_bytes.restype = u64
+    h.lqt_store_file_bytes.argtypes = [vp]
+    h.lqt_store_live_bytes.restype = u64
+    h.lqt_store_live_bytes.argtypes = [vp]
+    h.lqt_store_compact.restype = ctypes.c_int
+    h.lqt_store_compact.argtypes = [vp]
 
 
 def buf_ptr(b) -> "ctypes._Pointer":

@@ -5,6 +5,11 @@ The port keeps each block's encoded fields on the HOST (numpy, the
 reference's exact words); the fused path stacks many blocks into one
 device tensor per column.  `to_device(device)` decodes one block for
 tests and callers that want a single block on a device.
+
+A `LiquidSqueezedArray` is a block under memory pressure: a smaller,
+partial form stays resident and the exact bytes (Liquid IPC,
+`arrays/ipc.py`) lie on disk.  Its IO handler is any object with
+`read((offset, len) | None) -> bytes`.
 """
 from __future__ import annotations
 
@@ -55,9 +60,43 @@ class LiquidArray(abc.ABC):
     def to_device(self, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(values[BLOCK_ROWS], packed validity int32[256] or None)."""
 
+    @abc.abstractmethod
+    def to_bytes(self) -> bytes:
+        """Liquid IPC bytes (`arrays/ipc.py`)."""
+
+    def squeeze(self):
+        """-> (LiquidSqueezedArray, disk bytes), or None when the encoding
+        has no squeezed form."""
+        return None
+
     @property
     @abc.abstractmethod
     def arrow_type(self) -> pa.DataType: ...
+
+
+class LiquidSqueezedArray(abc.ABC):
+    """A partially-on-disk block: a resident lossy or partial form plus a
+    disk range holding the exact bytes."""
+
+    length: int
+
+    @abc.abstractmethod
+    def memory_bytes(self) -> int: ...
+
+    @abc.abstractmethod
+    def to_arrow(self, io) -> pa.Array:
+        """Full decode; may call io.read(range) for the backing bytes."""
+
+    def try_eval_predicate(self, pred: Predicate, io, device):
+        """Packed row mask on `device` from the resident bits where they
+        decide it, reading the backing for the rest; None without a
+        packed form."""
+        return None
+
+    @abc.abstractmethod
+    def disk_backing(self) -> Tuple[str, Tuple[int, int]]:
+        """-> (kind, (offset, len)) of the backing bytes; kind "liquid"
+        (IPC bytes) or "arrow"."""
 
 
 def pack_validity(valid_bools: Optional[np.ndarray], length: int):

@@ -16,9 +16,10 @@ on string length.  The dictionary has two backings:
   decompress only the ambiguous entries.
 
 Substring fingerprints (a 32-bit character-class mask per dictionary
-entry) prune `contains` candidates before any decompression.  The
-serialized (`to_bytes`) and squeezed forms belong to the IPC and hybrid
-encodings, which are not ported yet, and raise NotImplementedError.
+entry) prune `contains` candidates before any decompression.  `to_bytes`
+is Liquid IPC (`arrays/ipc.py`); `squeeze` keeps the codes, prefix keys
+and fingerprints resident and sends the dictionary to disk
+(`arrays/hybrid.py`).
 """
 from __future__ import annotations
 
@@ -330,12 +331,12 @@ class LiquidByteViewArray(LiquidArray):
         return mops.BoolMask(bits, valid)
 
     def to_bytes(self) -> bytes:
-        raise NotImplementedError("byte-view IPC serialization is not "
-                                  "ported yet")
+        from liquid_tpu_torch.arrays import ipc
+        return ipc.serialize_byteview(self)
 
     def squeeze(self):
-        raise NotImplementedError("the squeezed (hybrid) byte-view form is "
-                                  "not ported yet")
+        from liquid_tpu_torch.arrays import hybrid
+        return hybrid.squeeze_byteview(self)
 
 
 def verdict_gather(verdict: torch.Tensor, codes: torch.Tensor

@@ -10,6 +10,7 @@ Host code only: nothing here touches a device.
 """
 from __future__ import annotations
 
+import struct
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -190,5 +191,46 @@ class FsstBuffer:
         return self.compressor.decompress(self.comp_data[lo:hi].tobytes())
 
     def take_bytes(self, indices: np.ndarray) -> List[bytes]:
-        """Decompress only the requested entries."""
-        return [self.get(int(i)) for i in indices]
+        """Decompress only the requested entries, in one batch call (a
+        symbol expands to at most 8 bytes, which bounds the output)."""
+        idx = np.asarray(indices, dtype=np.int64)
+        lo = self.comp_offsets[idx].astype(np.int64)
+        lens = self.comp_offsets[idx + 1].astype(np.int64) - lo
+        offs = np.zeros(len(idx) + 1, dtype=np.int64)
+        np.cumsum(lens, out=offs[1:])
+        pos = np.repeat(lo - offs[:-1], lens) + np.arange(offs[-1])
+        out, out_offs = self.compressor.decompress_batch(
+            self.comp_data[pos], offs, 8 * int(offs[-1]))
+        return [out[out_offs[i]:out_offs[i + 1]].tobytes()
+                for i in range(len(idx))]
+
+    # -- serialization (inside Liquid IPC, `arrays/ipc.py`) -------------------
+
+    def to_bytes(self, include_table: bool = True) -> bytes:
+        """Header (entries, uncompressed bytes, table bytes, data bytes as
+        u64 LE), the symbol table, the offsets and the data -- the
+        reference's layout."""
+        table = self.compressor.to_bytes() if include_table else b""
+        head = struct.pack("<QQQQ", len(self), self.uncompressed_bytes,
+                           len(table), len(self.comp_data))
+        return b"".join([head, table,
+                         self.comp_offsets.astype(np.uint64).tobytes(),
+                         self.comp_data.tobytes()])
+
+    @classmethod
+    def from_bytes(cls, data: bytes,
+                   compressor: Optional[FsstCompressor] = None
+                   ) -> "FsstBuffer":
+        n, unc, tlen, dlen = struct.unpack_from("<QQQQ", data, 0)
+        off = 32
+        if tlen:
+            compressor = FsstCompressor.from_bytes(data[off:off + tlen])
+        if compressor is None:
+            raise ValueError("fsst: no symbol table in the stream or given")
+        off += tlen
+        comp_offsets = np.frombuffer(data, dtype=np.uint64, count=n + 1,
+                                     offset=off).copy()
+        off += (n + 1) * 8
+        comp_data = np.frombuffer(data, dtype=np.uint8, count=dlen,
+                                  offset=off).copy()
+        return cls(comp_data, comp_offsets, compressor, unc)

@@ -112,6 +112,11 @@ class LiquidLinearArray(LiquidArray):
         return mops.BoolMask(mops.pack_bools(cmp(vals, lit)), valid)
 
 
+    def to_bytes(self) -> bytes:
+        from liquid_tpu_torch.arrays import ipc
+        return ipc.serialize_linear(self)
+
+
 def _int_literal(pred: Predicate):
     """A numeric literal normalized for an integer compare -> (op, int),
     ("const", bool) or None."""

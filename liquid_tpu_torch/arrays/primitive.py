@@ -6,7 +6,9 @@ Values are stored as unsigned offsets from a per-block
 encoding is computed on the host with the reference's exact arithmetic,
 so `planes_np`, `reference_value` and `validity_np` equal the
 reference's fields.  Predicates are translated into the packed domain on
-the host (`packed_plan`); the fused path compares on the device.
+the host (`packed_plan`); the fused path compares on the device, a single
+block through K1's single form at B = 1.  `to_bytes` is Liquid IPC;
+`squeeze` clamps the offsets to half the width (`arrays/hybrid.py`).
 """
 from __future__ import annotations
 
@@ -188,3 +190,11 @@ class LiquidPrimitiveArray(LiquidArray):
             if (lit < r) or (lit == r and op == "gt_eq"):
                 return ("const", True)
         return ("cmp", np.uint64(lit - r), op)
+
+    def to_bytes(self) -> bytes:
+        from liquid_tpu_torch.arrays import ipc
+        return ipc.serialize_primitive(self)
+
+    def squeeze(self):
+        from liquid_tpu_torch.arrays import hybrid
+        return hybrid.squeeze_primitive(self)

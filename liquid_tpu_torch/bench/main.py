@@ -3,23 +3,27 @@
     python -m liquid_tpu_torch.bench.main          # one CUDA card, full size
     python -m liquid_tpu_torch.bench.main --device cpu --hits-rows 20000 --sf 0.01
 
-Runs the benchmark's queries through the public `LiquidCacheLocalBuilder`
-SQL path in `liquid` mode: transcode every query's columns, one first run
-of each query, then the best of three warm runs, each timed by the host
-clock up to `torch.cuda.synchronize()`.  Then it times the engine's
-operators on its own resident columns (CUDA events; card only) and the
+Runs the benchmark's six queries through the public
+`LiquidCacheLocalBuilder` SQL path in two of the reference's modes, as
+`bench.py` does: `liquid` (transcoded blocks, the fused and star routes)
+and then `arrow` (arrow blocks, `Evict`, so the classic path answers),
+each on a fresh session over the same parquet.  Per mode: load every
+query's columns into the cache, one first run of each query, then the
+best of three warm runs, each timed by the host clock up to
+`torch.cuda.synchronize()`.  Then it times the engine's operators on the
+liquid session's resident columns (CUDA events; card only) and the
 packed-compare micro line, K3 `count_gt` over 2^27 rows (2^15 on the
 CPU).  It prints ONE JSON line on stdout; logs go to stderr.
 
-The gate: every answer must equal an independent pyarrow answer computed
-from the same parquet (`bench/oracle.py`): non-float columns exactly,
-float columns to rtol 1e-9.  The reference compares `liquid` with its
-`arrow` mode instead; that mode is the classic host path, which is not
-ported, so it stands in `NOT_PORTED`: it is not run, and `arrow_ms` and
-`vs_baseline` are null.  All six queries run: five on the fused route,
-`tpch_q3` on the star route (`sql/fused_star.py`); `routes` reports each.
-Nothing catches a failure: a query that cannot run, or a wrong answer,
-ends the run with an error.
+The gate, before any number is reported: liquid's and arrow's answers
+agree with each other (non-float columns exactly, floats to rtol 1e-9:
+the reference's gate, `bench.py:769-819`), and each equals an independent
+pyarrow answer computed from the same parquet (`bench/oracle.py`).
+`arrow_ms` holds arrow's warm best per query and `vs_baseline` the sum of
+arrow's over the sum of liquid's (`vs_baseline_per_query`: the same per
+query); `routes` and `arrow_routes` say which route answered.  Nothing
+catches a failure: a query that cannot run, or a wrong answer, ends the
+run with an error.
 
 Defaults: 4,000,000 synthesized ClickBench `hits` rows and TPC-H SF 1 on
 the card; 200,000 rows and SF 0.02 on the CPU (the reference bench's
@@ -44,10 +48,7 @@ ITERS = 3
 HBM_BYTES_PER_S = 3.35e12
 
 #: what the reference bench runs that the port does not, and why
-NOT_PORTED = {
-    "arrow": "the arrow mode runs the classic host path, which is not "
-             "ported yet",
-}
+NOT_PORTED: dict = {}
 
 #: the TPC-H tables the queries read (the star join's dimensions too)
 TPCH_TABLES = ("lineitem", "orders", "customer", "supplier", "nation",
@@ -140,13 +141,26 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_mode(mode, paths, qs, device):
-    """Transcode, first run, best of ITERS -> (best s per query, first
-    results, first-run s per query, (transcode s, first-runs s), ctx,
-    routes, spreads)."""
-    from liquid_tpu_torch.bench.runner import make_session
+def _route(fused_before: dict, exec_before: dict) -> str:
+    from liquid_tpu_torch.sql import exec as sql_exec
     from liquid_tpu_torch.sql.fused_agg import STATS
-    ctx, _cache = make_session(mode, 16 << 30, device)
+    if STATS["star_queries"] > fused_before["star_queries"]:
+        return "star"
+    if STATS["fused_queries"] > fused_before["fused_queries"]:
+        return "fused"
+    if any(v > exec_before[k] for k, v in sql_exec.STATS.items()):
+        return "classic"
+    return "host"
+
+
+def run_mode(mode, paths, qs, device):
+    """Load, first run, best of ITERS -> (best s per query, first
+    results, first-run s per query, (load s, first-runs s), ctx, routes,
+    spreads)."""
+    from liquid_tpu_torch.bench.runner import make_session
+    from liquid_tpu_torch.sql import exec as sql_exec
+    from liquid_tpu_torch.sql.fused_agg import STATS
+    ctx, _cache = make_session(mode, 16 << 30, device=device)
     dev = ctx.device
     for name, path in paths.items():
         ctx.register_parquet(name, path)
@@ -166,26 +180,42 @@ def run_mode(mode, paths, qs, device):
         _sync(dev)
         first[name] = time.perf_counter() - t1
     t_first = time.perf_counter() - t0
-    log(f"[{mode}] warm-up: transcode {t_transcode:.3f} s, first runs "
+    log(f"[{mode}] warm-up: load {t_transcode:.3f} s, first runs "
         f"{t_first:.3f} s")
     times, routes, spreads = {}, {}, {}
     for name, _tcols, rows, sql in qs:
         runs = []
         for _ in range(ITERS):
-            fused, star = STATS["fused_queries"], STATS["star_queries"]
+            fused, classic = dict(STATS), dict(sql_exec.STATS)
             t0 = time.perf_counter()
             ctx.sql(sql).to_arrow()
             _sync(dev)
             runs.append(time.perf_counter() - t0)
-            routes[name] = ("star" if STATS["star_queries"] > star
-                            else "fused" if STATS["fused_queries"] > fused
-                            else "host")
+            routes[name] = _route(fused, classic)
         times[name] = min(runs)
         spreads[name] = max(runs) / max(times[name], 1e-9)
         log(f"[{mode}] {name}: {times[name] * 1e3:.3f} ms "
             f"({rows / times[name] / 1e6:.1f} Mrows/s) [{routes[name]}] "
             f"spread x{spreads[name]:.2f}")
     return times, results, first, (t_transcode, t_first), ctx, routes, spreads
+
+
+def modes_agree(a, b) -> bool:
+    """The reference bench's gate between two modes' answers: same rows,
+    non-float columns equal, float columns to rtol 1e-9 (with numpy's
+    default atol 1e-8, as there)."""
+    import pyarrow as pa
+    if a.num_rows != b.num_rows or a.num_columns != b.num_columns:
+        return False
+    for ca, cb in zip(a.columns, b.columns):
+        if pa.types.is_floating(ca.type) or pa.types.is_decimal(ca.type):
+            va = np.asarray(ca.cast(pa.float64()).to_pylist(), dtype=float)
+            vb = np.asarray(cb.cast(pa.float64()).to_pylist(), dtype=float)
+            if not np.allclose(va, vb, rtol=1e-9, equal_nan=True):
+                return False
+        elif ca.to_pylist() != cb.to_pylist():
+            return False
+    return True
 
 
 def _timed_ms(fn, iters: int) -> float:
@@ -366,36 +396,50 @@ def main(argv=None) -> dict:
 
     t_liquid, results, first, warm, ctx, routes, spreads = run_mode(
         "liquid", paths, qs, device)
-    for name, _, _, _ in qs:
-        if not oracle.same_table(results[name], expect[name]):
-            raise AssertionError(
-                f"{name}: the engine's answer {results[name].to_pylist()[:3]}"
-                f" differs from pyarrow's")
-    log("correctness gate: liquid == pyarrow oracle on all queries")
     ops = operator_rooflines(ctx)
     del ctx
+    t_arrow, r_arrow, first_a, warm_a, ctx_a, routes_a, _sa = run_mode(
+        "arrow", paths, qs, device)
+    del ctx_a
+    for name, _, _, _ in qs:
+        for mode, got in (("liquid", results[name]), ("arrow", r_arrow[name])):
+            if not oracle.same_table(got, expect[name]):
+                raise AssertionError(
+                    f"{name}: the {mode} answer {got.to_pylist()[:3]} "
+                    f"differs from pyarrow's")
+        if not modes_agree(results[name], r_arrow[name]):
+            raise AssertionError(f"{name}: liquid and arrow answers differ")
+    log("correctness gate: liquid == arrow == pyarrow oracle on all queries")
 
     total_rows = sum(rows for _, _, rows, _ in qs)
-    value = total_rows / sum(t_liquid.values())
+    sum_liquid, sum_arrow = sum(t_liquid.values()), sum(t_arrow.values())
+    log(f"totals: liquid {sum_liquid * 1e3:.3f} ms, arrow "
+        f"{sum_arrow * 1e3:.3f} ms")
     micro = micro_kernel_line(device, micro_rows)
     out = {
         "metric": "e2e_query_rows_per_s",
-        "value": value,
+        "value": total_rows / sum_liquid,
         "unit": "rows/s/chip",
         "device": {"platform": "gpu" if on_card else "cpu", "kind": kind},
-        "vs_baseline": None,
+        "vs_baseline": sum_arrow / sum_liquid,
+        "vs_baseline_per_query": {k: t_arrow[k] / t_liquid[k]
+                                  for k in t_liquid},
         "queries_ms": {k: v * 1e3 for k, v in t_liquid.items()},
-        "arrow_ms": None,
+        "arrow_ms": {k: v * 1e3 for k, v in t_arrow.items()},
         "first_run_ms": {k: v * 1e3 for k, v in first.items()},
+        "arrow_first_run_ms": {k: v * 1e3 for k, v in first_a.items()},
         "warmup_s": {"liquid_transcode": warm[0],
-                     "liquid_first_runs": warm[1]},
+                     "liquid_first_runs": warm[1],
+                     "arrow_load": warm_a[0], "arrow_first_runs": warm_a[1]},
         "data": card,
         "routes": routes,
+        "arrow_routes": routes_a,
         "spread": spreads,
         "operators": ops,
         "micro_packed_compare_rows_per_s": micro,
         "micro_rows": micro_rows,
-        "gate": "pyarrow oracle: non-float exact, float rtol 1e-9",
+        "gate": "liquid == arrow (non-float exact, float rtol 1e-9) and "
+                "each == pyarrow oracle",
         "not_ported": NOT_PORTED,
     }
     print(json.dumps(out), flush=True)

@@ -240,6 +240,35 @@ def _tpch_q14(paths) -> List[pa.Array]:
     return [pa.array([100.0 * promo / pc.sum(rev).as_py()], pa.float64())]
 
 
+def _tpch_q19(paths) -> List[pa.Array]:
+    """q19: three (brand, containers, quantity range, size range) branches
+    over the part-lineitem join, AIR shipments delivered in person."""
+    li = _read(paths, "lineitem", ["l_partkey", "l_quantity",
+                                   "l_extendedprice", "l_discount",
+                                   "l_shipmode", "l_shipinstruct"])
+    li = li.filter(pc.and_(
+        pc.is_in(li["l_shipmode"], pa.array(["AIR", "AIR REG"])),
+        pc.equal(li["l_shipinstruct"], "DELIVER IN PERSON")))
+    j = _join(li, _read(paths, "part", ["p_partkey", "p_brand",
+                                        "p_container", "p_size"]),
+              "l_partkey", "p_partkey")
+    keep = None
+    for brand, size, qty, cont in (
+            ("Brand#12", 5, 1, "SM"), ("Brand#23", 10, 10, "MED"),
+            ("Brand#34", 15, 20, "LG")):
+        kinds = ("CASE", "BOX", "PACK", "PKG") if cont != "MED" else (
+            "BAG", "BOX", "PKG", "PACK")
+        branch = pc.and_(pc.and_(
+            pc.equal(j["p_brand"], brand),
+            pc.is_in(j["p_container"],
+                     pa.array([f"{cont} {k}" for k in kinds]))), pc.and_(
+            _between(j["l_quantity"], qty, qty + 10),
+            _between(j["p_size"], 1, size)))
+        keep = branch if keep is None else pc.or_(keep, branch)
+    return [pa.array([pc.sum(_revenue(j.filter(keep))).as_py()],
+                     pa.float64())]
+
+
 # -- TPC-H's multi-table queries (the star and existence-probe slice) ------
 
 def _between(a, lo, hi):
@@ -751,6 +780,7 @@ ORACLES = {"cb_filter": _cb_filter, "cb_like": _cb_like,
            "tpch_supp_price": _tpch_supp_price, "tpch_q1": _tpch_q1,
            "tpch_q3": _tpch_q3, "tpch_q5": _tpch_q5, "tpch_q10": _tpch_q10,
            "tpch_q12": _tpch_q12, "tpch_q14": _tpch_q14,
+           "tpch_q19": _tpch_q19,
            "tpch_q4": _tpch_q4, "tpch_q7": _tpch_q7, "tpch_q8": _tpch_q8,
            "tpch_q9": _tpch_q9, "tpch_q11": _tpch_q11,
            "tpch_q16": _tpch_q16, "tpch_q18": _tpch_q18,

@@ -1,1 +1,2 @@
-"""Cache runtime: entries, budgets, policies, transcoding (memory tiers)."""
+"""Cache runtime: entries in five states, budgets, replacement, squeeze
+and hydration policies, transcoding, the disk block store."""

@@ -3,15 +3,18 @@
 The planner tells the cache how a column is consumed: only through
 EXTRACT(field) of a date, or only through LIKE '%x%'.  The cache records
 the hints per entry with a majority vote.  A SubstringSearch hint makes a
-string block carry substring fingerprints; in the reference the hints
-also steer squeezing, which is not ported yet.
+string block carry substring fingerprints (kept resident when it is
+squeezed); an ExtractDate32 hint squeezes a date block to that one field
+(`arrays/hybrid.py::squeeze_date32`).  `VariantGet` is declared: the
+variant (JSON) arrays it steers are not ported, so the cache raises on
+it.
 """
 from __future__ import annotations
 
 from collections import Counter, deque
 from dataclasses import dataclass
 
-FIELDS = ("year", "month", "day", "dow")
+from liquid_tpu_torch.utils.dates import FIELDS
 
 
 @dataclass(frozen=True)
@@ -25,6 +28,14 @@ class ExtractDate32:
 @dataclass(frozen=True)
 class SubstringSearch:
     pass
+
+
+@dataclass(frozen=True)
+class VariantGet:
+    """The column is read only through `variant_get(col, path [, type])`:
+    a tuple of (path, type) requests."""
+
+    requests: tuple
 
 
 class HintVote:

@@ -4,7 +4,9 @@
 Entry ids pack `(file<<48)|(rowgroup<<32)|(column<<16)|batch`.  Batches
 are 8192-row slices of a row group; a miss reads the column chunk once
 and inserts every batch.  Row groups are pruned by their min/max
-statistics, batches by min/max zone maps recorded on first load.  The
+statistics, batches by min/max zone maps recorded on first load.  When
+the cache refuses a block under memory pressure (its insert went to disk
+or was dropped), the block is read straight from the parquet file.  The
 reference also prunes with bloom filters and seeds zones from the page
 index; those readers are not ported yet.
 """
@@ -156,7 +158,9 @@ class ParquetTable:
     # -- column loading through the cache -------------------------------------
 
     def ensure_cached(self, rg: int, col_name: str, hint=None) -> List[int]:
-        """Make sure every batch of (rg, col) is cached; returns entry ids."""
+        """Offer every batch of (rg, col) to the cache -> their entry ids.
+        A batch the cache refuses (its insert returned False: on disk or
+        dropped) is left as the cache has it."""
         ids = [self.entry_id(rg, col_name, b)
                for b in range(self.num_batches(rg))]
         if all(self.cache.contains(eid) for eid in ids):
@@ -182,6 +186,10 @@ class ParquetTable:
         if out is None:
             self.ensure_cached(rg, col_name, hint)
             out = self.cache.get(eid)
+            if out is None:  # refused under pressure: read the file
+                out = self._pf.read_row_group(
+                    rg, columns=[col_name]).column(0).combine_chunks(
+                    ).slice(batch * BLOCK_ROWS, BLOCK_ROWS)
         if pa.types.is_dictionary(out.type):
             out = out.cast(out.type.value_type)
         return out
@@ -194,7 +202,7 @@ class ParquetTable:
         out = {}
         for b, arr in zip(want, self.cache.get_arrow_many(
                 [ids[b] for b in want])):
-            if arr is None:
+            if arr is None:  # refused under pressure: a direct read
                 arr = self.get_batch(rg, col_name, b, hint)
             if pa.types.is_dictionary(arr.type):
                 arr = arr.cast(arr.type.value_type)

@@ -11,14 +11,15 @@ stored format is identical.
 Device words are int32 tensors with the reference's uint32 bits;
 constants are u64 values carried as int64 bit images.  The batched
 compare with per-block constants runs the hand-written CUDA kernel
-(`bitpack_cuda.cmp_const_many`) on the card.
+(`bitpack_cuda.cmp_const_many`) on the card; a single block's compare
+is the same kernel at B = 1.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from liquid_tpu_torch.device import FULL, WORD_BITS
+from liquid_tpu_torch.device import WORD_BITS, wrap_i64
 from liquid_tpu_torch.ops import bitpack_cuda
 
 #: Physical plane-count buckets (identical to the reference's).
@@ -42,36 +43,40 @@ def bit_width_for(max_value: int) -> int:
 
 def pack_bitplanes_host(values, width: int) -> np.ndarray:
     """Unsigned values[N] (N % 32 == 0; bits at or above `width` zero)
-    -> uint32[bucket(width), N/32], the reference's layout bit for bit."""
-    v = np.asarray(values, dtype=np.uint64)
+    -> uint32[bucket(width), N/32], the reference's layout bit for bit:
+    each value's bytes unpacked to bits (LSB first), transposed, and each
+    plane's bits packed back into words."""
+    v = np.ascontiguousarray(values, dtype=np.uint64)
     n = v.shape[0]
     assert n % WORD_BITS == 0, n
     bucket = bucket_for(width)
-    w = n // WORD_BITS
     if bucket == 0:
-        return np.zeros((0, w), dtype=np.uint32)
-    vw = v.reshape(w, WORD_BITS)
-    lane = np.uint32(1) << np.arange(WORD_BITS, dtype=np.uint32)
-    out = np.empty((bucket, w), dtype=np.uint32)
-    for b in range(bucket):
-        bits = ((vw >> np.uint64(b)) & np.uint64(1)).astype(np.uint32)
-        out[b] = (bits * lane).sum(axis=1, dtype=np.uint32)
-    return out
+        return np.zeros((0, n // WORD_BITS), dtype=np.uint32)
+    by = v.view(np.uint8).reshape(n, 8)[:, :(bucket + 7) // 8]
+    bits = np.unpackbits(by, axis=1, bitorder="little")[:, :bucket]
+    return np.packbits(np.ascontiguousarray(bits.T), axis=1,
+                       bitorder="little").view(np.uint32)
 
 
 def unpack_bitplanes_host(planes) -> np.ndarray:
-    """uint32[bucket, W] -> uint64[W*32]."""
-    p = np.asarray(planes, dtype=np.uint32)
+    """uint32[bucket, W] -> uint64[W*32]: the planes' bits unpacked, every
+    eight planes summed into one byte of each value."""
+    p = np.ascontiguousarray(planes, dtype=np.uint32)
     bucket, w = p.shape
     n = w * WORD_BITS
     if bucket == 0:
         return np.zeros(n, dtype=np.uint64)
-    shifts = np.arange(WORD_BITS, dtype=np.uint32)
-    acc = np.zeros((w, WORD_BITS), dtype=np.uint64)
-    for b in range(bucket):
-        bits = (p[b][:, None] >> shifts[None, :]) & 1
-        acc |= bits.astype(np.uint64) << np.uint64(b)
-    return acc.reshape(n)
+    nb = (bucket + 7) // 8
+    bits = np.zeros((nb * 8, n), dtype=np.uint8)
+    bits[:bucket] = np.unpackbits(p.view(np.uint8), axis=1, bitorder="little")
+    by = (bits.reshape(nb, 8, n) * _BYTE_WEIGHTS[None, :, None]).sum(
+        axis=1, dtype=np.uint8)
+    out = np.zeros((n, 8), dtype=np.uint8)
+    out[:, :nb] = by.T
+    return out.view("<u8").reshape(n)
+
+
+_BYTE_WEIGHTS = np.uint8(1) << np.arange(8, dtype=np.uint8)
 
 
 def unpack_bitplanes_many(planes_stack: torch.Tensor) -> torch.Tensor:
@@ -89,28 +94,16 @@ def unpack_bitplanes_many(planes_stack: torch.Tensor) -> torch.Tensor:
     return acc.reshape(bsz, w_words * WORD_BITS)
 
 
-def _bit_mask(c: int, b: int) -> int:
-    return FULL if (c >> b) & 1 else 0
-
-
 def cmp_const(planes: torch.Tensor, c: int):
-    """Compare one packed column (int32[w, W]) against an unsigned
-    constant c in [0, 2^64) -> packed (lt, eq).  gt = ~(lt | eq)."""
-    bucket, n_words = planes.shape
+    """Compare one packed block (int32[w, 256]) against an unsigned
+    constant c in [0, 2^64) -> packed (lt, eq).  gt = ~(lt | eq).  Runs
+    K1's single form at B = 1 (`bitpack_cuda.cmp_const_many`): the kernel
+    on a CUDA tensor, its plain version on a CPU tensor."""
     c = int(c)
     assert 0 <= c < (1 << 64), c
-    lt = torch.zeros(n_words, dtype=torch.int32, device=planes.device)
-    eq = torch.full((n_words,), FULL, dtype=torch.int32,
-                    device=planes.device)
-    for b in range(bucket - 1, -1, -1):   # MSB first
-        pb, cb = planes[b], _bit_mask(c, b)
-        lt = lt | (eq & ~pb & cb)
-        eq = eq & ~(pb ^ cb)
-    if bucket < 64 and c >> bucket:
-        # constant bits above the stored width: every value is smaller
-        lt = torch.full_like(lt, FULL)
-        eq = torch.zeros_like(eq)
-    return lt, eq
+    cs = torch.tensor([wrap_i64(c)], dtype=torch.int64, device=planes.device)
+    lt, eq = bitpack_cuda.cmp_const_many(planes[None], cs)
+    return lt[0], eq[0]
 
 
 def combine_op(lt: torch.Tensor, eq: torch.Tensor, op: str) -> torch.Tensor:

@@ -1404,6 +1404,18 @@ def _collect_payloads(table, col, hint, blocks):
 #: cached (blocks-set) prep variants kept per column
 _PREP_VARIANTS = 4
 
+#: payload-identity generations for the prep and probe caches: `id()` can
+#: be reused once a squeezed or evicted payload is freed; a generation
+#: stamped on first sight cannot
+_PAYLOAD_GEN = iter(range(1, 1 << 62)).__next__
+
+
+def _gen_of(pp) -> int:
+    g = getattr(pp, "_liquid_gen", None)
+    if g is None:
+        g = pp._liquid_gen = _PAYLOAD_GEN()
+    return g
+
 
 def _prep_nbytes(prep: _ColPrep) -> int:
     """Device bytes a cached prep holds (charged to the cache budget)."""
@@ -1435,15 +1447,17 @@ def release_prep_cache(table) -> None:
 
 def _table_prep(table, col, hint, blocks) -> _ColPrep:
     """Column prep cached on the table per (col, blocks), invalidated when
-    a payload object changes.  A cached prep reserves its device bytes
-    from the cache budget; when the budget is full it is served uncached."""
+    a payload changes (squeeze, eviction, hydration: a new payload has a
+    new generation, `_gen_of`).  A cached prep reserves its device bytes
+    from the cache budget; when the budget is full it is served
+    uncached."""
     if hasattr(table, "base"):  # an aliased relation: the base's preps
         table, col = table.base, table.base_name(col)
     cache = getattr(table, "_fused_prep", None)
     if cache is None:
         cache = table._fused_prep = {}
     payloads = _collect_payloads(table, col, hint, blocks)
-    key = tuple(id(p) for p in payloads)
+    key = tuple(_gen_of(p) for p in payloads)
     variants = cache.setdefault(col, {})
     hit = variants.get(blocks)
     if hit is not None and hit[0] == key:

@@ -54,7 +54,8 @@ from liquid_tpu_torch.ops import mask as mops
 from liquid_tpu_torch.ops.hashagg import TRASH, _dropped
 from liquid_tpu_torch.sql import ast
 from liquid_tpu_torch.sql.fused_agg import (
-    _AGG_KINDS, STATS, _add, _as_f64, _Bail, _bool_nonnull, _build_vocab,
+    _AGG_KINDS, _PAYLOAD_GEN, STATS, _add, _as_f64, _Bail, _bool_nonnull,
+    _build_vocab, _gen_of,
     _compile_bool, _compile_expr, _Decoders, _expr_key_type, _gid_stack,
     _ir_dtype, _like_regex, _Plan, _plan_cache_key, _plan_slots, _rowvalid,
     _scaled_col_info, _schema_kind, _select_blocks, _selection_packed,
@@ -79,18 +80,6 @@ _EXIST_CACHE_CAP = 8
 #: built dimensions cached per table, and star plans per executor
 _PROBE_CACHE_CAP = 4
 _PLAN_CACHE_CAP = 8
-
-#: payload-identity generations for the probe cache: `id()` can be reused
-#: after a payload is freed; a generation stamped on first sight cannot
-_PAYLOAD_GEN = iter(range(1, 1 << 62)).__next__
-
-
-def _gen_of(pp) -> int:
-    g = getattr(pp, "_liquid_gen", None)
-    if g is None:
-        g = pp._liquid_gen = _PAYLOAD_GEN()
-    return g
-
 
 # -- dimension build ----------------------------------------------------------
 

@@ -6,13 +6,16 @@
     ctx.sql("SELECT COUNT(*) FROM hits WHERE x <> 0").to_arrow()
 
 `with_device("cpu")` runs on the CPU; it is never chosen silently -- with
-no card and no explicit device, `build()` raises.  The reference's disk
-and squeeze options belong to cache tiers that are not ported yet and
-raise NotImplementedError.
+no card and no explicit device, `build()` raises.  The disk tier lives in
+`with_cache_dir` (a fresh temporary directory when none is given) as
+`<dir>/liquid_cache.bin`; `with_max_disk_bytes` caps it and
+`with_squeeze_policy` picks how entries move down under memory pressure.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import os
+import tempfile
+from typing import Dict, Optional, Tuple
 
 import pyarrow as pa
 
@@ -71,17 +74,13 @@ class SessionContext:
         return DataFrame(self._exec.execute_sql(query))
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what}: the squeezed and disk cache tiers are not ported yet")
-
-
 class LiquidCacheLocalBuilder:
     """Fluent builder mirroring the reference's local-mode API, plus the
     device to run on (default CUDA)."""
 
     def __init__(self, device=None):
         self._b = LiquidCacheBuilder()
+        self._cache_dir: Optional[str] = None
         if device is not None:
             self._b.with_device(device)
 
@@ -101,15 +100,20 @@ class LiquidCacheLocalBuilder:
         self._b.with_transcode_on_insert(b)
         return self
 
-    def with_max_disk_bytes(self, n: int):
-        _not_ported("with_max_disk_bytes")
+    def with_max_disk_bytes(self, n: int) -> "LiquidCacheLocalBuilder":
+        self._b.with_max_disk_bytes(n)
+        return self
 
-    def with_cache_dir(self, d: str):
-        _not_ported("with_cache_dir")
+    def with_cache_dir(self, d: str) -> "LiquidCacheLocalBuilder":
+        self._cache_dir = d
+        return self
 
-    def with_squeeze_policy(self, p):
-        _not_ported("with_squeeze_policy")
+    def with_squeeze_policy(self, p) -> "LiquidCacheLocalBuilder":
+        self._b.with_squeeze_policy(p)
+        return self
 
     def build(self) -> Tuple[SessionContext, LiquidCache]:
+        d = self._cache_dir or tempfile.mkdtemp(prefix="liquid_tpu_torch_")
+        self._b.with_disk_path(os.path.join(d, "liquid_cache.bin"))
         cache = self._b.build()
         return SessionContext(cache), cache

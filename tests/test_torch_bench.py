@@ -1,9 +1,11 @@
 """The port's benchmark entry point (`python -m liquid_tpu_torch.bench.main`)
 in its CPU mode at a tiny size: one JSON line on stdout, all six of the
-reference bench's queries -- five on the fused route, `tpch_q3` on the
-star route -- every answer through the pyarrow oracle gate (non-float
-columns exact, float columns rtol 1e-9), and the reference's `arrow` mode
-named as not ported and not run."""
+reference bench's queries in both of its modes -- `liquid` (five on the
+fused route, `tpch_q3` on the star route) and `arrow` (all on the classic
+path) -- every answer through the gate (liquid and arrow agree, non-float
+columns exactly and floats to rtol 1e-9, and each equals the pyarrow
+oracle), with `arrow_ms` and `vs_baseline` reported; `make_session`
+builds all three of the reference's modes."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -47,21 +49,39 @@ def test_one_json_line_with_five_fused_queries(line):
     assert all(v > 0 for v in out["queries_ms"].values())
     assert out["routes"] == {**{q: "fused" for q in FUSED},
                              "tpch_q3": "star"}
-    assert "correctness gate: liquid == pyarrow oracle" in log
+    assert "correctness gate: liquid == arrow == pyarrow oracle" in log
     assert out["device"] == {"platform": "cpu", "kind": "cpu"}
     assert out["data"]["hits_rows"] == 20000
     assert out["value"] > 0 and out["unit"] == "rows/s/chip"
 
 
 def test_not_ported_are_named_and_not_run(line):
+    """Nothing is left out: the arrow mode runs, on the classic path, and
+    its times and the liquid-over-arrow ratios are reported."""
     out, log = line
-    assert set(out["not_ported"]) == {"arrow"}
-    assert out["arrow_ms"] is None and out["vs_baseline"] is None
-    assert "[arrow]" not in log
-    assert set(bench.NOT_PORTED) == {"arrow"}
+    assert out["not_ported"] == {} and bench.NOT_PORTED == {}
+    assert "[arrow]" in log
+    assert set(out["arrow_ms"]) == FUSED | {"tpch_q3"}
+    assert all(v > 0 for v in out["arrow_ms"].values())
+    assert out["arrow_routes"] == {q: "classic" for q in out["arrow_ms"]}
+    assert out["vs_baseline"] == pytest.approx(
+        sum(out["arrow_ms"].values()) / sum(out["queries_ms"].values()))
+    assert out["vs_baseline_per_query"] == pytest.approx(
+        {q: out["arrow_ms"][q] / out["queries_ms"][q]
+         for q in out["queries_ms"]})
     names = [q[0] for q in bench.queries(1, 1)]
     assert names == ["cb_filter", "cb_groupby", "cb_like", "tpch_q1",
                      "tpch_q6", "tpch_q3"]
+
+
+def test_mode_gate_tolerances():
+    a = pa.table({"k": [1, 2], "v": [1.0, 2.0]})
+    assert bench.modes_agree(a, pa.table({"k": [1, 2],
+                                          "v": [1.0 + 1e-10, 2.0]}))
+    assert not bench.modes_agree(a, pa.table({"k": [1, 3], "v": [1.0, 2.0]}))
+    assert not bench.modes_agree(a, pa.table({"k": [1, 2],
+                                              "v": [1.0 + 1e-7, 2.0]}))
+    assert not bench.modes_agree(a, a.slice(0, 1))
 
 
 def test_tpch_q3_answers_equal_the_oracle_on_the_star_route(line, data_dir):
@@ -72,7 +92,7 @@ def test_tpch_q3_answers_equal_the_oracle_on_the_star_route(line, data_dir):
     assert "[liquid] tpch_q3:" in log and "[star]" in log
     paths = bench.prepare_data(data_dir, out["data"]["hits_rows"], 0.01)
     assert set(bench.TPCH_TABLES) <= set(paths)
-    ctx, _ = make_session("liquid", 1 << 30, "cpu")
+    ctx, _ = make_session("liquid", 1 << 30, device="cpu")
     for name, path in paths.items():
         ctx.register_parquet(name, path)
     sql = dict((q[0], q[3]) for q in bench.queries(1, 1))["tpch_q3"]
@@ -113,11 +133,19 @@ def test_oracle_gate_tolerances():
     assert not oracle.same_table(pa.table({"a": [1]}), want)
 
 
-def test_only_liquid_mode_is_ported():
-    for mode in ("arrow", "liquid-no-squeeze"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_session(mode, 1 << 20, "cpu")
+def test_only_liquid_mode_is_ported(tmp_path):
+    """All three of the reference's modes build, each with its policies;
+    an unknown mode raises."""
+    from liquid_tpu_torch.cache import policies as pol
     with pytest.raises(ValueError):
-        make_session("nope", 1 << 20, "cpu")
-    ctx, cache = make_session("liquid", 1 << 20, "cpu")
-    assert cache.device.type == "cpu" and ctx.device.type == "cpu"
+        make_session("nope", 1 << 20, device="cpu")
+    want = {"liquid": (True, pol.TranscodeSqueezeEvict),
+            "arrow": (False, pol.Evict),
+            "liquid-no-squeeze": (True, pol.TranscodeEvict)}
+    for mode, (transcode, squeeze) in want.items():
+        ctx, cache = make_session(mode, 1 << 20, str(tmp_path / mode), "cpu")
+        assert cache.device.type == "cpu" and ctx.device.type == "cpu"
+        assert cache.transcode_on_insert is transcode
+        assert type(cache.squeeze_policy) is squeeze
+        assert cache.budget.max_memory_bytes == 1 << 20
+        assert cache.disk_path == str(tmp_path / mode / "liquid_cache.bin")

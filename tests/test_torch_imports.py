@@ -51,7 +51,8 @@ def test_importing_every_module_loads_no_jax():
                  "bench.main", "bench.oracle", "bench.tpch_queries",
                  "sql.exec", "sql.fused_star", "sql.device_join",
                  "sql.device_agg", "sql.physical", "ops.join",
-                 "ops.groupby"):
+                 "ops.groupby", "cache.store", "arrays.ipc",
+                 "arrays.hybrid", "utils.dates"):
         assert f"liquid_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -79,11 +80,19 @@ def test_default_device_without_cuda_raises(monkeypatch):
     assert cache.device.type == "cpu" and ctx.device.type == "cpu"
 
 
-def test_disk_and_squeeze_options_raise():
+def test_disk_and_squeeze_options_raise(tmp_path):
+    """The disk and squeeze options are taken, as in the reference: the
+    store lies in the cache directory, capped, under the given policy."""
+    from liquid_tpu_torch.cache.policies import TranscodeEvict
     from liquid_tpu_torch.sql.session import LiquidCacheLocalBuilder
-    b = LiquidCacheLocalBuilder(device="cpu")
-    for call in (lambda: b.with_max_disk_bytes(1 << 20),
-                 lambda: b.with_cache_dir("/nonexistent"),
-                 lambda: b.with_squeeze_policy(object())):
-        with pytest.raises(NotImplementedError):
-            call()
+    policy = TranscodeEvict()
+    ctx, cache = (LiquidCacheLocalBuilder(device="cpu")
+                  .with_max_disk_bytes(1 << 20)
+                  .with_cache_dir(str(tmp_path))
+                  .with_squeeze_policy(policy).build())
+    assert cache.budget.max_disk_bytes == 1 << 20
+    assert cache.squeeze_policy is policy
+    assert cache.disk_path == str(tmp_path / "liquid_cache.bin")
+    _ctx, other = LiquidCacheLocalBuilder(device="cpu").build()
+    assert other.disk_path.endswith("liquid_cache.bin")
+    assert os.path.isdir(os.path.dirname(other.disk_path))

@@ -217,10 +217,13 @@ def test_small_dictionary_stays_raw_and_auto_compresses_large_ones():
     t = tbv.LiquidByteViewArray.from_arrow(big)
     assert t.is_fsst == jbv.LiquidByteViewArray.from_arrow(big).is_fsst
     assert t.is_fsst
-    with pytest.raises(NotImplementedError):
-        t.to_bytes()
-    with pytest.raises(NotImplementedError):
-        t.squeeze()
+    # IPC bytes and the squeezed form are the reference's
+    j = jbv.LiquidByteViewArray.from_arrow(big)
+    assert t.to_bytes() == j.to_bytes()
+    sq, backing = t.squeeze()
+    jsq, jbacking = j.squeeze()
+    assert backing == jbacking
+    assert sq.memory_bytes() == jsq.memory_bytes()
 
 
 def test_column_blocks_share_the_first_compressor(tmp_path):
