@@ -102,7 +102,8 @@ Phases (any failure raises and the script exits non-zero):
    W // 4; two fresh sessions at the cap on the same parquet, each with
    its own cache directory: the default policy (a first run and three
    warm runs of each query, and phase 9's profiled run) and
-   `liquid-no-squeeze` (a first run and one warm run); every answer of
+   `liquid-no-squeeze` (a first run and one warm run of the bench's six
+   queries: phase 6g's time comes out of it); every answer of
    the first and last run equal to pyarrow, `memory_used <= cap` after
    every run, disk writes in both, and in the default session squeezes,
    an entry seen squeezed and a read from one (`squeeze_io_reads` or
@@ -113,6 +114,31 @@ Phases (any failure raises and the script exits non-zero):
    device memory; every (planes, constants) K1's single form got
    captured, those of a squeezed array's compare labelled narrow;
    counts set to 0 just before this phase and read after;
+   6g. the storage slice (`storage_data` writes its files once):
+   a. TPC-H at this run's scale with the specification's DECIMAL(15,2)
+   money and quantity columns (`lineitem` with its page index) in a
+   fresh session on the card (`run_decimal_path`): a first run of a
+   narrow `l_orderkey` range inside one row group, which must seed its
+   zones from the page index and prune batches, then q6, q14, q19,
+   `sum(l_quantity) GROUP BY l_returnflag` and `count(*) WHERE
+   l_quantity < 24`; every answer equal to pyarrow on the decimal file
+   (decimals exact) and, cast to float64, to the same query on the
+   float session (rtol 1e-9); the fused routes pass each on naming
+   "decimal column"; every K1 single-form input captured;
+   b. JSONBench (`run_json_path`): `--events` bluesky-like events
+   (`bench/json_bench.py`, seed 8) and its five `variant_get` queries in
+   a fresh uncapped session and one capped at `JSON_CAP_FRACTION` of the
+   event column's bytes; answers equal to a `json` + `Counter` oracle;
+   in the capped session `memory_used <= cap`, squeezes and reads
+   served from shredded paths in the warm runs;
+   c. ClickBench q19 over a copy of the hits rows with bloom filters on
+   UserID, read through `StoreFile(ByteCache(LocalStore(dir)))`
+   (`run_pruning_path`): no row, as pyarrow; the first run's
+   `bloom_prunes` equal to the row-group count; the bytes fetched
+   through the byte cache under a quarter of the file's;
+   per query: first run, warm best, device busy and idle share, K1
+   launches per run and the cache counters; counts set to 0 just before
+   this phase and read after;
 7. K1's interval form checked bit-exact against its plain version and
    timed (CUDA events, L2 flushed before each timed call) on the exact
    (planes, lo, hi) the main path gave it -- the single-table plans'
@@ -122,7 +148,8 @@ Phases (any failure raises and the script exits non-zero):
    checked bit-exact on every input phase 6e captured and the largest
    timed beside its plain version and byte bound (`time_k1_single`); and
    on every input phase 6f captured, the largest narrow one timed the
-   same way (`time_k1_narrow`);
+   same way (`time_k1_narrow`); and on every input phase 6g's decimal
+   queries gave it, the largest timed the same way;
 8. K2 timed the same way on the inputs captured in phase 6, beside its
    plain version, one `index_add_` call on the same
    inputs (stacked to int64 outside the timing) and its byte bound, with
@@ -1456,7 +1483,8 @@ def run_pressure_path(torch, paths: dict, expect: dict, cap: int):
     sessions at `cap`, each with its own cache directory: the default
     policy (`TranscodeSqueezeEvict`: a first run and three warm runs of
     each query) and `liquid-no-squeeze` (`bench/runner.make_session`: a
-    first run and one warm run).  Every answer of the first and the last
+    first run and one warm run of the bench's six queries).  Every answer
+    of the first and the last
     run equals pyarrow; `memory_used <= cap` after every run; disk writes
     in both; in the default session squeezes, an entry seen squeezed and
     a read from one.  A compare made inside a squeezed array's predicate
@@ -1513,13 +1541,16 @@ def run_pressure_path(torch, paths: dict, expect: dict, cap: int):
     for c in squeezed:
         c.try_eval_predicate = narrow(evals[c])
     try:
-        for mode, warm_runs in (("default", 3), ("liquid-no-squeeze", 1)):
+        # the no-squeeze session runs the bench's six queries only (the
+        # storage phase's time comes out of it)
+        for mode, warm_runs, mode_qs in (
+                ("default", 3, qs), ("liquid-no-squeeze", 1, qs[:6])):
             torch.cuda.reset_peak_memory_stats()
             with tempfile.TemporaryDirectory() as d, DiskIoGuard() as io:
                 ctx, cache = session(mode, d)
                 rows, seen_squeezed = {}, 0
                 t_mode = time.perf_counter()
-                for qname, sql in qs:
+                for qname, sql in mode_qs:
                     per_run, times = [], []
                     for run in range(1 + warm_runs):
                         state.label = ""
@@ -1590,6 +1621,341 @@ def run_pressure_path(torch, paths: dict, expect: dict, cap: int):
     return report, inputs
 
 
+# -- phase 6g: the storage slice ----------------------------------------------
+
+#: JSONBench's smallest published size (ClickHouse/JSONBench): 1M events
+STORAGE_EVENTS = 1_000_000
+#: the capped JSONBench session's cap, as a multiple of the event column's
+#: arrow bytes: a block inserted as a slice of its row group is charged
+#: the row group's buffers, so below 1x every block goes straight to disk
+#: and nothing shreds, in the reference's CPU run as in the port
+JSON_CAP_FRACTION = 1.5
+
+
+def storage_data(data_dir: str, paths: dict, events: int) -> dict:
+    """Phase 6g's files, each written once -> {name: path}: `lineitem` and
+    `part` with the specification's DECIMAL(15,2) columns (lineitem with
+    its page index), `events` (the JSONBench generator, seed 8) and a
+    copy of `hits` with bloom filters on UserID and a page index."""
+    import pyarrow.parquet as pq
+    from liquid_tpu_torch.bench import json_bench
+    from liquid_tpu_torch.bench.tpch_data import with_spec_decimals
+    out = {}
+
+    def once(key, name, write):
+        out[key] = os.path.join(data_dir, name)
+        if not os.path.exists(out[key]):
+            write(out[key] + ".tmp")
+            os.replace(out[key] + ".tmp", out[key])
+
+    for table in ("lineitem", "part"):
+        once(table, "dec_" + os.path.basename(paths[table]),
+             lambda p, t=table: pq.write_table(
+                 with_spec_decimals(pq.read_table(paths[t])), p,
+                 row_group_size=1 << 20, write_page_index=t == "lineitem"))
+    once("events", f"liquid_bench_events_{events}.parquet",
+         lambda p: pq.write_table(json_bench.generate(events), p))
+
+    def hits_copy(p):
+        try:
+            pq.write_table(pq.read_table(paths["hits"]), p,
+                           row_group_size=1 << 20, write_page_index=True,
+                           bloom_filter_options={"UserID": True})
+        except TypeError as e:
+            import pyarrow
+            raise AssertionError(f"phase 6g: pyarrow {pyarrow.__version__} "
+                                 f"writes no bloom filters: {e}") from e
+
+    once("hits", "bloom_" + os.path.basename(paths["hits"]), hits_copy)
+    return out
+
+
+def _query_runs(torch, ctx, sql, warm_runs=3, after=None):
+    """A first run and `warm_runs` warm runs of `sql` -> (answers of the
+    first and the last run, first run s, warm ms, K1 launches per run);
+    `after(run)` is called after each run."""
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    outs, times, k1_runs = [], [], []
+    for run in range(1 + warm_runs):
+        launches = k1.LAUNCHES["cmp_const_many"]
+        t0 = time.perf_counter()
+        out = ctx.sql(sql).to_arrow()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        k1_runs.append(k1.LAUNCHES["cmp_const_many"] - launches)
+        outs.append(out)
+        if after is not None:
+            after(run)
+    return (outs[0], outs[-1]), times[0], [t * 1e3 for t in times[1:]], \
+        k1_runs
+
+
+_COUNTERS = ("memory_used", "disk_used", "squeezes", "disk_reads",
+             "disk_writes", "squeeze_io_reads", "squeeze_io_saved",
+             "hydrations", "transcodes", "predicate_evals_on_encoded")
+
+
+def _row(torch, ctx, sql, first_s, warm_ms, k1_runs) -> dict:
+    bd = device_breakdown(torch, ctx, sql, min(warm_ms), settle=False)
+    st = ctx.cache.stats()
+    return dict(first_run_s=first_s, warm_best_ms=min(warm_ms),
+                warm_ms=warm_ms, device_busy_ms=bd["device_busy_ms"],
+                idle_share=bd["idle_share"], device_ops=bd["device_ops"],
+                k1_per_run=k1_runs,
+                stats={k: st.get(k, 0) for k in _COUNTERS},
+                by_state=st["by_state"])
+
+
+def run_decimal_path(torch, fctx, dpaths: dict):
+    """Phase 6g-a: TPC-H with DECIMAL(15,2) money columns in a fresh
+    session on the card -> (report, [(planes, cs, label)] of every K1
+    single-form input).  A first run of a narrow `l_orderkey` range inside
+    one row group seeds its zones from the page index and prunes before
+    any data read; then q6, q14, q19, `sum(l_quantity) GROUP BY
+    l_returnflag` and `count(*) WHERE l_quantity < 24`.  Every answer
+    (first and last run) equals pyarrow on the decimal file (decimals
+    exact) and, cast to float64, the same query on the float session
+    `fctx` (rtol 1e-9); the fused routes pass each on naming "decimal
+    column"; K1's single form launches in the phase."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    from liquid_tpu_torch import LiquidCacheLocalBuilder
+    from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    from liquid_tpu_torch.sql import fused_agg
+    calls, inputs = [], []
+    wrapped = k1.cmp_const_many
+
+    def capture(planes, cs):
+        if planes.shape[0] * planes.shape[1]:
+            calls.append((planes, cs))
+        return wrapped(planes, cs)
+
+    ctx, cache = LiquidCacheLocalBuilder().with_max_memory_bytes(
+        16 << 30).build()
+    for name, p in dpaths.items():
+        ctx.register_parquet(name, p)
+    md = pq.ParquetFile(dpaths["lineitem"]).metadata
+    rg = md.num_row_groups // 2
+    ci = md.schema.to_arrow_schema().get_field_index("l_orderkey")
+    st = md.row_group(rg).column(ci).statistics
+    lo = st.min + (st.max - st.min) // 2
+    qs = [("dec_orderkey_range",
+           f"SELECT sum(l_quantity) AS q FROM lineitem "
+           f"WHERE l_orderkey BETWEEN {lo} AND {lo + 200}")]
+    qs += [(n, oracle.decimal_sql(n)) for n in oracle.DECIMAL_QUERIES]
+    li = pq.read_table(dpaths["lineitem"], columns=["l_orderkey",
+                                                    "l_quantity"])
+    keep = pc.and_(pc.greater_equal(li["l_orderkey"], lo),
+                   pc.less_equal(li["l_orderkey"], lo + 200))
+    expect = {"dec_orderkey_range": [pa.array([pc.sum(
+        li.filter(keep)["l_quantity"]).as_py()])]}
+    del li
+    expect.update({n: f(dpaths) for n, f in oracle.DECIMAL_ORACLES.items()})
+    table = ctx._tables["lineitem"]
+    report = {}
+    k1.cmp_const_many = capture
+    try:
+        for qname, sql in qs:
+            calls.clear()
+            bails = []
+
+            def after(_run):
+                bails.append((fused_agg.STATS.get("last_bail"),
+                              fused_agg.STATS.get("star_last_bail")))
+                fused_agg.STATS["last_bail"] = None
+                fused_agg.STATS["star_last_bail"] = None
+
+            fused_agg.STATS["last_bail"] = None
+            fused_agg.STATS["star_last_bail"] = None
+            outs, first_s, warm_ms, k1_runs = _query_runs(torch, ctx, sql,
+                                                          after=after)
+            if qname == "dec_orderkey_range":
+                seeds, zone_prunes = table.pageindex_seeds, table.zone_prunes
+                if seeds <= 0 or zone_prunes <= 0:
+                    raise AssertionError(
+                        f"6g-a {qname}: the first run seeded {seeds} "
+                        f"columns from the page index and pruned "
+                        f"{zone_prunes} batches")
+            for what, got in zip(("first", "last warm"), outs):
+                if not oracle.same_table(got, expect[qname]):
+                    raise AssertionError(f"6g-a {qname} ({what} run): port "
+                                         f"{got.to_pylist()[:3]} != pyarrow "
+                                         f"{[c.to_pylist()[:3] for c in expect[qname]]}")
+            if any("decimal column" not in b for b in bails):
+                raise AssertionError(f"6g-a {qname} did not leave the fused "
+                                     f"routes as a decimal column: {bails}")
+            flt = fctx.sql(sql).to_arrow()
+            as_float = [c.cast(pa.float64()) if pa.types.is_decimal(c.type)
+                        else c for c in outs[1].columns]
+            if not oracle.same_table(flt, as_float):
+                raise AssertionError(f"6g-a {qname}: decimal "
+                                     f"{outs[1].to_pylist()[:3]} != float "
+                                     f"{flt.to_pylist()[:3]}")
+            inputs += [(p, c, f"decimal {qname} #{i}")
+                       for i, (p, c) in enumerate(calls)]
+            report[qname] = _row(torch, ctx, sql, first_s, warm_ms, k1_runs)
+            report[qname].update(answer=str(outs[1].to_pylist()[:3]),
+                                 bails=bails[-1])
+            if qname == "dec_orderkey_range":
+                report[qname].update(pageindex_seeds=seeds,
+                                     zone_prunes_first_run=zone_prunes)
+            log(f"[decimal] {qname}: {json.dumps(report[qname])}")
+    finally:
+        k1.cmp_const_many = wrapped
+    del ctx, cache
+    if not inputs:
+        raise AssertionError("6g-a: no K1 single-form launch")
+    return report, inputs
+
+
+#: JSONBench's warm runs per query beside the profiled one, by session:
+#: a run parses every JSON block it does not read shredded (~4 s per
+#: query at 1M events on the host), so the phase keeps to the time limit
+JSON_WARM_RUNS = {"uncapped": 0, "capped": 1}
+
+
+def run_json_path(torch, path: str):
+    """Phase 6g-b: the five JSONBench queries over the events in two
+    fresh sessions: uncapped, and capped at `JSON_CAP_FRACTION` of the
+    event column's arrow bytes.  Each query: a first run, the warm runs
+    of `JSON_WARM_RUNS` and one profiled warm run (its wall time counts
+    among the warm times).  Every answer of the unprofiled runs equals
+    the `json` + `Counter` oracle; in the capped session `memory_used <=
+    cap` after every run, variant blocks are squeezed and the warm runs
+    read shredded paths with no IO (`squeeze_io_saved`)."""
+    import tempfile
+    import pyarrow.parquet as pq
+    from liquid_tpu_torch import LiquidCacheLocalBuilder
+    from liquid_tpu_torch.bench import json_bench
+    events = pq.read_table(path)
+    want = json_bench.answers(events)
+    col_bytes = events.column("event").nbytes
+    n_events = events.num_rows
+    del events
+    cap = int(col_bytes * JSON_CAP_FRACTION)
+    report = {"events": n_events, "column_bytes": col_bytes, "cap": cap}
+    log(f"[json] {json.dumps(report)}")
+    for mode, mem in (("uncapped", 16 << 30), ("capped", cap)):
+        with tempfile.TemporaryDirectory() as d:
+            ctx, cache = (LiquidCacheLocalBuilder().with_max_memory_bytes(mem)
+                          .with_cache_dir(d).build())
+            ctx.register_parquet("events", path)
+            rows, warm_saved = {}, 0
+            t_mode = time.perf_counter()
+            for i, sql in enumerate(json_bench.QUERIES):
+                saved = []
+
+                def after(run):
+                    if cache.stats()["memory_used"] > mem:
+                        raise AssertionError(f"6g-b {mode} q{i}: memory "
+                                             f"over the cap {mem}")
+                    saved.append(cache.observer.stats.get(
+                        "squeeze_io_saved"))
+
+                outs, first_s, warm_ms, k1_runs = _query_runs(
+                    torch, ctx, sql, JSON_WARM_RUNS[mode], after=after)
+                for what, got in zip(("first", "last"), outs):
+                    if not json_bench.same_rows(got, want[i], i in (0, 1)):
+                        raise AssertionError(
+                            f"6g-b {mode} q{i} ({what} run): port "
+                            f"{got.to_pylist()[:3]} != oracle {want[i][:3]}")
+                bd = device_breakdown(torch, ctx, sql, 1.0, settle=False)
+                after(None)
+                warm_ms.append(bd["profiled_wall_ms"])
+                st = cache.stats()
+                row = dict(first_run_s=first_s, warm_best_ms=min(warm_ms),
+                           warm_ms=warm_ms, profiled_wall_ms=warm_ms[-1],
+                           device_busy_ms=bd["device_busy_ms"],
+                           idle_share=(1 - bd["device_busy_ms"]
+                                       / min(warm_ms)),
+                           device_ops=bd["device_ops"], k1_per_run=k1_runs,
+                           warm_squeeze_io_saved=saved[-1] - saved[0],
+                           stats={k: st.get(k, 0) for k in _COUNTERS},
+                           by_state=st["by_state"])
+                warm_saved += saved[-1] - saved[0]
+                rows[f"json_q{i}"] = row
+                log(f"[json] {mode} q{i}: {json.dumps(rows[f'json_q{i}'])}")
+            st = cache.stats()
+            summary = dict(seconds=time.perf_counter() - t_mode,
+                           warm_squeeze_io_saved=warm_saved,
+                           by_state=st["by_state"],
+                           **{k: st.get(k, 0) for k in _COUNTERS})
+            log(f"[json] {mode} summary: {json.dumps(summary)}")
+            del ctx, cache
+        if mode == "capped" and (summary["squeezes"] <= 0 or warm_saved <= 0):
+            raise AssertionError(f"6g-b capped: no shredded read: {summary}")
+        report[mode] = {"queries": rows, "summary": summary}
+    return report
+
+
+def run_pruning_path(torch, path: str):
+    """Phase 6g-c: ClickBench q19 (a UserID absent from the file and
+    inside its min/max) over the hits copy with bloom filters, read
+    through `StoreFile(ByteCache(LocalStore(dir), cache_dir))` as the
+    reference's Flight service wires a registered store.  The answer
+    equals pyarrow's (no row), the first run's `bloom_prunes` equals the
+    row-group count, and the bytes fetched through the byte cache are a
+    small fraction of the file."""
+    import tempfile
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    from liquid_tpu_torch import LiquidCacheLocalBuilder
+    from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.common.object_store import (
+        ByteCache, LocalStore, StoreFile)
+    sql = slice_sql(19)
+    user = 435090932899640449
+    from liquid_tpu_torch.io.bloom import BloomReader
+    md = pq.ParquetFile(path).metadata
+    ci = md.schema.to_arrow_schema().get_field_index("UserID")
+    if any(BloomReader(path, md).location(rg, ci) is None
+           for rg in range(md.num_row_groups)):
+        raise AssertionError("phase 6g-c: the hits copy has no bloom filter")
+    ids = pq.read_table(path, columns=["UserID"])["UserID"]
+    mm = pc.min_max(ids)
+    expect = [ids.filter(pc.equal(ids, user)).combine_chunks()]
+    if not (mm["min"].as_py() <= user <= mm["max"].as_py()) or len(expect[0]):
+        raise AssertionError(f"6g-c: {user} must be absent and inside "
+                             f"[{mm['min']}, {mm['max']}]")
+    del ids
+    size = os.path.getsize(path)
+    name = os.path.basename(path)
+    with tempfile.TemporaryDirectory() as d:
+        store = ByteCache(LocalStore(os.path.dirname(path)), d)
+        ctx, cache = LiquidCacheLocalBuilder().build()
+        ctx.register_parquet("hits", path,
+                             open_file=lambda: StoreFile(store, name))
+        table = ctx._tables["hits"]
+        prunes = []
+        outs, first_s, warm_ms, k1_runs = _query_runs(
+            torch, ctx, sql, after=lambda run: prunes.append(
+                table.bloom_prunes))
+        for what, got in zip(("first", "last warm"), outs):
+            if not oracle.same_table(got, expect):
+                raise AssertionError(f"6g-c ({what} run): port "
+                                     f"{got.to_pylist()[:3]} != pyarrow")
+        if prunes[0] != md.num_row_groups:
+            raise AssertionError(f"6g-c: the first run's bloom prunes "
+                                 f"{prunes[0]} != {md.num_row_groups} row "
+                                 f"groups")
+        fetched = store.disk_usage()
+        row = _row(torch, ctx, sql, first_s, warm_ms, k1_runs)
+        row.update(row_groups=md.num_row_groups, bloom_prunes_per_run=[
+            b - a for a, b in zip([0] + prunes, prunes)],
+                   file_bytes=size, fetched_bytes=fetched,
+                   fetched_share=fetched / size,
+                   byte_cache_blocks=store.cached_blocks(name),
+                   answer_rows=outs[1].num_rows)
+        del ctx, cache
+    log(f"[pruning] cb_q19: {json.dumps(row)}")
+    if fetched * 4 > size:
+        raise AssertionError(f"6g-c: fetched {fetched} of {size} bytes")
+    return {"cb_q19_bloom": row}
+
+
 def time_k1_narrow(torch, inputs: list) -> dict:
     """Phase 7, the pressure phase's inputs: every (planes, cs) phase 6f
     gave K1's single form checked bit-exact against `cmp_const_many_ref`
@@ -1641,20 +2007,20 @@ def k1_single_bytes(bsz: int, width: int) -> int:
     return bsz * width * 256 * 4 + bsz * 8 + 2 * bsz * 256 * 4
 
 
-def time_k1_single(torch, inputs: list) -> dict:
-    """Phase 7, the single form: every (planes, cs) phase 6e gave K1
+def time_k1_single(torch, inputs: list, phase: str = "6e") -> dict:
+    """Phase 7, the single form: every (planes, cs) the phase gave K1
     checked bit-exact against `cmp_const_many_ref`, and the largest timed
     (timer B, L2 flushed) beside its plain version and its byte bound."""
     from liquid_tpu_torch.ops import bitpack_cuda as k1
     if not inputs:
-        raise AssertionError("phase 6e left no K1 single-form inputs")
+        raise AssertionError(f"phase {phase} left no K1 single-form inputs")
     worst = 0
     for planes, cs, _label in inputs:
         worst = max(worst, _max_abs_err(torch, k1.cmp_const_many(planes, cs),
                                         k1.cmp_const_many_ref(planes, cs)))
     if worst:
-        raise AssertionError(f"K1's single form != plain on phase 6e's "
-                             f"inputs: {worst}")
+        raise AssertionError(f"K1's single form != plain on phase "
+                             f"{phase}'s inputs: {worst}")
     planes, cs, label = max(inputs, key=lambda x: x[0].numel())
     bsz, width, _ = planes.shape
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
@@ -1669,7 +2035,7 @@ def time_k1_single(torch, inputs: list) -> dict:
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                max_abs_err=worst)
-    log(f"[k1-single] {json.dumps(row)}")
+    log(f"[k1-single] phase {phase}: {json.dumps(row)}")
     return row
 
 
@@ -1923,6 +2289,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--hits-rows", type=int, default=4_000_000)
     ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--events", type=int, default=STORAGE_EVENTS,
+                    help="JSONBench events of phase 6g")
     ap.add_argument("--data-dir", default=os.path.join(
         tempfile.gettempdir(), "liquid_tpu_torch_smoke"))
     ap.add_argument("--trash-band", metavar="LABEL",
@@ -2092,13 +2460,33 @@ def main(argv=None) -> int:
     if pressure_launches["cmp_const_many"] <= 0:
         raise AssertionError(f"phase 6f did not launch K1: "
                              f"{pressure_launches}")
+    clock("6f")
+    # 6g. the storage slice: decimal TPC-H, JSONBench and pruning through
+    #     an object store; counts reset just before and read just after
+    t0 = time.perf_counter()
+    spaths = storage_data(args.data_dir, paths, args.events)
+    log(f"[storage] {spaths} ({time.perf_counter() - t0:.1f} s)")
+    _reset(counters)
+    t0 = time.perf_counter()
+    decimal_report, decimal_inputs = run_decimal_path(
+        torch, ctx, {t: spaths[t] for t in ("lineitem", "part")})
+    json_report = run_json_path(torch, spaths["events"])
+    pruning_report = run_pruning_path(torch, spaths["hits"])
+    storage_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
+    log(f"[storage] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(storage_launches)}; K1 single-form inputs "
+        f"{len(decimal_inputs)}")
+    if storage_launches["cmp_const_many"] <= 0:
+        raise AssertionError(f"phase 6g did not launch K1: "
+                             f"{storage_launches}")
     log(f"[launches] scalar path {json.dumps(scalar_launches)}; grouped "
         f"path {json.dumps(grouped_launches)}; star path "
         f"{json.dumps(star_launches)}; slice {json.dumps(slice_launches)}; "
         f"multi-table {json.dumps(multi_launches)}; classic "
         f"{json.dumps(classic_launches)}; pressure "
-        f"{json.dumps(pressure_launches)}")
-    clock("6f")
+        f"{json.dumps(pressure_launches)}; storage "
+        f"{json.dumps(storage_launches)}")
+    clock("6g")
 
     # 7. K1's interval form checked and timed on the main path's own
     #    inputs, the star and multi-table phases' included
@@ -2109,7 +2497,8 @@ def main(argv=None) -> int:
         f"{top['over_twice_single']:.3f}")
     single = time_k1_single(torch, classic_k1_inputs)
     narrow = time_k1_narrow(torch, pressure_inputs)
-    del pressure_inputs
+    decimal = time_k1_single(torch, decimal_inputs, "6g")
+    del pressure_inputs, decimal_inputs
     clock("7")
 
     # 8. K2 checked and timed on the grouped and multi-table phases' own
@@ -2165,14 +2554,15 @@ def main(argv=None) -> int:
     phases = {"scalar": scalar_launches, "grouped": grouped_launches,
               "star": star_launches, "slice": slice_launches,
               "multi": multi_launches, "classic": classic_launches,
-              "pressure": pressure_launches, "harness": harness_launches,
+              "pressure": pressure_launches, "storage": storage_launches,
+              "harness": harness_launches,
               "harness_operator_timing": op_launches}
 
     def launches(name):
         # the main path's launches: the query phases and the micro line
         return sum(phases[p][name]
                    for p in ("scalar", "grouped", "star", "slice", "multi",
-                             "classic", "pressure", "harness"))
+                             "classic", "pressure", "storage", "harness"))
 
     def by_phase(name):
         return {p: d.get(name, 0) for p, d in phases.items()}
@@ -2184,7 +2574,8 @@ def main(argv=None) -> int:
         "launches": launches("cmp_const_many"),
         "launches_by_phase": by_phase("cmp_const_many"),
         "max_abs_err": max(err1, timing["max_abs_err"],
-                           single["max_abs_err"], narrow["max_abs_err"]),
+                           single["max_abs_err"], narrow["max_abs_err"],
+                           decimal["max_abs_err"]),
         "tolerance": 0,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -2198,6 +2589,9 @@ def main(argv=None) -> int:
         "pressure_form": {k: narrow[k] for k in (
             "inputs", "narrow_inputs", "label", "B", "w", "ms", "plain_ms",
             "bound_ms", "bound_by")},
+        "decimal_form": {k: decimal[k] for k in (
+            "inputs", "column", "B", "w", "ms", "plain_ms", "bound_ms",
+            "bound_by")},
         "matches_plain": True,
     }, {
         "name": "group_accumulate", "route": "cuda",
@@ -2231,7 +2625,10 @@ def main(argv=None) -> int:
                **multi_report, **classic_report,
                "pressure": {m: r["summary"] for m, r in
                             pressure_report.items()},
-               "pressure_cap": cap, "pressure_working_set": w_bytes}
+               "pressure_cap": cap, "pressure_working_set": w_bytes,
+               "decimal": decimal_report, "pruning": pruning_report,
+               "json": {m: json_report[m]["summary"]
+                        for m in ("uncapped", "capped")}}
     clock("10")
     log(f"[summary] {json.dumps(summary)}")
     print(card, flush=True)

@@ -1,2 +1,3 @@
-"""Liquid encodings: bit-plane primitives, linear integers, ALP floats,
-FSST-backed string dictionaries, their squeezed forms and Liquid IPC."""
+"""Liquid encodings: bit-plane primitives and decimals, linear and delta
+integers, ALP floats, FSST-backed string and fixed-width dictionaries,
+shredded variant (JSON) columns, their squeezed forms and Liquid IPC."""

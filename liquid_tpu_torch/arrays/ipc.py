@@ -9,11 +9,10 @@ then a JSON metadata blob (scalar fields) and the raw buffers back to
 back.  The squeezed arrays' disk backing and the DiskLiquid entries are
 these bytes.
 
-The port serializes primitive, byte-view (raw and FSST dictionaries), ALP
-float and linear blocks.  Decimal and fixed-length blocks
-(`arrays/decimal.py`) and delta blocks (`LiquidPrimitiveDeltaArray` of
-`arrays/linear.py`) are not ported: `deserialize` raises
-NotImplementedError for their ids.
+Every encoding has its bytes: primitive, byte-view (raw and FSST
+dictionaries), ALP float, decimal and fixed-length (`arrays/decimal.py`;
+logical id 0, the decimal type in the metadata), linear and delta
+(`arrays/linear.py`) blocks.
 """
 from __future__ import annotations
 
@@ -33,14 +32,6 @@ PHYS_DECIMAL = 4
 PHYS_FIXEDLEN = 5
 PHYS_LINEAR = 6
 PHYS_DELTA = 7
-
-#: the encodings whose readers are not ported, and where they live
-_NOT_PORTED = {
-    PHYS_DECIMAL: "decimal blocks (LiquidDecimalArray, arrays/decimal.py)",
-    PHYS_FIXEDLEN: "fixed-length byte blocks (LiquidFixedLenByteArray, "
-                   "arrays/decimal.py)",
-    PHYS_DELTA: "delta blocks (LiquidPrimitiveDeltaArray, arrays/linear.py)",
-}
 
 _LOGICAL = [
     pa.bool_(),
@@ -163,6 +154,33 @@ def serialize_float(a) -> bytes:
     return _emit(PHYS_FLOAT, logical_id(a.arrow_type), meta, bufs)
 
 
+def _decimal_meta(t: pa.DataType) -> dict:
+    return {"prec": t.precision, "scale": t.scale,
+            "is256": pa.types.is_decimal256(t)}
+
+
+def _decimal_type(meta: dict) -> pa.DataType:
+    mk = pa.decimal256 if meta.get("is256") else pa.decimal128
+    return mk(meta["prec"], meta["scale"])
+
+
+def serialize_decimal(a) -> bytes:
+    planes = a.planes_np
+    meta = {"width": a.width, "ref": a.reference_value, "length": a.length,
+            "rows": int(planes.shape[0]), "words": int(planes.shape[1])}
+    meta.update(_decimal_meta(a.arrow_type))
+    bufs = [_np_bytes(planes), _opt_validity_bytes(a.validity_np)]
+    return _emit(PHYS_DECIMAL, 0, meta, bufs)
+
+
+def serialize_fixedlen(a) -> bytes:
+    meta = {"length": a.length, "bw": a.byte_width}
+    meta.update(_decimal_meta(a.arrow_type))
+    bufs = [_np_bytes(a.codes_np), _opt_validity_bytes(a.validity_np),
+            a.fsst.to_bytes()]
+    return _emit(PHYS_FIXEDLEN, 0, meta, bufs)
+
+
 def serialize_linear(a) -> bytes:
     r = a.residuals
     rp = r.planes_np
@@ -173,13 +191,19 @@ def serialize_linear(a) -> bytes:
     return _emit(PHYS_LINEAR, logical_id(a.arrow_type), meta, bufs)
 
 
+def serialize_delta(a) -> bytes:
+    d = a.deltas
+    dp = d.planes_np
+    meta = {"first": a.first_value, "length": a.length,
+            "width": d.width, "ref": d.reference_value,
+            "rows": int(dp.shape[0]), "words": int(dp.shape[1])}
+    bufs = [_np_bytes(dp), _opt_validity_bytes(a.validity_np)]
+    return _emit(PHYS_DELTA, logical_id(a.arrow_type), meta, bufs)
+
+
 def deserialize(data: bytes):
     """The encoded block the bytes describe (dispatch on the ids)."""
     physical, logical, meta, bufs = _parse(data)
-    if physical in _NOT_PORTED:
-        raise NotImplementedError(
-            f"Liquid IPC physical id {physical}: {_NOT_PORTED[physical]} "
-            f"are not ported yet")
     t = logical_from_id(logical)
     if physical == PHYS_PRIMITIVE:
         from liquid_tpu_torch.arrays.primitive import LiquidPrimitiveArray
@@ -214,12 +238,32 @@ def deserialize(data: bytes):
             meta["exp"], np.frombuffer(bufs[2], dtype=np.int32).copy(),
             np.frombuffer(bufs[3], dtype=np.float64).copy(),
             _validity_from(bufs[1]), meta["length"], t)
-    if physical == PHYS_LINEAR:
-        from liquid_tpu_torch.arrays.linear import LiquidLinearArray
+    if physical == PHYS_DECIMAL:
+        from liquid_tpu_torch.arrays.decimal import LiquidDecimalArray
+        return LiquidDecimalArray(_planes_from(bufs[0], meta), meta["width"],
+                                  meta["ref"], _validity_from(bufs[1]),
+                                  meta["length"], _decimal_type(meta))
+    if physical == PHYS_FIXEDLEN:
+        from liquid_tpu_torch.arrays.decimal import LiquidFixedLenByteArray
+        from liquid_tpu_torch.arrays.fsst import FsstBuffer
+        return LiquidFixedLenByteArray(
+            np.frombuffer(bufs[0], dtype=np.int32).copy(),
+            FsstBuffer.from_bytes(bufs[2]), meta["bw"],
+            _validity_from(bufs[1]), meta["length"], _decimal_type(meta))
+    if physical in (PHYS_LINEAR, PHYS_DELTA):
+        from liquid_tpu_torch.arrays.linear import (
+            LiquidLinearArray, LiquidPrimitiveDeltaArray)
         from liquid_tpu_torch.arrays.primitive import LiquidPrimitiveArray
+        if physical == PHYS_LINEAR:
+            inner = LiquidPrimitiveArray(_planes_from(bufs[0], meta),
+                                         meta["width"], meta["ref"],
+                                         _validity_from(bufs[1]),
+                                         meta["length"], pa.int64())
+            return LiquidLinearArray(inner, meta["slope"], meta["length"], t)
         inner = LiquidPrimitiveArray(_planes_from(bufs[0], meta),
-                                     meta["width"], meta["ref"],
-                                     _validity_from(bufs[1]), meta["length"],
-                                     pa.int64())
-        return LiquidLinearArray(inner, meta["slope"], meta["length"], t)
+                                     meta["width"], meta["ref"], None,
+                                     meta["length"], pa.int64())
+        return LiquidPrimitiveDeltaArray(inner, meta["first"],
+                                         _validity_from(bufs[1]),
+                                         meta["length"], t)
     raise ValueError(f"unknown physical id {physical}")

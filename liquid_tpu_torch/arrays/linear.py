@@ -1,11 +1,15 @@
-"""Linear-model integer blocks (port of `LiquidLinearArray` in
-`liquid_tpu/arrays/linear.py`).
+"""Linear-model and delta integer blocks (port of `liquid_tpu/arrays/
+linear.py`).
 
-value[i] = round(slope * i) + residual[i]; residuals are a bit-packed
-primitive block (the intercept folds into its reference_value).  The
-linear term is computed on the HOST with numpy's rounding, exactly as the
-encoder and the reference compute it (an f64 multiply-and-round on a
-device can land one off at some i).
+- `LiquidLinearArray`: value[i] = round(slope * i) + residual[i];
+  residuals are a bit-packed primitive block (the intercept folds into
+  its reference_value).  The linear term is computed on the HOST with
+  numpy's rounding, exactly as the encoder and the reference compute it
+  (an f64 multiply-and-round on a device can land one off at some i).
+- `LiquidPrimitiveDeltaArray`: value[i] = first + d[1] + ... + d[i]; the
+  deltas are a bit-packed primitive block, decoded on the device by a
+  cumulative sum.  No transcode picks it (as in the reference); Liquid
+  IPC reads and writes it.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from liquid_tpu_torch.arrays.base import (
     np_dtype_for, validity_mask_or_full,
 )
 from liquid_tpu_torch.arrays.primitive import LiquidPrimitiveArray
+from liquid_tpu_torch.device import words_to_tensor
 from liquid_tpu_torch.ops import mask as mops
 
 
@@ -107,14 +112,98 @@ class LiquidLinearArray(LiquidArray):
         if op == "const":
             return mops.BoolMask(const_words(lit, device), valid)
         vals, _ = self.to_device(device)
-        cmp = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt,
-               "lt_eq": torch.le, "gt": torch.gt, "gt_eq": torch.ge}[op]
-        return mops.BoolMask(mops.pack_bools(cmp(vals, lit)), valid)
-
+        return mops.BoolMask(mops.pack_bools(_CMP[op](vals, lit)), valid)
 
     def to_bytes(self) -> bytes:
         from liquid_tpu_torch.arrays import ipc
         return ipc.serialize_linear(self)
+
+
+class LiquidPrimitiveDeltaArray(LiquidArray):
+    """Delta-encoded, bit-packed integers: deltas[0] = 0 (the first value
+    is `first_value`); decode is a cumulative sum of the unpacked
+    deltas."""
+
+    def __init__(self, deltas: LiquidPrimitiveArray, first_value: int,
+                 validity: Optional[np.ndarray], length: int,
+                 arrow_type: pa.DataType):
+        # the deltas are packed fully valid: zeroing a null slot's delta
+        # would shift every later row, so row validity lives here
+        self.deltas = deltas           # int64-typed primitive block of d[i]
+        self.first_value = int(first_value)
+        self.validity_np = validity    # uint32[256] | None
+        self.length = length
+        self._arrow_type = arrow_type
+
+    @classmethod
+    def from_arrow(cls, arr: pa.Array) -> "LiquidPrimitiveDeltaArray":
+        from liquid_tpu_torch.arrays.base import pack_validity
+        assert len(arr) <= BLOCK_ROWS
+        np_dtype_for(arr.type)  # rejects types without a numpy image
+        if arr.null_count:
+            valid = np.asarray(arr.is_valid())
+            vals = np.asarray(arr.fill_null(0)).astype(np.int64, copy=False)
+        else:
+            valid = None
+            vals = np.asarray(arr).astype(np.int64, copy=False)
+        length = len(arr)
+        v = vals[:length]
+        d = np.zeros(length, dtype=np.int64)
+        if length > 1:
+            d[1:] = v[1:] - v[:-1]
+        deltas = LiquidPrimitiveArray.from_numpy(d, None, pa.int64(), length)
+        return cls(deltas, int(v[0]) if length else 0,
+                   pack_validity(valid, length), length, arr.type)
+
+    @property
+    def arrow_type(self) -> pa.DataType:
+        return self._arrow_type
+
+    def memory_bytes(self) -> int:
+        return self.deltas.memory_bytes() + 16
+
+    def to_device(self, device):
+        d, _ = self.deltas.to_device(device)
+        # padding rows decode to the reference value: zero them so the
+        # sum reconstructs the live rows (a null row keeps its fill's
+        # delta and the validity hides it)
+        rows = torch.arange(BLOCK_ROWS, device=device)
+        d = torch.where(rows < self.length, d, torch.zeros_like(d))
+        valid = (None if self.validity_np is None
+                 else words_to_tensor(self.validity_np, device))
+        return torch.cumsum(d, 0) + self.first_value, valid
+
+    def to_arrow(self) -> pa.Array:
+        d0 = self.deltas
+        d = d0.offsets_host().astype(np.int64) + d0.reference_value
+        d[self.length:] = 0
+        d[0] = 0
+        return arrow_with_validity(np.cumsum(d) + self.first_value,
+                                   self._arrow_type, self.validity_np,
+                                   self.length)
+
+    def try_eval_predicate(self, pred: Predicate, device):
+        """Packed row mask of `pred` on `device`: the block decoded on the
+        device and compared.  None for other predicates."""
+        if pred.op not in ("eq", "ne", "lt", "lt_eq", "gt", "gt_eq"):
+            return None
+        r = _int_literal(pred)
+        if r is None:
+            return None
+        op, lit = r
+        valid = validity_mask_or_full(self.validity_np, self.length, device)
+        if op == "const":
+            return mops.BoolMask(const_words(lit, device), valid)
+        vals, _ = self.to_device(device)
+        return mops.BoolMask(mops.pack_bools(_CMP[op](vals, lit)), valid)
+
+    def to_bytes(self) -> bytes:
+        from liquid_tpu_torch.arrays import ipc
+        return ipc.serialize_delta(self)
+
+
+_CMP = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "lt_eq": torch.le,
+        "gt": torch.gt, "gt_eq": torch.ge}
 
 
 def _int_literal(pred: Predicate):

@@ -798,6 +798,113 @@ ORACLES = {"cb_filter": _cb_filter, "cb_like": _cb_like,
            "tpch_q17": _tpch_q17, "tpch_q20": _tpch_q20, "cb_q19": _cb_q19,
            "cb_q23": _cb_q23, "cb_q39": _cb_q39}
 
+# -- TPC-H over the specification's DECIMAL(15,2) money columns ------------
+
+#: the decimal shapes phase 6g of `chip_smoke.py` and
+#: `tests/test_torch_decimal.py` run (q14 and q19 as
+#: `bench/tpch_queries.py` gives them; q6 with the literal bounds of the
+#: bench's `tpch_q6`)
+DECIMAL_QUERIES = {
+    "dec_q6": "SELECT sum(l_extendedprice * l_discount) AS revenue "
+              "FROM lineitem WHERE l_shipdate >= date '1994-01-01' "
+              "AND l_shipdate < date '1995-01-01' "
+              "AND l_discount between 0.05 and 0.07 AND l_quantity < 24",
+    "dec_q14": 14, "dec_q19": 19,
+    "dec_qty_by_flag": "SELECT l_returnflag, sum(l_quantity) AS sum_qty "
+                       "FROM lineitem GROUP BY l_returnflag "
+                       "ORDER BY l_returnflag",
+    "dec_qty_lt_24": "SELECT count(*) AS c FROM lineitem "
+                     "WHERE l_quantity < 24",
+}
+
+
+def decimal_sql(name: str) -> str:
+    from liquid_tpu_torch.bench.tpch_queries import QUERIES
+    q = DECIMAL_QUERIES[name]
+    return QUERIES[q] if isinstance(q, int) else q
+
+
+def _dec(v: str) -> pa.Scalar:
+    from decimal import Decimal
+    return pa.scalar(Decimal(v))
+
+
+def _dec_revenue(t: pa.Table) -> pa.Array:
+    return pc.multiply(t["l_extendedprice"],
+                       pc.subtract(_dec("1"), t["l_discount"]))
+
+
+def _dec_q6(paths) -> List[pa.Array]:
+    li = _read(paths, "lineitem", ["l_extendedprice", "l_discount",
+                                   "l_shipdate", "l_quantity"])
+    m = pc.and_(
+        pc.and_(pc.greater_equal(li["l_shipdate"], _date(1994, 1, 1)),
+                pc.less(li["l_shipdate"], _date(1995, 1, 1))),
+        pc.and_(_between(li["l_discount"], _dec("0.05"), _dec("0.07")),
+                pc.less(li["l_quantity"], _dec("24"))))
+    f = li.filter(m)
+    return [pa.array([pc.sum(pc.multiply(f["l_extendedprice"],
+                                         f["l_discount"])).as_py()])]
+
+
+def _dec_q14(paths) -> List[pa.Array]:
+    li = _read(paths, "lineitem", ["l_partkey", "l_extendedprice",
+                                   "l_discount", "l_shipdate"])
+    li = li.filter(pc.and_(
+        pc.greater_equal(li["l_shipdate"], _date(1995, 9, 1)),
+        pc.less(li["l_shipdate"], _date(1995, 10, 1))))
+    j = _join(li, _read(paths, "part", ["p_partkey", "p_type"]),
+              "l_partkey", "p_partkey")
+    rev = _dec_revenue(j)
+    promo = pc.sum(pc.if_else(pc.starts_with(j["p_type"], "PROMO"), rev,
+                              pa.scalar(0, rev.type))).as_py()
+    return [pa.array([100.0 * float(promo) / float(pc.sum(rev).as_py())],
+                     pa.float64())]
+
+
+def _dec_q19(paths) -> List[pa.Array]:
+    li = _read(paths, "lineitem", ["l_partkey", "l_quantity",
+                                   "l_extendedprice", "l_discount",
+                                   "l_shipmode", "l_shipinstruct"])
+    li = li.filter(pc.and_(
+        pc.is_in(li["l_shipmode"], pa.array(["AIR", "AIR REG"])),
+        pc.equal(li["l_shipinstruct"], "DELIVER IN PERSON")))
+    j = _join(li, _read(paths, "part", ["p_partkey", "p_brand",
+                                        "p_container", "p_size"]),
+              "l_partkey", "p_partkey")
+    keep = None
+    for brand, size, qty, cont in (
+            ("Brand#12", 5, 1, "SM"), ("Brand#23", 10, 10, "MED"),
+            ("Brand#34", 15, 20, "LG")):
+        kinds = ("CASE", "BOX", "PACK", "PKG") if cont != "MED" else (
+            "BAG", "BOX", "PKG", "PACK")
+        branch = pc.and_(pc.and_(
+            pc.equal(j["p_brand"], brand),
+            pc.is_in(j["p_container"],
+                     pa.array([f"{cont} {k}" for k in kinds]))), pc.and_(
+            _between(j["l_quantity"], _dec(str(qty)), _dec(str(qty + 10))),
+            _between(j["p_size"], 1, size)))
+        keep = branch if keep is None else pc.or_(keep, branch)
+    return [pa.array([pc.sum(_dec_revenue(j.filter(keep))).as_py()])]
+
+
+def _dec_qty_by_flag(paths) -> List[pa.Array]:
+    li = _read(paths, "lineitem", ["l_returnflag", "l_quantity"])
+    g = li.group_by("l_returnflag").aggregate([("l_quantity", "sum")]
+                                              ).sort_by("l_returnflag")
+    return [g["l_returnflag"], g["l_quantity_sum"]]
+
+
+def _dec_qty_lt_24(paths) -> List[pa.Array]:
+    q = _read(paths, "lineitem", ["l_quantity"])["l_quantity"]
+    return [pa.array([pc.sum(pc.less(q, _dec("24"))).as_py()], pa.int64())]
+
+
+DECIMAL_ORACLES = {"dec_q6": _dec_q6, "dec_q14": _dec_q14,
+                   "dec_q19": _dec_q19, "dec_qty_by_flag": _dec_qty_by_flag,
+                   "dec_qty_lt_24": _dec_qty_lt_24}
+
+
 #: answers cut by a LIMIT that may split rows tied on the ORDER BY keys:
 #: (positions of the order-key columns, OFFSET, LIMIT); their oracles
 #: return every row in order

@@ -257,3 +257,17 @@ def generate(sf: float = 0.01, seed: int = 19920101) -> Dict[str, pa.Table]:
             "customer": customer, "part": part, "partsupp": partsupp,
             "orders": orders, "lineitem": lineitem}
 
+
+#: the money and quantity columns the TPC-H specification types
+#: DECIMAL(15,2)
+SPEC_DECIMALS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                 "p_retailprice", "ps_supplycost", "o_totalprice",
+                 "s_acctbal", "c_acctbal")
+
+
+def with_spec_decimals(t: pa.Table, columns=SPEC_DECIMALS) -> pa.Table:
+    """`t` with those of `columns` it holds cast to DECIMAL(15,2) (the
+    generator's values have two decimals, so the cast is exact)."""
+    return pa.table([t[c].cast(pa.decimal128(15, 2)) if c in columns
+                     else t[c] for c in t.column_names],
+                    names=t.column_names)

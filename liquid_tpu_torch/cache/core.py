@@ -11,7 +11,12 @@ victim left, the block itself goes to disk (`insert` returns False), or
 is dropped when the disk budget is full too.  A read of a squeezed or
 disk entry may hydrate it back to memory (the hydration policy).  The
 disk is a block store (`cache/store.py`) of Liquid IPC bytes
-(`arrays/ipc.py`) or arrow IPC bytes.
+(`arrays/ipc.py`) or arrow IPC bytes.  A column read only through
+`variant_get` (a VariantGet hint) stays arrow on insert; its squeeze
+shreds the requested JSON paths into typed resident blocks and sends the
+column to disk as arrow bytes (`arrays/variant.py`), and
+`get_variant_paths` reads those paths with no IO, merging in a path
+asked for later.
 
 The cache owns the `device` its queries run on; encoded blocks stay on
 the host until a query uploads them.  The classic scan evaluates
@@ -20,7 +25,10 @@ of one width bucket stacked and compared in one K1 launch,
 `ops/bitpack.cmp_const_op_many`, a bucket of one block included; string
 blocks by dictionary verdicts and one gather; squeezed and disk entries
 one by one through `eval_predicate`) and decodes blocks in batches
-(`get_arrow_many`).  A string column trains one FSST compressor on its
+(`get_arrow_many`).  A decimal block is a primitive block of unscaled
+integers whose `packed_plan` scales the literal and whose
+`decode_from_offsets` returns the decimal, so both batched paths answer
+in the decimal's units.  A string column trains one FSST compressor on its
 first block and shares it with the column's later blocks
 (`DefaultCacheMetadata`).  `epoch` moves on every entry mutation, the
 coarse invalidation key of derived caches (fused plans, prep stacks).
@@ -36,6 +44,7 @@ import pyarrow as pa
 import torch
 
 from liquid_tpu_torch.arrays import ipc
+from liquid_tpu_torch.arrays import variant
 from liquid_tpu_torch.arrays.base import BLOCK_ROWS, LiquidSqueezedArray
 from liquid_tpu_torch.cache import policies as pol
 from liquid_tpu_torch.cache import transcode as tc
@@ -82,6 +91,12 @@ def _arrow_memory_bytes(arr: pa.Array) -> int:
     return sum(b.size for b in arr.buffers() if b is not None) + 64
 
 
+def _arrow_backed(payload) -> bool:
+    """A squeezed form whose backing is arrow bytes (a shredded
+    variant), not Liquid IPC."""
+    return payload.disk_backing()[0] == "arrow"
+
+
 class _SqueezeIo:
     """A squeezed entry's IO handler over the block store; counts its
     reads."""
@@ -124,19 +139,34 @@ class _SqueezeCtx:
         if isinstance(hint, ExtractDate32) and pa.types.is_date32(
                 liquid.arrow_type):
             return squeeze_date32(liquid, hint.field)
+        if isinstance(hint, VariantGet):
+            # a liquid-encoded JSON column: decoded, then shredded
+            return variant.shred_variant(liquid.to_arrow(), hint.requests)
         return None
 
     def squeeze_default(self, payload):
         """The liquid block's own squeeze, or the quantized integer form
-        under the cache's "quantize" integer policy."""
+        under the cache's "quantize" integer policy.  A decimal block has
+        neither: the squeezed integer forms compare raw literals against
+        the unscaled values."""
+        from liquid_tpu_torch.arrays.decimal import LiquidDecimalArray
         from liquid_tpu_torch.arrays.hybrid import squeeze_primitive_quantized
         from liquid_tpu_torch.arrays.primitive import LiquidPrimitiveArray
         if (self._cache.int_squeeze_mode == "quantize"
-                and isinstance(payload, LiquidPrimitiveArray)):
+                and isinstance(payload, LiquidPrimitiveArray)
+                and not isinstance(payload, LiquidDecimalArray)):
             out = squeeze_primitive_quantized(payload)
             if out is not None:
                 return out
         return payload.squeeze()
+
+    def variant_squeeze(self, payload):
+        """An arrow JSON block under a VariantGet hint -> (shredded
+        squeezed form, the column's arrow bytes); None otherwise."""
+        if not isinstance(self.squeeze_hint, VariantGet) or not isinstance(
+                payload, pa.Array):
+            return None
+        return variant.shred_variant(payload, self.squeeze_hint.requests)
 
 
 class DefaultCacheMetadata:
@@ -221,17 +251,14 @@ class LiquidCache:
         """Cache an arrow column block, transcoded when it has a liquid
         encoding.  Returns False when memory pressure sent it to disk or
         dropped it."""
-        if isinstance(hint, VariantGet):
-            raise NotImplementedError(
-                "VariantGet hints need the variant (JSON) arrays of "
-                "arrays/variant.py, which are not ported yet")
         obs = self.observer
         obs.stats.bump("inserts")
         obs.record_access("insert", entry_id, _arrow_memory_bytes(arr))
         if hint is not None:
             self.record_hint(entry_id, hint)
         hint = hint if hint is not None else self._hint_for(entry_id)
-        if self.transcode_on_insert:
+        if self.transcode_on_insert and not isinstance(hint, VariantGet):
+            # a variant column stays arrow until it is squeezed
             liquid = tc.transcode(
                 arr, hint, compressor=self.metadata.compressor_for(entry_id))
             if liquid is not None:
@@ -411,11 +438,48 @@ class LiquidCache:
                 self.observer.stats.bump("squeeze_io_saved")
             return out
 
+    def get_variant_paths(self, entry_id: int, requests
+                          ) -> Optional[pa.StructArray]:
+        """The typed (path, type) reads of a squeezed variant entry as one
+        struct field each: no IO when every path is resident; otherwise
+        re-shredded from the disk backing with the resident paths and kept
+        so when it fits.  None when the entry is absent or not a squeezed
+        variant."""
+        requests = tuple(requests)
+        obs = self.observer
+        with self._lock:
+            e = self._entries.get(entry_id)
+            if e is None:
+                obs.stats.bump("cache_misses")
+                return None
+            if e.state != MEMORY_SQUEEZED or not isinstance(
+                    e.payload, variant.VariantStructSqueezedArray):
+                return None
+            obs.stats.bump("cache_hits")
+            self.record_hint(entry_id, VariantGet(requests))
+            io = _SqueezeIo(self, entry_id)
+            if all(e.payload.contains_path(p, t) for p, t in requests):
+                out, _ = e.payload.to_arrow_with_paths(requests, io)
+                obs.stats.bump("squeeze_io_saved")
+                return out
+            merged = e.payload.merged_with(requests, io)
+            merged._disk_range = e.disk_range
+            new_mem = merged.memory_bytes()
+            if self.budget.try_update_memory_usage(e.mem_bytes, new_mem):
+                e.payload, e.mem_bytes = merged, new_mem
+                obs.event("Hydrate", entry_id, "variant_merge")
+            out, _ = merged.to_arrow_with_paths(requests, io)
+            return out
+
     def _read_arrow(self, entry_id, e) -> Optional[pa.Array]:
         if e.state == MEMORY_ARROW:
             return e.payload
         if e.state == MEMORY_LIQUID:
             return e.payload.to_arrow()
+        if e.state == MEMORY_SQUEEZED and _arrow_backed(e.payload):
+            arr = e.payload.to_arrow(_SqueezeIo(self, entry_id))
+            self._maybe_hydrate(entry_id, e, arr)
+            return arr
         if e.state == MEMORY_SQUEEZED:
             # the backing read once: decoded, then hydrated when it fits
             liquid = e.payload._read_full(_SqueezeIo(self, entry_id))
@@ -440,7 +504,11 @@ class LiquidCache:
         hydration policy says so and it fits (caller holds the lock)."""
         if not self.hydration_policy.should_hydrate(e.state):
             return
-        if e.state in (MEMORY_SQUEEZED, DISK_LIQUID):
+        if e.state == MEMORY_SQUEEZED and _arrow_backed(e.payload):
+            # a shredded variant hydrates to its arrow column
+            payload, state, nbytes = arr, MEMORY_ARROW, _arrow_memory_bytes(
+                arr)
+        elif e.state in (MEMORY_SQUEEZED, DISK_LIQUID):
             payload = liquid if liquid is not None else ipc.deserialize(
                 self.store.get(entry_id))
             state, nbytes = MEMORY_LIQUID, payload.memory_bytes()

@@ -168,6 +168,9 @@ class TranscodeSqueezeEvict(SqueezePolicy):
     def squeeze(self, state: str, payload, ctx):
         from liquid_tpu_torch.cache import core as c
         if state == c.MEMORY_ARROW:
+            out = ctx.variant_squeeze(payload)
+            if out is not None:  # a JSON column read through variant_get
+                return (REPLACE, c.MEMORY_SQUEEZED, *out)
             liquid = ctx.transcode(payload)
             if liquid is None:  # no liquid encoding: to disk as arrow
                 return (REPLACE, c.DISK_ARROW, None, ctx.arrow_bytes(payload))

@@ -6,9 +6,11 @@ when a line fits the block much better); floats become ALP blocks;
 strings and binaries become dictionary blocks (FSST-backed when the
 dictionary is large), with substring fingerprints when the column is
 read through LIKE '%x%' (a SubstringSearch hint) and the column's shared
-FSST compressor passed in.  Decimals have a liquid encoding in the
-reference that is not ported yet: transcoding one raises
-NotImplementedError.  Other types return None and stay in arrow form.
+FSST compressor passed in.  A decimal whose unscaled values fit i64
+becomes bit-planes of them (`LiquidDecimalArray`), a wider one a
+dictionary of FSST-compressed fixed-width bytes
+(`LiquidFixedLenByteArray`).  Other types return None and stay in arrow
+form.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ from typing import Optional
 import numpy as np
 import pyarrow as pa
 
-from liquid_tpu_torch.arrays import byteview, float_alp, linear, primitive
+from liquid_tpu_torch.arrays import (
+    byteview, decimal as dec, float_alp, linear, primitive,
+)
 from liquid_tpu_torch.arrays.base import LiquidArray
 from liquid_tpu_torch.cache.expressions import SubstringSearch
 from liquid_tpu_torch.ops import bitpack as bp
@@ -66,9 +70,11 @@ def transcode(arr: pa.Array, hint=None,
         return primitive.LiquidPrimitiveArray.from_arrow(arr)
     if float_alp.is_supported_type(t):
         return float_alp.LiquidFloatArray.from_arrow(arr)
-    if pa.types.is_decimal(t):
-        raise NotImplementedError(
-            f"transcoding a decimal column ({t}) is not ported yet")
+    if dec.is_supported_type(t):
+        if dec.LiquidDecimalArray.fits(arr):
+            return dec.LiquidDecimalArray.from_arrow(arr)
+        return dec.LiquidFixedLenByteArray.from_arrow(arr,
+                                                      compressor=compressor)
     if byteview.is_supported_type(t):
         return byteview.LiquidByteViewArray.from_arrow(
             arr, with_fingerprints=isinstance(hint, SubstringSearch),

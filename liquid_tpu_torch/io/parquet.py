@@ -4,11 +4,18 @@
 Entry ids pack `(file<<48)|(rowgroup<<32)|(column<<16)|batch`.  Batches
 are 8192-row slices of a row group; a miss reads the column chunk once
 and inserts every batch.  Row groups are pruned by their min/max
-statistics, batches by min/max zone maps recorded on first load.  When
-the cache refuses a block under memory pressure (its insert went to disk
-or was dropped), the block is read straight from the parquet file.  The
-reference also prunes with bloom filters and seeds zones from the page
-index; those readers are not ported yet.
+statistics, then, for an equality predicate that survives them, by the
+column chunk's bloom filter (`io/bloom.py`, counted in `bloom_prunes`).
+Batches are pruned by min/max zone maps: seeded from the file's page
+index before any data IO (`io/pageindex.py`, counted in
+`pageindex_seeds`), else recorded on first load.  A table may read its
+file through an object store (`open_file`, e.g. a `StoreFile` over a
+`ByteCache`).  When the cache refuses a block under memory pressure (its
+insert went to disk or was dropped), the block is read straight from the
+parquet file.  A column read only through `variant_get` (a `VariantGet`
+hint) is read as a struct of the hint's typed paths: from a squeezed
+variant entry (no IO when the paths are resident), else parsed from the
+JSON block.
 """
 from __future__ import annotations
 
@@ -21,6 +28,10 @@ import pyarrow.compute as pc
 import pyarrow.parquet as pq
 
 from liquid_tpu_torch.arrays.base import BLOCK_ROWS, Predicate
+from liquid_tpu_torch.arrays.variant import extract_paths, parse_docs
+from liquid_tpu_torch.cache.expressions import VariantGet
+from liquid_tpu_torch.io.bloom import BloomReader
+from liquid_tpu_torch.io.pageindex import PageIndexReader
 
 
 def pack_id(file_id: int, rg: int, col: int, batch: int) -> int:
@@ -58,20 +69,29 @@ def _may_match(op: str, v, lo, hi) -> bool:
 
 
 class ParquetTable:
-    """One registered parquet file, scanned through the cache."""
+    """One registered parquet file, scanned through the cache.
 
-    def __init__(self, name: str, path: str, cache, file_id: int):
+    `open_file` (optional) returns a fresh binary file-like of the file,
+    to scan an object in a store (`common/object_store.StoreFile`)."""
+
+    def __init__(self, name: str, path: str, cache, file_id: int,
+                 open_file=None):
         self.name = name
         self.path = path
         self.cache = cache
         self.file_id = file_id
-        self._pf = pq.ParquetFile(path)
+        self._pf = pq.ParquetFile(open_file() if open_file else path)
         self.metadata = self._pf.metadata
         self.schema = self._pf.schema_arrow
         self.column_names = list(self.schema.names)
         self._col_index = {n: i for i, n in enumerate(self.column_names)}
         self._zones: Dict[tuple, tuple] = {}  # (rg, col, batch) -> bounds
         self.zone_prunes = 0  # batches skipped by zone maps
+        self.bloom_prunes = 0  # row groups skipped by bloom filters
+        self.pageindex_seeds = 0  # columns whose zones came from the index
+        self._bloom = BloomReader(path, self.metadata, open_file)
+        self._pageindex = PageIndexReader(path, open_file)
+        self._pi_seeded: set = set()  # (rg, col) already seeded
         self._lock = threading.Lock()
 
     @property
@@ -117,9 +137,67 @@ class ParquetTable:
                 continue
             if not _may_match(pred.op, pred.literal, stats.min, stats.max):
                 return False
+        # min/max passed: an equality literal the column chunk's bloom
+        # filter proves absent drops the row group
+        for col, pred in pushed:
+            ci = self._col_index.get(col)
+            if ci is None or pred.op != "eq":
+                continue
+            phys = meta.column(ci).physical_type
+            if self._bloom.might_contain(rg, ci, pred.literal,
+                                         phys) is False:
+                self.bloom_prunes += 1
+                return False
         return True
 
-    # -- batch-level zone maps (built once, on first load) -------------------
+    # -- batch-level zone maps (from the page index, else on first load) -----
+
+    def _seed_zones_from_pageindex(self, rg: int, col_name: str) -> None:
+        """Zones of (rg, col)'s batches from the column index's page
+        min/max, before any data IO.  A batch spanning several pages gets
+        their merged range; a batch touching a page without stats stays
+        unknown."""
+        key = (rg, col_name)
+        if key in self._pi_seeded:
+            return
+        self._pi_seeded.add(key)
+        ci = self._col_index[col_name]
+        phys = self.metadata.row_group(rg).column(ci).physical_type
+        zones = self._pageindex.page_zones(rg, ci, phys, self.rg_num_rows(rg))
+        if not zones:
+            return
+        t = self.schema.field(col_name).type
+        if (pa.types.is_timestamp(t) or pa.types.is_date64(t)
+                or pa.types.is_decimal(t)):
+            # predicates on these arrive as datetimes, or in the decimal's
+            # units where an integer-stored decimal's stats are unscaled
+            return
+        nulls = self._null_rows_upper(rg, ci)
+        for b in range(self.num_batches(rg)):
+            b_lo = b * BLOCK_ROWS
+            b_hi = b_lo + self.batch_length(rg, b)
+            lo = hi = None
+            covered = 0
+            for frow, end, plo, phi in zones:
+                if end <= b_lo or frow >= b_hi:
+                    continue
+                covered += min(end, b_hi) - max(frow, b_lo)
+                lo = plo if lo is None else min(lo, plo)
+                hi = phi if hi is None else max(hi, phi)
+            # trusted only when pages with stats cover every row of the
+            # batch but its NULLs (which match no comparison); parquet
+            # float stats exclude NaN, so they cannot prove NaN-absence
+            if lo is not None and covered >= b_hi - b_lo - nulls:
+                self._zones.setdefault((rg, col_name, b), (
+                    lo, hi, phys not in ("FLOAT", "DOUBLE")))
+        self.pageindex_seeds += 1
+
+    def _null_rows_upper(self, rg: int, ci: int) -> int:
+        """NULL rows of the column chunk by its statistics (0 without)."""
+        stats = self.metadata.row_group(rg).column(ci).statistics
+        if stats is not None and stats.null_count is not None:
+            return stats.null_count
+        return 0
 
     def _record_zone(self, rg: int, col_name: str, batch: int,
                      chunk: pa.Array) -> None:
@@ -145,6 +223,8 @@ class ParquetTable:
                         pred: Predicate) -> bool:
         """False only when the zone map PROVES no row of the batch can
         match `pred` (unknown zones always pass)."""
+        if (rg, col_name) not in self._pi_seeded:
+            self._seed_zones_from_pageindex(rg, col_name)
         z = self._zones.get((rg, col_name, batch))
         if z is None:
             return True
@@ -180,8 +260,21 @@ class ParquetTable:
 
     def get_batch(self, rg: int, col_name: str, batch: int,
                   hint=None) -> pa.Array:
-        """One decoded block of (rg, col) as arrow (dictionaries decoded)."""
+        """One decoded block of (rg, col) as arrow (dictionaries decoded).
+        Under a VariantGet hint it is the struct of the hint's typed
+        paths: read from a squeezed variant entry (no IO when they are
+        resident), else parsed from the JSON block, so that every block
+        of a scan has one type."""
         eid = self.entry_id(rg, col_name, batch)
+        if isinstance(hint, VariantGet):
+            if not self.cache.contains(eid):
+                self.ensure_cached(rg, col_name, hint)
+            out = self.cache.get_variant_paths(eid, hint.requests)
+            if out is not None:
+                return out
+            return extract_paths(parse_docs(self.get_batch(rg, col_name,
+                                                           batch)),
+                                 hint.requests)
         out = self.cache.get(eid)
         if out is None:
             self.ensure_cached(rg, col_name, hint)

@@ -7,12 +7,15 @@ and ORDER BY over the aggregate result here; the classic path evaluates
 residual filters, projections and aggregate inputs over decoded blocks
 and joined tables.  A scalar subquery calls back into the executor; a
 decorrelated subquery (`ast.CorrLookup`) is a lookup into its
-precomputed inner table by a pyarrow join.  Variant functions belong to
-the variant arrays, which are not ported yet, and raise.
+precomputed inner table by a pyarrow join.  `variant_get` reads a typed
+JSON path: a field of the struct the scan read from a shredded variant
+entry, else parsed from the JSON text; `variant_pretty` and
+`variant_to_json` re-serialize the documents.
 """
 from __future__ import annotations
 
 import datetime
+import json
 from typing import Dict, Optional
 
 import numpy as np
@@ -20,6 +23,19 @@ import pyarrow as pa
 import pyarrow.compute as pc
 
 from liquid_tpu_torch.sql import ast
+
+_VARIANT_TYPE_ALIASES = {
+    "int64": "int64", "int": "int64", "bigint": "int64", "integer": "int64",
+    "float64": "float64", "double": "float64", "float": "float64",
+    "utf8": "utf8", "string": "utf8", "varchar": "utf8", "text": "utf8",
+    "bool": "bool", "boolean": "bool", "variant": "variant", "json": "variant",
+}
+
+
+def normalize_variant_type(t: str) -> str:
+    """A variant_get type argument -> one of `arrays.variant.PATH_TYPES`
+    (unknown names read the subtree as JSON)."""
+    return _VARIANT_TYPE_ALIASES.get(str(t).lower(), "variant")
 
 class Batch:
     """Named arrow arrays of equal length (a materialized block or the
@@ -364,10 +380,36 @@ class Evaluator:
         if name == "concat":
             args = [self.arr(a).cast(pa.string()) for a in e.args]
             return pc.binary_join_element_wise(*args, "")
-        if name in ("variant_get", "variant_pretty", "variant_to_json"):
-            raise NotImplementedError(
-                f"{name}: the variant arrays are not ported yet")
+        if name == "variant_get":
+            return self._variant_get(e)
+        if name in ("variant_pretty", "variant_to_json"):
+            from liquid_tpu_torch.arrays import variant as vlib
+            docs = vlib.parse_docs(self.arr(e.args[0]))
+            if name == "variant_pretty":
+                out = [None if d is None else json.dumps(
+                    d, indent=2, ensure_ascii=False) for d in docs]
+            else:
+                out = [None if d is None else json.dumps(
+                    d, separators=(",", ":"), ensure_ascii=False)
+                    for d in docs]
+            return pa.array(out, type=pa.string())
         raise NotImplementedError(f"function {name}")
+
+    def _variant_get(self, e: ast.Func):
+        """variant_get(col, 'path' [, type]): the struct field the scan
+        read for (path, type) from a shredded variant entry, else the path
+        parsed from the JSON text."""
+        from liquid_tpu_torch.arrays import variant as vlib
+        path = self.eval(e.args[1]).as_py()
+        type_name = normalize_variant_type(
+            self.eval(e.args[2]).as_py()) if len(e.args) > 2 else "variant"
+        v = self.arr(e.args[0])
+        if pa.types.is_struct(v.type):
+            idx = v.type.get_field_index(vlib.field_name(path, type_name))
+            if idx >= 0:
+                return v.field(idx)
+        docs = vlib.parse_docs(v)
+        return vlib.extract_paths(docs, [(path, type_name)]).field(0)
 
 
 def _plain(a: pa.Array) -> pa.Array:

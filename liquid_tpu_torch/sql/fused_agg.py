@@ -62,6 +62,9 @@ import torch
 
 from liquid_tpu_torch.arrays.base import BLOCK_ROWS, Predicate
 from liquid_tpu_torch.arrays.byteview import LiquidByteViewArray
+from liquid_tpu_torch.arrays.decimal import (
+    LiquidDecimalArray, LiquidFixedLenByteArray,
+)
 from liquid_tpu_torch.arrays.float_alp import LiquidFloatArray
 from liquid_tpu_torch.arrays.linear import LiquidLinearArray, linear_term
 from liquid_tpu_torch.arrays.primitive import LiquidPrimitiveArray
@@ -148,6 +151,10 @@ def _compile_expr(e: ast.Expr, col_kinds, dictres=None) -> Tuple[tuple, set]:
             return ("col", e.name, "i64"), {e.name}
         if k == "float":
             return ("col", e.name, "f64"), {e.name}
+        arrow_type = getattr(col_kinds, "arrow_type", None)
+        t = arrow_type(e.name) if arrow_type is not None else None
+        if t is not None and pa.types.is_decimal(t):
+            raise _Bail("decimal column")
         raise _Bail(f"column kind {k} in expression")
     if isinstance(e, ast.Literal):
         v = e.value
@@ -702,6 +709,11 @@ def _prep_column(payloads, arrow_type, device) -> _ColPrep:
     prep.arrow_type = arrow_type
     prep.payloads = list(payloads)
     p0 = payloads[0]
+    if any(isinstance(p, (LiquidDecimalArray, LiquidFixedLenByteArray))
+           for p in payloads):
+        # unscaled integers: raw-literal intervals and i64 sums would be
+        # wrong, so a decimal query takes the classic path
+        raise _Bail("decimal column")
     if isinstance(p0, (LiquidLinearArray, LiquidPrimitiveArray)) and any(
             isinstance(p, LiquidLinearArray) for p in payloads):
         # the transcoder picks linear per block, so a column mixes both;
@@ -1502,6 +1514,8 @@ def _schema_kind(t: pa.DataType) -> str:
         return "planes"
     if pa.types.is_floating(t):
         return "float"
+    if pa.types.is_decimal(t):
+        raise _Bail("decimal column")
     if (pa.types.is_string(t) or pa.types.is_large_string(t)
             or pa.types.is_binary(t) or pa.types.is_large_binary(t)
             or pa.types.is_string_view(t) or pa.types.is_binary_view(t)):

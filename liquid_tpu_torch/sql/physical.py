@@ -29,6 +29,7 @@ import pyarrow.compute as pc
 import torch
 
 from liquid_tpu_torch.arrays.base import BLOCK_ROWS, Predicate
+from liquid_tpu_torch.cache.expressions import VariantGet
 from liquid_tpu_torch.device import words_to_tensor
 from liquid_tpu_torch.ops import mask as mops
 from liquid_tpu_torch.sql import ast
@@ -269,6 +270,8 @@ def scan_blocks(table, plan, hints: Dict[str, object],
             for conj in deferred[b] + plan.residual:
                 collect_columns(conj, prefetch)
         for c in sorted(prefetch & set(table.column_names)):
+            if isinstance(hints.get(c), VariantGet):
+                continue  # a variant's struct read stays per block
             for b, arr in table.get_batches(rg, c, hints.get(c),
                                             batches=survivors).items():
                 mats[b][c] = arr

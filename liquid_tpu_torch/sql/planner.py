@@ -8,12 +8,11 @@ Reference behavior:
 - `extract_multi_column_or` (reader/runtime/liquid_predicate.rs:12-43):
   decompose nested OR into per-column predicates for encoded eval.
 - `LineageOptimizer` (optimizers/lineage_opt.rs): detect columns used
-  ONLY via EXTRACT(year/month/day/dow) or LIKE '%x%' and record squeeze
-  hints for them.
+  ONLY via EXTRACT(year/month/day/dow), LIKE '%x%' or
+  variant_get(col, path [, type]) and record squeeze hints for them.
 
-Host copy of `liquid_tpu/sql/planner.py` (without the variant-column
-hint, whose encoding is not ported): the port imports nothing of the
-reference package.
+Host copy of `liquid_tpu/sql/planner.py`: the port imports nothing of
+the reference package.
 """
 from __future__ import annotations
 
@@ -22,7 +21,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from liquid_tpu_torch.arrays.base import Predicate
-from liquid_tpu_torch.cache.expressions import ExtractDate32, SubstringSearch
+from liquid_tpu_torch.cache.expressions import (
+    ExtractDate32, SubstringSearch, VariantGet,
+)
 from liquid_tpu_torch.sql import ast
 from liquid_tpu_torch.sql.qualify import map_expr
 
@@ -331,8 +332,9 @@ def plan_scan_filters(where: Optional[ast.Expr]) -> ScanPlan:
 
 def column_hints(q: ast.Select) -> Dict[str, object]:
     """Columns used ONLY via LIKE '%x%' -> SubstringSearch; columns used
-    ONLY via EXTRACT(field) over a raw date column -> ExtractDate32
-    (ref ColumnAnnotation::{DatePart,SubstringSearch},
+    ONLY via EXTRACT(field) over a raw date column -> ExtractDate32;
+    columns used ONLY via variant_get(col, path [, type]) -> VariantGet
+    (ref ColumnAnnotation::{DatePart,SubstringSearch,VariantPaths},
     optimizers/lineage_opt.rs:31-114)."""
     usage: Dict[str, set] = {}
 
@@ -351,6 +353,17 @@ def column_hints(q: ast.Select) -> Dict[str, object]:
             if isinstance(e.operand, ast.Column) and e.field in (
                     "year", "month", "day", "dow"):
                 usage.setdefault(e.operand.name, set()).add(f"extract:{e.field}")
+                return
+        if isinstance(e, ast.Func) and e.name == "variant_get":
+            if (len(e.args) >= 2 and isinstance(e.args[0], ast.Column)
+                    and isinstance(e.args[1], ast.Literal)
+                    and isinstance(e.args[1].value, str)):
+                from liquid_tpu_torch.sql.eval import normalize_variant_type
+                t = "variant"
+                if len(e.args) > 2 and isinstance(e.args[2], ast.Literal):
+                    t = normalize_variant_type(e.args[2].value)
+                usage.setdefault(e.args[0].name, set()).add(
+                    ("variant", e.args[1].value, t))
                 return
         for f_ in getattr(e, "__dataclass_fields__", {}):
             v = getattr(e, f_)
@@ -378,6 +391,9 @@ def column_hints(q: ast.Select) -> Dict[str, object]:
     for col, kinds in usage.items():
         if kinds == {"like"}:
             hints[col] = SubstringSearch()
+        elif all(isinstance(k, tuple) and k[0] == "variant" for k in kinds):
+            hints[col] = VariantGet(tuple(sorted(
+                (path, t) for _, path, t in kinds)))
         elif len(kinds) == 1:
             k = next(iter(kinds))
             if isinstance(k, str) and k.startswith("extract:"):

@@ -55,7 +55,10 @@ class SessionContext:
     def device(self):
         return self.cache.device
 
-    def register_parquet(self, name: str, path: str) -> None:
+    def register_parquet(self, name: str, path: str, open_file=None) -> None:
+        """Register a parquet file as `name`; `open_file` (optional)
+        returns a fresh file-like of it, to scan an object in a store
+        (`common/object_store.StoreFile`)."""
         old = self._tables.get(name)
         if old is not None:
             # the replaced table's prep reservations and cache entries
@@ -65,7 +68,8 @@ class SessionContext:
             self.cache.remove_file(old.file_id)
         fid = self._next_file_id
         self._next_file_id += 1
-        self._tables[name] = ParquetTable(name, path, self.cache, fid)
+        self._tables[name] = ParquetTable(name, path, self.cache, fid,
+                                          open_file=open_file)
 
     def table_names(self):
         return list(self._tables)

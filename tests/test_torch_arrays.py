@@ -165,13 +165,17 @@ def test_patches_present_in_alp_case():
     pa.array([1, 2], pa.decimal128(10, 2)),
     pa.array(["a", "b"]).dictionary_encode()])
 def test_strings_and_decimals_raise(arr):
-    """Decimals still raise; strings and binaries transcode to the same
-    dictionary block as the reference's (tests/test_torch_strings.py
-    covers the string encodings in depth)."""
-    if pa.types.is_decimal(arr.type):
-        with pytest.raises(NotImplementedError):
-            ttc.transcode(arr)
-        return
+    """Strings, binaries and decimals transcode to the same block as the
+    reference's: a dictionary block, or a decimal's bit-planes of its
+    unscaled values (tests/test_torch_strings.py and
+    tests/test_torch_decimal.py cover them in depth)."""
     ours, ref = ttc.transcode(arr), jtc.transcode(arr)
+    assert type(ours).__name__ == type(ref).__name__
+    if pa.types.is_decimal(arr.type):
+        np.testing.assert_array_equal(ours.planes_np, np.asarray(ref._planes))
+        assert (ours.width, ours.reference_value) == (
+            ref.width, ref.reference_value)
+        assert ours.to_arrow().equals(ref.to_arrow())
+        return
     np.testing.assert_array_equal(ours.codes_np, ref.codes_np)
     assert ours.to_arrow().equals(ref.to_arrow())

@@ -13,7 +13,8 @@ the JAX package's, both on the CPU.
   blocks sit in every state (liquid, squeezed, disk-liquid, arrow,
   disk-arrow) give the reference's masks and arrays.
 - The budget's disk half, the FIFO policy, the access tracer's parquet
-  flush, and the VariantGet hint raising."""
+  flush, and a VariantGet hint keeping the block arrow until a squeeze
+  shreds it."""
 import os
 
 import pytest
@@ -433,9 +434,20 @@ def test_access_trace_flushes_to_parquet(tmp_path):
 
 
 def test_variant_hints_raise_naming_the_module(tmp_path):
-    _, tc = _both(tmp_path, 1 << 30)
-    with pytest.raises(NotImplementedError, match="arrays/variant.py"):
-        tc.insert(1, pa.array(['{"a": 1}']), hint=VariantGet((("a", "int64"),)))
+    """A VariantGet hint no longer raises: as in the reference, the JSON
+    block stays arrow on insert and a squeeze shreds its requested path
+    (tests/test_torch_variant.py covers the variant tier in depth)."""
+    from liquid_tpu.cache.expressions import VariantGet as JVariantGet
+    arr = pa.array(['{"a": 1}', '{"a": 2}', None])
+    for c, cls in zip(_both(tmp_path, 1 << 30), (JVariantGet, VariantGet)):
+        hint = cls((("a", "int64"),))
+        assert c.insert(1, arr, hint=hint)
+        assert c.entry_state(1) == "memory_arrow"
+        c._squeeze_victim(1)
+        assert c.entry_state(1) == "memory_squeezed"
+        assert c.get_variant_paths(1, hint.requests).field(0).to_pylist() \
+            == [1, 2, None]
+        assert c.get(1).equals(arr)
 
 
 def test_reset_and_remove_file_release_memory_and_disk(tmp_path):

@@ -268,11 +268,9 @@ def _scan(mod, plan_mod, parse, ctx, table, sql, need, dynamic=None):
 
 @pytest.mark.parametrize("i", range(len(SCANS)))
 def test_scan_blocks_selects_the_reference_rows(tpch_sessions, i):
-    """The same blocks and rows.  Zone prunes count alike where both
-    packages record the zone maps on first load (the TPC-H files); the
-    reference seeds `nano_hits`'s from its page index, which the port
-    does not read yet (ROADMAP Queue 1 item 6), so there only the rows
-    compare."""
+    """The same blocks and rows, and zone prunes counted alike: both
+    packages record the TPC-H files' zone maps on first load and seed
+    `nano_hits`'s from its page index."""
     jctx, tctx = tpch_sessions
     table, sql, need = SCANS[i]
     for _ in range(2):  # the second pass reads the zone maps of the first
@@ -280,8 +278,7 @@ def test_scan_blocks_selects_the_reference_rows(tpch_sessions, i):
         want = _scan(jphys, jplan, jparse, jctx, table, sql, need)
         assert got[0] == want[0]
         assert got[2] == want[2]
-        if table != "hits":
-            assert got[1] == want[1]
+        assert got[1] == want[1]
 
 
 def test_scan_blocks_dynamic_filter_prunes_alike(tpch_sessions):

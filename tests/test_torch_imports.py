@@ -52,7 +52,9 @@ def test_importing_every_module_loads_no_jax():
                  "sql.exec", "sql.fused_star", "sql.device_join",
                  "sql.device_agg", "sql.physical", "ops.join",
                  "ops.groupby", "cache.store", "arrays.ipc",
-                 "arrays.hybrid", "utils.dates"):
+                 "arrays.hybrid", "utils.dates", "arrays.decimal",
+                 "arrays.variant", "io.bloom", "io.pageindex",
+                 "common.object_store"):
         assert f"liquid_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -7,8 +7,8 @@ CPU.
   fingerprints) equals the reference's byte for byte;
 - each package's `deserialize` reads the other's bytes back to the same
   arrow array;
-- the decimal, fixed-length and delta ids raise NotImplementedError in
-  the port, naming the module that is missing;
+- the decimal, fixed-length and delta ids read the reference's bytes
+  into the blocks of the modules that hold them;
 - `PyBlockStore` behaves as the reference's (put, get, read_range,
   remove, compact, range_of, live and file bytes), and `NativeBlockStore`
   as `PyBlockStore`."""
@@ -165,9 +165,15 @@ def _ref_bytes_of(kind):
     ("decimal", "arrays/decimal.py"), ("fixedlen", "arrays/decimal.py"),
     ("delta", "arrays/linear.py")])
 def test_unported_encodings_raise_naming_their_module(kind, module):
+    """The decimal, fixed-length and delta ids, once unported, now read
+    into the block of the module that holds them, the reference's
+    bytes and arrow back (tests/test_torch_decimal.py covers them in
+    depth)."""
     data = _ref_bytes_of(kind)
-    with pytest.raises(NotImplementedError, match=module):
-        tipc.deserialize(data)
+    got = tipc.deserialize(data)
+    assert type(got).__module__.replace(".", "/").endswith(module[:-3])
+    assert got.to_bytes() == data
+    assert got.to_arrow().equals(jipc.deserialize(data).to_arrow())
 
 
 def test_bad_header_raises():
