@@ -100,10 +100,10 @@ Phases (any failure raises and the script exits non-zero):
    cache holds for the columns of the bench's six queries and TPC-H q12,
    q14 and q19 (`pressure_queries`, `pressure_working_set`), the cap
    W // 4; two fresh sessions at the cap on the same parquet, each with
-   its own cache directory: the default policy (a first run and three
-   warm runs of each query, and phase 9's profiled run) and
+   its own cache directory: the default policy (a first run and one
+   warm run of each query, and phase 9's profiled run) and
    `liquid-no-squeeze` (a first run and one warm run of the bench's six
-   queries: phase 6g's time comes out of it); every answer of
+   queries): phase 6g's time comes out of this phase's; every answer of
    the first and last run equal to pyarrow, `memory_used <= cap` after
    every run, disk writes in both, and in the default session squeezes,
    an entry seen squeezed and a read from one (`squeeze_io_reads` or
@@ -1481,9 +1481,9 @@ def run_pressure_path(torch, paths: dict, expect: dict, cap: int):
     """Phase 6f: the cache under a memory budget -> (report, [(planes, cs,
     label)] of every K1 single-form input the phase gave).  Two fresh
     sessions at `cap`, each with its own cache directory: the default
-    policy (`TranscodeSqueezeEvict`: a first run and three warm runs of
-    each query) and `liquid-no-squeeze` (`bench/runner.make_session`: a
-    first run and one warm run of the bench's six queries).  Every answer
+    policy (`TranscodeSqueezeEvict`) on the nine queries and
+    `liquid-no-squeeze` (`bench/runner.make_session`) on the bench's six,
+    each query a first run and one warm run.  Every answer
     of the first and the last
     run equals pyarrow; `memory_used <= cap` after every run; disk writes
     in both; in the default session squeezes, an entry seen squeezed and
@@ -1541,10 +1541,11 @@ def run_pressure_path(torch, paths: dict, expect: dict, cap: int):
     for c in squeezed:
         c.try_eval_predicate = narrow(evals[c])
     try:
-        # the no-squeeze session runs the bench's six queries only (the
-        # storage phase's time comes out of it)
+        # one warm run per query, and the no-squeeze session runs the
+        # bench's six queries only: the storage phase's time comes out of
+        # this phase's
         for mode, warm_runs, mode_qs in (
-                ("default", 3, qs), ("liquid-no-squeeze", 1, qs[:6])):
+                ("default", 1, qs), ("liquid-no-squeeze", 1, qs[:6])):
             torch.cuda.reset_peak_memory_stats()
             with tempfile.TemporaryDirectory() as d, DiskIoGuard() as io:
                 ctx, cache = session(mode, d)
@@ -1710,8 +1711,9 @@ def run_decimal_path(torch, fctx, dpaths: dict):
     """Phase 6g-a: TPC-H with DECIMAL(15,2) money columns in a fresh
     session on the card -> (report, [(planes, cs, label)] of every K1
     single-form input).  A first run of a narrow `l_orderkey` range inside
-    one row group seeds its zones from the page index and prunes before
-    any data read; then q6, q14, q19, `sum(l_quantity) GROUP BY
+    one row group seeds a zone for each of that row group's batches from
+    the page index and prunes by them before any data read (counters read
+    after the first run); then q6, q14, q19, `sum(l_quantity) GROUP BY
     l_returnflag` and `count(*) WHERE l_quantity < 24`.  Every answer
     (first and last run) equals pyarrow on the decimal file (decimals
     exact) and, cast to float64, the same query on the float session
@@ -1754,30 +1756,37 @@ def run_decimal_path(torch, fctx, dpaths: dict):
     del li
     expect.update({n: f(dpaths) for n, f in oracle.DECIMAL_ORACLES.items()})
     table = ctx._tables["lineitem"]
-    report = {}
+    report, first = {}, {}
     k1.cmp_const_many = capture
     try:
         for qname, sql in qs:
             calls.clear()
             bails = []
 
-            def after(_run):
+            def after(run):
                 bails.append((fused_agg.STATS.get("last_bail"),
                               fused_agg.STATS.get("star_last_bail")))
                 fused_agg.STATS["last_bail"] = None
                 fused_agg.STATS["star_last_bail"] = None
+                if run == 0 and qname == "dec_orderkey_range":
+                    first.update(seeds=table.pageindex_seeds,
+                                 index_zones=table.pageindex_zones,
+                                 zone_prunes=table.zone_prunes)
 
             fused_agg.STATS["last_bail"] = None
             fused_agg.STATS["star_last_bail"] = None
             outs, first_s, warm_ms, k1_runs = _query_runs(torch, ctx, sql,
                                                           after=after)
-            if qname == "dec_orderkey_range":
-                seeds, zone_prunes = table.pageindex_seeds, table.zone_prunes
-                if seeds <= 0 or zone_prunes <= 0:
-                    raise AssertionError(
-                        f"6g-a {qname}: the first run seeded {seeds} "
-                        f"columns from the page index and pruned "
-                        f"{zone_prunes} batches")
+            if qname == "dec_orderkey_range" and not (
+                    first["seeds"] > 0 and first["zone_prunes"] > 0
+                    and first["index_zones"] == table.num_batches(rg)):
+                # every zone the first run pruned by came from the page
+                # index: it set one for each of the row group's batches
+                # before their data was read (a zone recorded on load is
+                # never overwritten, so it would not count here)
+                raise AssertionError(
+                    f"6g-a {qname}: the first run seeded {first} from the "
+                    f"page index for {table.num_batches(rg)} batches")
             for what, got in zip(("first", "last warm"), outs):
                 if not oracle.same_table(got, expect[qname]):
                     raise AssertionError(f"6g-a {qname} ({what} run): port "
@@ -1799,8 +1808,11 @@ def run_decimal_path(torch, fctx, dpaths: dict):
             report[qname].update(answer=str(outs[1].to_pylist()[:3]),
                                  bails=bails[-1])
             if qname == "dec_orderkey_range":
-                report[qname].update(pageindex_seeds=seeds,
-                                     zone_prunes_first_run=zone_prunes)
+                report[qname].update(
+                    pageindex_seeds_first_run=first["seeds"],
+                    pageindex_zones_first_run=first["index_zones"],
+                    zone_prunes_first_run=first["zone_prunes"],
+                    zone_prunes_all_runs=table.zone_prunes)
             log(f"[decimal] {qname}: {json.dumps(report[qname])}")
     finally:
         k1.cmp_const_many = wrapped
@@ -1810,18 +1822,18 @@ def run_decimal_path(torch, fctx, dpaths: dict):
     return report, inputs
 
 
-#: JSONBench's warm runs per query beside the profiled one, by session:
-#: a run parses every JSON block it does not read shredded (~4 s per
-#: query at 1M events on the host), so the phase keeps to the time limit
-JSON_WARM_RUNS = {"uncapped": 0, "capped": 1}
+#: JSONBench's unprofiled warm runs per query, by session: a run parses
+#: every JSON block it does not read shredded (~4 s per query at 1M
+#: events on the host), so the phase keeps to the time limit
+JSON_WARM_RUNS = {"uncapped": 1, "capped": 1}
 
 
 def run_json_path(torch, path: str):
     """Phase 6g-b: the five JSONBench queries over the events in two
     fresh sessions: uncapped, and capped at `JSON_CAP_FRACTION` of the
     event column's arrow bytes.  Each query: a first run, the warm runs
-    of `JSON_WARM_RUNS` and one profiled warm run (its wall time counts
-    among the warm times).  Every answer of the unprofiled runs equals
+    of `JSON_WARM_RUNS` (its warm best) and one profiled warm run
+    (reported apart).  Every answer of the unprofiled runs equals
     the `json` + `Counter` oracle; in the capped session `memory_used <=
     cap` after every run, variant blocks are squeezed and the warm runs
     read shredded paths with no IO (`squeeze_io_saved`)."""
@@ -1863,10 +1875,10 @@ def run_json_path(torch, path: str):
                             f"{got.to_pylist()[:3]} != oracle {want[i][:3]}")
                 bd = device_breakdown(torch, ctx, sql, 1.0, settle=False)
                 after(None)
-                warm_ms.append(bd["profiled_wall_ms"])
                 st = cache.stats()
                 row = dict(first_run_s=first_s, warm_best_ms=min(warm_ms),
-                           warm_ms=warm_ms, profiled_wall_ms=warm_ms[-1],
+                           warm_ms=warm_ms,
+                           profiled_wall_ms=bd["profiled_wall_ms"],
                            device_busy_ms=bd["device_busy_ms"],
                            idle_share=(1 - bd["device_busy_ms"]
                                        / min(warm_ms)),

@@ -9,14 +9,12 @@ squeezed); an ExtractDate32 hint squeezes a date block to that one field
 is read only through `variant_get(col, path, type)`) keeps the column in
 arrow form until it is squeezed, then shreds the requested paths into
 typed resident blocks (`arrays/variant.py`); the vote keeps the union of
-every variant path asked for.  `parse_hint` reads a hint from its
-metadata string.
+every variant path asked for.
 """
 from __future__ import annotations
 
 from collections import Counter, deque
 from dataclasses import dataclass
-from typing import Optional
 
 from liquid_tpu_torch.arrays.variant import PATH_TYPES
 from liquid_tpu_torch.utils.dates import FIELDS
@@ -36,11 +34,6 @@ class SubstringSearch:
 
 
 @dataclass(frozen=True)
-class PredicateColumn:
-    pass
-
-
-@dataclass(frozen=True)
 class VariantGet:
     """The column is read only through `variant_get(col, path [, type])`:
     a squeeze shreds the requested (path, type) pairs into typed resident
@@ -56,24 +49,6 @@ class VariantGet:
         want = dict.fromkeys(self.requests)
         want.update(dict.fromkeys(other.requests))
         return VariantGet(tuple(want))
-
-
-def parse_hint(s: str) -> Optional[object]:
-    """A hint from its metadata string ("extract_date32:year",
-    "substring_search", "predicate_column", "variant_get:a.b@int64,c")."""
-    if s.startswith("extract_date32:"):
-        return ExtractDate32(s.split(":", 1)[1])
-    if s == "substring_search":
-        return SubstringSearch()
-    if s == "predicate_column":
-        return PredicateColumn()
-    if s.startswith("variant_get:"):
-        reqs = []
-        for part in s.split(":", 1)[1].split(","):
-            path, _, t = part.partition("@")
-            reqs.append((path, t or "variant"))
-        return VariantGet(tuple(reqs))
-    return None
 
 
 class HintVote:

@@ -20,6 +20,7 @@ JSON block.
 from __future__ import annotations
 
 import datetime
+import decimal
 import threading
 from typing import Dict, List, Tuple
 
@@ -68,6 +69,37 @@ def _may_match(op: str, v, lo, hi) -> bool:
     return True
 
 
+def _stats_literal(t: pa.DataType, v):
+    """`v` as it compares with `t`'s row-group statistics, or None (no
+    pruning).  A decimal's statistics are `Decimal`s, and a float literal
+    stands for the decimal it spells, as the decimal block reads it: 0.1
+    is not above a max of 0.10.  NaN orders against no decimal."""
+    if pa.types.is_decimal(t) and isinstance(v, float):
+        return None if v != v else decimal.Decimal(str(v))
+    return v
+
+
+def _bloom_literal(t: pa.DataType, v):
+    """`v` when a column of arrow type `t` hashes the literal's own plain
+    encoding into its bloom filter, else None (no probe).  A decimal
+    hashes its unscaled integer or fixed-length bytes, a float32 its
+    4-byte value, an unsigned column its bit pattern; a float 0 has two
+    encodings (+0, -0) that compare equal, and NaN equals nothing.  A
+    probe with another encoding would prove a present value absent."""
+    if v is None or isinstance(v, bool):
+        return None
+    if isinstance(v, int):
+        return v if pa.types.is_signed_integer(t) else None
+    if isinstance(v, float):
+        return v if pa.types.is_float64(t) and v == v and v != 0 else None
+    if isinstance(v, str):
+        return v if pa.types.is_string(t) or pa.types.is_large_string(t) \
+            else None
+    if isinstance(v, datetime.date) and not isinstance(v, datetime.datetime):
+        return v if pa.types.is_date32(t) else None
+    return None
+
+
 class ParquetTable:
     """One registered parquet file, scanned through the cache.
 
@@ -89,6 +121,7 @@ class ParquetTable:
         self.zone_prunes = 0  # batches skipped by zone maps
         self.bloom_prunes = 0  # row groups skipped by bloom filters
         self.pageindex_seeds = 0  # columns whose zones came from the index
+        self.pageindex_zones = 0  # batch zones set from the page index
         self._bloom = BloomReader(path, self.metadata, open_file)
         self._pageindex = PageIndexReader(path, open_file)
         self._pi_seeded: set = set()  # (rg, col) already seeded
@@ -135,7 +168,9 @@ class ParquetTable:
             stats = meta.column(ci).statistics
             if stats is None or not stats.has_min_max:
                 continue
-            if not _may_match(pred.op, pred.literal, stats.min, stats.max):
+            lit = _stats_literal(self.schema.field(col).type, pred.literal)
+            if lit is not None and not _may_match(pred.op, lit, stats.min,
+                                                  stats.max):
                 return False
         # min/max passed: an equality literal the column chunk's bloom
         # filter proves absent drops the row group
@@ -143,9 +178,11 @@ class ParquetTable:
             ci = self._col_index.get(col)
             if ci is None or pred.op != "eq":
                 continue
+            lit = _bloom_literal(self.schema.field(col).type, pred.literal)
+            if lit is None:
+                continue
             phys = meta.column(ci).physical_type
-            if self._bloom.might_contain(rg, ci, pred.literal,
-                                         phys) is False:
+            if self._bloom.might_contain(rg, ci, lit, phys) is False:
                 self.bloom_prunes += 1
                 return False
         return True
@@ -187,9 +224,11 @@ class ParquetTable:
             # trusted only when pages with stats cover every row of the
             # batch but its NULLs (which match no comparison); parquet
             # float stats exclude NaN, so they cannot prove NaN-absence
-            if lo is not None and covered >= b_hi - b_lo - nulls:
-                self._zones.setdefault((rg, col_name, b), (
-                    lo, hi, phys not in ("FLOAT", "DOUBLE")))
+            if (lo is not None and covered >= b_hi - b_lo - nulls
+                    and (rg, col_name, b) not in self._zones):
+                self._zones[(rg, col_name, b)] = (
+                    lo, hi, phys not in ("FLOAT", "DOUBLE"))
+                self.pageindex_zones += 1
         self.pageindex_seeds += 1
 
     def _null_rows_upper(self, rg: int, ci: int) -> int:

@@ -62,9 +62,6 @@ import torch
 
 from liquid_tpu_torch.arrays.base import BLOCK_ROWS, Predicate
 from liquid_tpu_torch.arrays.byteview import LiquidByteViewArray
-from liquid_tpu_torch.arrays.decimal import (
-    LiquidDecimalArray, LiquidFixedLenByteArray,
-)
 from liquid_tpu_torch.arrays.float_alp import LiquidFloatArray
 from liquid_tpu_torch.arrays.linear import LiquidLinearArray, linear_term
 from liquid_tpu_torch.arrays.primitive import LiquidPrimitiveArray
@@ -151,10 +148,6 @@ def _compile_expr(e: ast.Expr, col_kinds, dictres=None) -> Tuple[tuple, set]:
             return ("col", e.name, "i64"), {e.name}
         if k == "float":
             return ("col", e.name, "f64"), {e.name}
-        arrow_type = getattr(col_kinds, "arrow_type", None)
-        t = arrow_type(e.name) if arrow_type is not None else None
-        if t is not None and pa.types.is_decimal(t):
-            raise _Bail("decimal column")
         raise _Bail(f"column kind {k} in expression")
     if isinstance(e, ast.Literal):
         v = e.value
@@ -709,10 +702,10 @@ def _prep_column(payloads, arrow_type, device) -> _ColPrep:
     prep.arrow_type = arrow_type
     prep.payloads = list(payloads)
     p0 = payloads[0]
-    if any(isinstance(p, (LiquidDecimalArray, LiquidFixedLenByteArray))
-           for p in payloads):
+    if pa.types.is_decimal(arrow_type):
         # unscaled integers: raw-literal intervals and i64 sums would be
-        # wrong, so a decimal query takes the classic path
+        # wrong, so a decimal query takes the classic path (the star and
+        # select routes reach here without `_schema_kind`)
         raise _Bail("decimal column")
     if isinstance(p0, (LiquidLinearArray, LiquidPrimitiveArray)) and any(
             isinstance(p, LiquidLinearArray) for p in payloads):
@@ -1505,6 +1498,17 @@ def _rowvalid(table, blocks) -> torch.Tensor:
     return rv
 
 
+def _kind_or(kind_of, c, default):
+    """`kind_of(c)`, or `default` when column c has no fused kind; a
+    decimal column bails the whole query to the classic path."""
+    try:
+        return kind_of(c)
+    except _Bail as e:
+        if str(e) == "decimal column":
+            raise
+        return default
+
+
 def _schema_kind(t: pa.DataType) -> str:
     """Column kind from the arrow type alone (the zero-IO empty scan)."""
     if pa.types.is_dictionary(t):
@@ -1614,10 +1618,7 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
 
     class _Kinds:
         def get(self, c, default=None):
-            try:
-                return kind_of(c)
-            except _Bail:
-                return default
+            return _kind_or(kind_of, c, default)
 
         def arrow_type(self, c):
             if c in table.column_names:

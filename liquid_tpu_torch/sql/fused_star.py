@@ -57,7 +57,7 @@ from liquid_tpu_torch.sql.fused_agg import (
     _AGG_KINDS, _PAYLOAD_GEN, STATS, _add, _as_f64, _Bail, _bool_nonnull,
     _build_vocab, _gen_of,
     _compile_bool, _compile_expr, _Decoders, _expr_key_type, _gid_stack,
-    _ir_dtype, _like_regex, _Plan, _plan_cache_key, _plan_slots, _rowvalid,
+    _ir_dtype, _kind_or, _like_regex, _Plan, _plan_cache_key, _plan_slots, _rowvalid,
     _scaled_col_info, _schema_kind, _select_blocks, _selection_packed,
     _table_prep, _value_type, add_exist_probes, execute_plan,
     payload_bounds, plan_having, plan_topk, pred_alt, probe_dims,
@@ -488,10 +488,7 @@ class _StarPlanner:
             self.p = planner
 
         def get(self, c, default=None):
-            try:
-                return self.p.kind_of(c)
-            except _Bail:
-                return default
+            return _kind_or(self.p.kind_of, c, default)
 
         def arrow_type(self, c):
             tbl = self.p.owner.get(c)
@@ -547,10 +544,7 @@ class _MiniPlanner:
             self.p = mp
 
         def get(self, c, default=None):
-            try:
-                return self.p.kind_of(c)
-            except _Bail:
-                return default
+            return _kind_or(self.p.kind_of, c, default)
 
         def arrow_type(self, c):
             if c in self.p.table.column_names:

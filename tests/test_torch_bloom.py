@@ -12,13 +12,19 @@ the CPU.
 - row-group pruning end to end through a session on each package, with
   `bloom_prunes` and the SQL answers equal;
 - a fully pruned scan inserts nothing, and the scan's byte ranges through
-  a `MockStore` equal the reference's.
+  a `MockStore` equal the reference's;
+- a filter is probed only with the column's own encoding: `=` on decimal
+  and float32 columns with bloom filters equals pyarrow.
 """
+from decimal import Decimal
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import pyarrow as pa  # noqa: E402
+import pyarrow.compute as pc  # noqa: E402
 import pyarrow.parquet as pq  # noqa: E402
 
 from liquid_tpu.arrays.base import Predicate as JPred  # noqa: E402
@@ -200,3 +206,50 @@ def test_bloom_pruning_skips_io(tmp_path):
     lo = chunk.dictionary_page_offset or chunk.data_page_offset
     hi = lo + chunk.total_compressed_size
     assert not [r for r in ranges[1] if r[0] < hi and r[1] > lo]
+
+
+@pytest.mark.parametrize("as_integer", [False, True],
+                         ids=["fixed_len", "integer_stored"])
+def test_bloom_probe_only_in_the_columns_own_encoding(tmp_path, as_integer):
+    """Bloom filters on DECIMAL(15,2) columns (fixed-length bytes or
+    unscaled integers), a float32 column and a float64 column holding -0:
+    `=` answers equal pyarrow's count (exact).  A decimal hashes its
+    unscaled bytes and a float32 its 4-byte value, so a float or int
+    literal is never probed there; the reference probes them and answers
+    0 (ROADMAP Queue 3).  A float64 literal absent from the file still
+    prunes."""
+    rng = np.random.default_rng(3)
+    disc, qty = rng.integers(0, 11, 4000), rng.integers(1, 51, 4000)
+    t = pa.table({
+        "disc": pa.array([Decimal(int(x)).scaleb(-2) for x in disc],
+                         pa.decimal128(15, 2)),
+        "qty": pa.array([Decimal(int(x)) for x in qty], pa.decimal128(15, 2)),
+        "f32": pa.array(disc.astype(np.float32) / 4, pa.float32()),
+        "neg": pa.array(-(disc / 4.0), pa.float64()),
+        "i": pa.array(qty, pa.int64()),
+    })
+    p = _write(tmp_path, "dec.parquet", t, row_group_size=1000,
+               store_decimal_as_integer=as_integer,
+               bloom_filter_options={c: True for c in t.column_names})
+    assert pq.ParquetFile(p).metadata.row_group(0).column(0).physical_type \
+        == ("INT64" if as_integer else "FIXED_LEN_BYTE_ARRAY")
+    tt, _ = (LiquidCacheLocalBuilder(device="cpu")
+             .with_cache_dir(str(tmp_path / "t")).build())
+    tt.register_parquet("t", p)
+    cases = (("disc", "=", 0.05, Decimal("0.05")),
+             ("disc", "=", 0.1, Decimal("0.10")),
+             ("disc", ">=", 0.1, Decimal("0.10")),
+             ("qty", "=", 24, Decimal(24)), ("qty", "=", 50, Decimal(50)),
+             ("f32", "=", 0.25, 0.25), ("f32", "=", 2, 2.0),
+             ("neg", "=", 0.0, 0.0), ("neg", "=", -0.5, -0.5),
+             ("i", "=", 24.0, 24))
+    for col, op, lit, arrow_lit in cases:
+        cmp = pc.equal if op == "=" else pc.greater_equal
+        want = pc.sum(cmp(t[col], pa.scalar(arrow_lit, t[col].type))).as_py()
+        got = tt.sql(f"SELECT count(*) FROM t WHERE {col} {op} {lit}"
+                     ).to_arrow().column(0).to_pylist()
+        assert got == [want] and want > 0, (col, op, lit)
+    assert tt._tables["t"].bloom_prunes == 0
+    assert tt.sql("SELECT count(*) FROM t WHERE neg = -1.3").to_arrow() \
+        .column(0).to_pylist() == [0]
+    assert tt._tables["t"].bloom_prunes == 4

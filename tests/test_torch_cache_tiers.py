@@ -436,7 +436,9 @@ def test_access_trace_flushes_to_parquet(tmp_path):
 def test_variant_hints_raise_naming_the_module(tmp_path):
     """A VariantGet hint no longer raises: as in the reference, the JSON
     block stays arrow on insert and a squeeze shreds its requested path
-    (tests/test_torch_variant.py covers the variant tier in depth)."""
+    (tests/test_torch_variant.py covers the variant tier in depth).  The
+    name is kept from when the hint raised, so that the test stays
+    comparable across the port's history."""
     from liquid_tpu.cache.expressions import VariantGet as JVariantGet
     arr = pa.array(['{"a": 1}', '{"a": 2}', None])
     for c, cls in zip(_both(tmp_path, 1 << 30), (JVariantGet, VariantGet)):

@@ -168,7 +168,8 @@ def test_unported_encodings_raise_naming_their_module(kind, module):
     """The decimal, fixed-length and delta ids, once unported, now read
     into the block of the module that holds them, the reference's
     bytes and arrow back (tests/test_torch_decimal.py covers them in
-    depth)."""
+    depth).  The name is kept from when these ids raised, so that the
+    test stays comparable across the port's history."""
     data = _ref_bytes_of(kind)
     got = tipc.deserialize(data)
     assert type(got).__module__.replace(".", "/").endswith(module[:-3])

@@ -7,7 +7,7 @@ them, exactly:
 - shredded blocks: the same (path, type) keys, each block's Liquid IPC
   bytes equal to the reference's, zero-IO reads of resident paths, one
   read for another, the full column from disk; `merged_with`;
-- hints: `parse_hint`, the vote's union of variant paths, the planner's
+- hints: the vote's union of variant paths, the planner's
   `column_hints`;
 - the cache: squeeze and zero-IO path reads, the merge of a new path,
   full reads after a squeeze, squeezed to disk and back, and eviction
@@ -178,17 +178,18 @@ def test_merged_with_unions_paths():
 # -- hints --------------------------------------------------------------------
 
 def test_hint_parse_and_merge():
-    for s in ("variant_get:a.b@int64,c", "extract_date32:year",
-              "substring_search", "predicate_column", "nope"):
-        got, want = texpr.parse_hint(s), jexpr.parse_hint(s)
-        assert repr(got).replace("liquid_tpu_torch", "liquid_tpu") == \
-            repr(want) or (got is None and want is None)
-    assert texpr.parse_hint("variant_get:a.b@int64,c") == texpr.VariantGet(
+    """The port takes hints from its planner only (it has no metadata
+    string parser): the requests the reference parses from a hint string
+    make an equal port hint, and both votes merge the same paths."""
+    want = jexpr.parse_hint("variant_get:a.b@int64,c")
+    assert texpr.VariantGet(want.requests) == texpr.VariantGet(
         (("a.b", "int64"), ("c", "variant")))
-    v = texpr.HintVote()
-    v.record(texpr.VariantGet((("a", "int64"),)))
-    v.record(texpr.VariantGet((("b", "utf8"),)))
-    assert set(v.majority().requests) == {("a", "int64"), ("b", "utf8")}
+    jv, tv = jexpr.HintVote(), texpr.HintVote()
+    for reqs in ((("a", "int64"),), (("b", "utf8"),), (("a", "int64"),)):
+        jv.record(jexpr.VariantGet(reqs))
+        tv.record(texpr.VariantGet(reqs))
+    assert tv.majority().requests == jv.majority().requests
+    assert set(tv.majority().requests) == {("a", "int64"), ("b", "utf8")}
     with pytest.raises(AssertionError):
         texpr.VariantGet((("a", "decimal"),))
 
@@ -442,3 +443,21 @@ def test_jsonbench_capped_shreds_and_answers(jsonbench, tmp_path):
                .with_cache_dir(str(tmp_path / "j")).build())
     with pytest.raises(pa.ArrowInvalid, match="Schema at index"):
         _run_bench(jctx, path)
+
+
+def test_json_caps_sweep_reports_each_cap(jsonbench, tmp_path):
+    """`bench/json_caps.sweep` at 20,000 events (3 blocks): one row per
+    cap, every block in some state, squeezes at 1.5x the column's bytes
+    and none at 40x (exact counts)."""
+    from liquid_tpu_torch.bench import json_caps
+    path, table, _want = jsonbench
+    rows = list(json_caps.sweep(path, [1.5, 40.0], "cpu", str(tmp_path)))
+    assert [r["fraction"] for r in rows] == [1.5, 40.0]
+    for r in rows:
+        assert r["blocks"] == 3 and sum(r["by_state"].values()) == 3
+        assert r["column_bytes"] == table.column("event").nbytes
+        assert r["memory_used"] <= r["cap"]
+    assert rows[0]["first_squeezes"] > 0
+    assert rows[1]["first_squeezes"] == 0
+    assert rows[1]["warm"]["squeeze_io_saved"] == 0
+    assert rows[1]["by_state"] == {"memory_arrow": 3}
