@@ -29,9 +29,11 @@ Phases (any failure raises and the script exits non-zero):
    words, constants 0, 1, random, 2^w-1, with bits at or above w, and
    2^64-1, on flat and prepped planes;
 5. the scalar main path: 4,000,000 synthesized ClickBench `hits` rows and
-   TPC-H SF1 `lineitem` as parquet, a `LiquidCacheLocalBuilder` session
-   on the card, queries `cb_filter`, `cb_like` (a string LIKE: verdicts
-   over FSST dictionaries, gathered by code) and `tpch_q6`; answers
+   TPC-H SF1 `lineitem` as parquet (every data file of the run, phase
+   6g's included, written by `write_data` in three worker processes), a
+   `LiquidCacheLocalBuilder` session on the card, queries `cb_filter`,
+   `cb_like` (a string LIKE: verdicts over FSST dictionaries, gathered
+   by code) and `tpch_q6`; answers
    checked against pyarrow on the same parquet (`bench/oracle.py`:
    integers exact, floats rtol 1e-9); the fused scalar route and one K1
    launch per interval predicate (`K1_PER_RUN`) checked through the
@@ -114,7 +116,7 @@ Phases (any failure raises and the script exits non-zero):
    device memory; every (planes, constants) K1's single form got
    captured, those of a squeezed array's compare labelled narrow;
    counts set to 0 just before this phase and read after;
-   6g. the storage slice (`storage_data` writes its files once):
+   6g. the storage slice (its files written in phase 5):
    a. TPC-H at this run's scale with the specification's DECIMAL(15,2)
    money and quantity columns (`lineitem` with its page index) in a
    fresh session on the card (`run_decimal_path`): a first run of a
@@ -1633,42 +1635,84 @@ STORAGE_EVENTS = 1_000_000
 JSON_CAP_FRACTION = 1.5
 
 
-def storage_data(data_dir: str, paths: dict, events: int) -> dict:
-    """Phase 6g's files, each written once -> {name: path}: `lineitem` and
-    `part` with the specification's DECIMAL(15,2) columns (lineitem with
-    its page index), `events` (the JSONBench generator, seed 8) and a
-    copy of `hits` with bloom filters on UserID and a page index."""
+def write_once(path: str, write, *args) -> str:
+    """`write(tmp, *args)` and rename the file to `path`, unless `path`
+    exists -> path."""
+    if not os.path.exists(path):
+        write(path + ".tmp", *args)
+        os.replace(path + ".tmp", path)
+    return path
+
+
+def write_decimals(dst: str, src: str, page_index: bool) -> None:
+    import pyarrow.parquet as pq
+    from liquid_tpu_torch.bench.tpch_data import with_spec_decimals
+    pq.write_table(with_spec_decimals(pq.read_table(src)), dst,
+                   row_group_size=1 << 20, write_page_index=page_index)
+
+
+def write_events(dst: str, events: int) -> None:
     import pyarrow.parquet as pq
     from liquid_tpu_torch.bench import json_bench
-    from liquid_tpu_torch.bench.tpch_data import with_spec_decimals
-    out = {}
+    pq.write_table(json_bench.generate(events), dst)
 
-    def once(key, name, write):
-        out[key] = os.path.join(data_dir, name)
-        if not os.path.exists(out[key]):
-            write(out[key] + ".tmp")
-            os.replace(out[key] + ".tmp", out[key])
 
-    for table in ("lineitem", "part"):
-        once(table, "dec_" + os.path.basename(paths[table]),
-             lambda p, t=table: pq.write_table(
-                 with_spec_decimals(pq.read_table(paths[t])), p,
-                 row_group_size=1 << 20, write_page_index=t == "lineitem"))
-    once("events", f"liquid_bench_events_{events}.parquet",
-         lambda p: pq.write_table(json_bench.generate(events), p))
+def write_bloom_hits(dst: str, src: str) -> None:
+    import pyarrow
+    import pyarrow.parquet as pq
+    try:
+        pq.write_table(pq.read_table(src), dst, row_group_size=1 << 20,
+                       write_page_index=True,
+                       bloom_filter_options={"UserID": True})
+    except TypeError as e:
+        raise AssertionError(f"phase 6g: pyarrow {pyarrow.__version__} "
+                             f"writes no bloom filters: {e}") from e
 
-    def hits_copy(p):
-        try:
-            pq.write_table(pq.read_table(paths["hits"]), p,
-                           row_group_size=1 << 20, write_page_index=True,
-                           bloom_filter_options={"UserID": True})
-        except TypeError as e:
-            import pyarrow
-            raise AssertionError(f"phase 6g: pyarrow {pyarrow.__version__} "
-                                 f"writes no bloom filters: {e}") from e
 
-    once("hits", "bloom_" + os.path.basename(paths["hits"]), hits_copy)
-    return out
+def events_job(data_dir: str, events: int) -> tuple:
+    return (os.path.join(data_dir, f"liquid_bench_events_{events}.parquet"),
+            write_events, events)
+
+
+def storage_jobs(data_dir: str, paths: dict) -> dict:
+    """Phase 6g's copies of phase 5's files -> {name: (path, write,
+    *args)}: `lineitem` and `part` with the specification's
+    DECIMAL(15,2) columns (lineitem with its page index) and `hits` with
+    bloom filters on UserID and a page index."""
+    def beside(prefix, table):
+        return os.path.join(data_dir,
+                            prefix + os.path.basename(paths[table]))
+    return {"lineitem": (beside("dec_", "lineitem"), write_decimals,
+                         paths["lineitem"], True),
+            "part": (beside("dec_", "part"), write_decimals, paths["part"],
+                     False),
+            "hits": (beside("bloom_", "hits"), write_bloom_hits,
+                     paths["hits"])}
+
+
+def write_data(data_dir: str, hits_rows: int, sf: float, events: int,
+               tables) -> tuple:
+    """Phases 5 and 6g's files -> (paths, storage paths, oracle answers),
+    written in three worker processes: hits, TPC-H and the events
+    together, then the storage copies of `storage_jobs` while this
+    process computes the oracle's answers.  Each file is written once."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.bench.hits import prepare_hits
+    from liquid_tpu_torch.bench.main import prepare_tpch
+    with ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        hits = pool.submit(prepare_hits, hits_rows, data_dir)
+        tpch = pool.submit(prepare_tpch, data_dir, sf, tables)
+        events = pool.submit(write_once, *events_job(data_dir, events))
+        paths = {"hits": hits.result(), **tpch.result()}
+        copies = {k: pool.submit(write_once, *job) for k, job in
+                  storage_jobs(data_dir, paths).items()}
+        expect = oracle.answers(paths, list(oracle.ORACLES))
+        spaths = {k: f.result() for k, f in copies.items()}
+        spaths["events"] = events.result()
+    return paths, spaths, expect
 
 
 def _query_runs(torch, ctx, sql, warm_runs=3, after=None):
@@ -2172,7 +2216,10 @@ def device_breakdown(torch, ctx, sql: str, warm_best_ms: float,
     One unprofiled run first: a cache insert since the query's own warm
     runs (a later phase transcoding its columns) makes its next run plan
     and upload again; `settle=False` skips it (phase 6f calls this right
-    after the query's warm runs)."""
+    after the query's warm runs).  The device events are read from the
+    profiler's raw kineto list: `prof.events()` builds the whole CPU
+    event tree in Python, seconds for a query of thousands of
+    operations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if settle:
@@ -2184,16 +2231,19 @@ def device_breakdown(torch, ctx, sql: str, warm_best_ms: float,
         run_statements(ctx, sql)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA
+           and not e.is_hidden_event()]
     busy_us, end = 0.0, float("-inf")
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
+    for s, e in sorted((s, e) for _n, s, e in dev):
         if e > end:
             busy_us += e - max(s, end)
             end = e
     by_name = {}
-    for e in dev:
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.end - e.time_range.start, n + 1)
+    for name, s, e in dev:
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + e - s, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     cats = sorted(((n, v) for n, v in by_name.items() if "Cat" in n),
                   key=lambda kv: -kv[1][0])
@@ -2326,8 +2376,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from concurrent.futures import ThreadPoolExecutor
     from liquid_tpu_torch import _native
-    from liquid_tpu_torch.bench import oracle
-    from liquid_tpu_torch.bench.main import TPCH_TABLES, prepare_data
+    from liquid_tpu_torch.bench.main import TPCH_TABLES
     from liquid_tpu_torch.ops import bitpack_cuda as k1
     from liquid_tpu_torch.ops import grouphist_cuda as k2
     from liquid_tpu_torch.ops import nvcc
@@ -2383,11 +2432,11 @@ def main(argv=None) -> int:
     # 5. scalar main path, counts reset just before and read just after
     t0 = time.perf_counter()
     # `part` for q14 and `partsupp` for phase 6d beside the bench entry
-    # point's tables
-    paths = prepare_data(args.data_dir, args.hits_rows, args.sf,
-                         TPCH_TABLES + ("part", "partsupp"))
-    expect = oracle.answers(paths, list(oracle.ORACLES))
-    log(f"[data] {paths} ({time.perf_counter() - t0:.1f} s)")
+    # point's tables; phase 6g's files written beside them
+    paths, spaths, expect = write_data(
+        args.data_dir, args.hits_rows, args.sf, args.events,
+        TPCH_TABLES + ("part", "partsupp"))
+    log(f"[data] {paths} {spaths} ({time.perf_counter() - t0:.1f} s)")
     counters = (k1.LAUNCHES, k2.LAUNCHES)
     _reset(counters)
     from liquid_tpu_torch import LiquidCacheLocalBuilder
@@ -2475,9 +2524,6 @@ def main(argv=None) -> int:
     clock("6f")
     # 6g. the storage slice: decimal TPC-H, JSONBench and pruning through
     #     an object store; counts reset just before and read just after
-    t0 = time.perf_counter()
-    spaths = storage_data(args.data_dir, paths, args.events)
-    log(f"[storage] {spaths} ({time.perf_counter() - t0:.1f} s)")
     _reset(counters)
     t0 = time.perf_counter()
     decimal_report, decimal_inputs = run_decimal_path(

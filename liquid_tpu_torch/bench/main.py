@@ -66,11 +66,17 @@ def prepare_data(data_dir: str, hits_rows: int, sf: float,
                  tables=TPCH_TABLES) -> dict:
     """Synthesized hits and the named TPC-H tables as parquet, each
     written once -> {table: path}."""
-    import pyarrow.parquet as pq
     from liquid_tpu_torch.bench.hits import prepare_hits
+    return {"hits": prepare_hits(hits_rows, data_dir),
+            **prepare_tpch(data_dir, sf, tables)}
+
+
+def prepare_tpch(data_dir: str, sf: float, tables=TPCH_TABLES) -> dict:
+    """The named TPC-H tables at scale `sf` as parquet, each written once
+    -> {table: path}."""
+    import pyarrow.parquet as pq
     from liquid_tpu_torch.bench.tpch_data import generate
     os.makedirs(data_dir, exist_ok=True)
-    paths = {"hits": prepare_hits(hits_rows, data_dir)}
     tpch = {n: os.path.join(data_dir, f"liquid_bench_{n}_{sf}.parquet")
             for n in tables}
     missing = [n for n, p in tpch.items() if not os.path.exists(p)]
@@ -80,8 +86,7 @@ def prepare_data(data_dir: str, hits_rows: int, sf: float,
             pq.write_table(made[n], tpch[n] + ".tmp",
                            row_group_size=1 << 20)
             os.replace(tpch[n] + ".tmp", tpch[n])
-    paths.update(tpch)
-    return paths
+    return tpch
 
 
 def queries(hits_rows, li_rows):
