@@ -29,8 +29,9 @@ Phases (any failure raises and the script exits non-zero):
    words, constants 0, 1, random, 2^w-1, with bits at or above w, and
    2^64-1, on flat and prepped planes;
 5. the scalar main path: 4,000,000 synthesized ClickBench `hits` rows and
-   TPC-H SF1 `lineitem` as parquet (every data file of the run, phase
-   6g's included, written by `write_data` in three worker processes), a
+   TPC-H SF1 `lineitem` as parquet (every data file of the run, phases
+   6g's and 6h's included, written by `write_data` in four worker
+   processes), a
    `LiquidCacheLocalBuilder` session on the card, queries `cb_filter`,
    `cb_like` (a string LIKE: verdicts over FSST dictionaries, gathered
    by code) and `tpch_q6`; answers
@@ -141,6 +142,18 @@ Phases (any failure raises and the script exits non-zero):
    per query: first run, warm best, device busy and idle share, K1
    launches per run and the cache counters; counts set to 0 just before
    this phase and read after;
+   6h. windows and grouping sets over TPC-DS at this run's scale (its
+   tables written in phase 5; SF 1 is `store_sales` 2,880,000 rows and
+   `web_sales` 720,000) in a fresh session on the card
+   (`run_tpcds_path`): q98 (a window sum over a grouped star join), q27
+   (ROLLUP with `grouping()`), q86 (`rank()` over a ROLLUP) and q51
+   (running sums, a full outer join and a running max), one first run and
+   `TPCDS_WARM_RUNS` warm runs each, every answer equal to pyarrow
+   (`bench/oracle.py`, the tie rule of a LIMIT cut); in the phase, the
+   executor's `windows` and `grouping_sets` counters and K1's launches
+   (the inner queries' scans and probes) above 0; per query: first run,
+   warm best, device busy and idle share, K1 launches per run; counts set
+   to 0 just before this phase and read after;
 7. K1's interval form checked bit-exact against its plain version and
    timed (CUDA events, L2 flushed before each timed call) on the exact
    (planes, lo, hi) the main path gave it -- the single-table plans'
@@ -1692,27 +1705,31 @@ def storage_jobs(data_dir: str, paths: dict) -> dict:
 
 def write_data(data_dir: str, hits_rows: int, sf: float, events: int,
                tables) -> tuple:
-    """Phases 5 and 6g's files -> (paths, storage paths, oracle answers),
-    written in three worker processes: hits, TPC-H and the events
-    together, then the storage copies of `storage_jobs` while this
-    process computes the oracle's answers.  Each file is written once."""
+    """Phases 5, 6g and 6h's files -> (paths, storage paths, TPC-DS
+    paths, oracle answers), written in four worker processes: hits,
+    TPC-H, the events and TPC-DS together, then the storage copies of
+    `storage_jobs` while this process computes the oracle's answers.  Each
+    file is written once."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     from liquid_tpu_torch.bench import oracle
     from liquid_tpu_torch.bench.hits import prepare_hits
     from liquid_tpu_torch.bench.main import prepare_tpch
     with ProcessPoolExecutor(
-            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+            4, mp_context=multiprocessing.get_context("spawn")) as pool:
         hits = pool.submit(prepare_hits, hits_rows, data_dir)
         tpch = pool.submit(prepare_tpch, data_dir, sf, tables)
         events = pool.submit(write_once, *events_job(data_dir, events))
+        tpcds = pool.submit(prepare_tpcds, data_dir, sf)
         paths = {"hits": hits.result(), **tpch.result()}
         copies = {k: pool.submit(write_once, *job) for k, job in
                   storage_jobs(data_dir, paths).items()}
         expect = oracle.answers(paths, list(oracle.ORACLES))
+        dspaths = tpcds.result()
+        expect.update(oracle.answers(dspaths, list(oracle.TPCDS_ORACLES)))
         spaths = {k: f.result() for k, f in copies.items()}
         spaths["events"] = events.result()
-    return paths, spaths, expect
+    return paths, spaths, dspaths, expect
 
 
 def _query_runs(torch, ctx, sql, warm_runs=3, after=None):
@@ -2010,6 +2027,80 @@ def run_pruning_path(torch, path: str):
     if fetched * 4 > size:
         raise AssertionError(f"6g-c: fetched {fetched} of {size} bytes")
     return {"cb_q19_bloom": row}
+
+
+# -- phase 6h: windows and grouping sets over TPC-DS ----------------------------
+
+#: the TPC-DS tables phase 6h's queries read
+TPCDS_TABLES = ("store_sales", "web_sales", "item", "date_dim", "store",
+                "customer_demographics")
+#: phase 6h's warm runs per query (beside its first and profiled runs)
+TPCDS_WARM_RUNS = 1
+
+
+def prepare_tpcds(data_dir: str, sf: float) -> dict:
+    """Phase 6h's TPC-DS tables at scale `sf` from one
+    `tpcds_data.generate(sf)` as parquet, each written once -> {table:
+    path}."""
+    import pyarrow.parquet as pq
+    from liquid_tpu_torch.bench import tpcds_data
+    os.makedirs(data_dir, exist_ok=True)
+    paths = {t: os.path.join(data_dir, f"liquid_tpcds_{t}_{sf}.parquet")
+             for t in TPCDS_TABLES}
+    missing = [t for t, p in paths.items() if not os.path.exists(p)]
+    if missing:
+        made = tpcds_data.generate(sf)
+        for t in missing:
+            pq.write_table(made[t], paths[t] + ".tmp", row_group_size=1 << 20)
+            os.replace(paths[t] + ".tmp", paths[t])
+    return paths
+
+
+def run_tpcds_path(torch, dspaths: dict, expect: dict) -> dict:
+    """Phase 6h: TPC-DS q98 (`sum(sum(x)) OVER (PARTITION BY i_class)` over
+    a star join), q27 (ROLLUP with `grouping()` over a five-table join),
+    q86 (`rank() OVER` a ROLLUP, partitioned by `grouping()` sums) and q51
+    (running sums in a ROWS frame, a full outer join and a running max)
+    as `bench/tpcds_queries.py` gives them, in one fresh session on the
+    card -> report.  Each query: a first run and `TPCDS_WARM_RUNS` warm
+    runs, both answers equal to pyarrow (`bench/oracle.py`, the tie rule
+    of a LIMIT cut), one profiled run (device busy, idle share); the
+    executor's hand-offs (`exec.STATS`) and K1 launches per run logged.
+    The inner queries run through the engine's routes on the card; the
+    windows run on the host over their results."""
+    from liquid_tpu_torch import LiquidCacheLocalBuilder
+    from liquid_tpu_torch.bench import oracle, tpcds_queries
+    from liquid_tpu_torch.sql import exec as texec
+    from liquid_tpu_torch.sql import fused_agg
+    ctx, cache = LiquidCacheLocalBuilder().with_max_memory_bytes(
+        16 << 30).build()
+    for name, p in dspaths.items():
+        ctx.register_parquet(name, p)
+    report = {}
+    for qid in oracle.TPCDS_QUERIES:
+        name, sql = f"ds_q{qid}", tpcds_queries.QUERIES[qid]
+        e0 = dict(texec.STATS)
+        f0 = {k: fused_agg.STATS[k] for k in ("fused_queries",
+                                               "star_queries")}
+        outs, first_s, warm_ms, k1_runs = _query_runs(
+            torch, ctx, sql, warm_runs=TPCDS_WARM_RUNS)
+        for what, got in zip(("first", "last warm"), outs):
+            if not oracle.same_table(got, expect[name], oracle.CUTS[name]):
+                raise AssertionError(
+                    f"6h {name} ({what} run): port {got.to_pylist()[:3]} "
+                    f"!= pyarrow {[c.to_pylist()[:3] for c in expect[name]]}")
+        bd = device_breakdown(torch, ctx, sql, min(warm_ms), settle=False)
+        report[name] = dict(
+            first_run_s=first_s, warm_best_ms=min(warm_ms), warm_ms=warm_ms,
+            device_busy_ms=bd["device_busy_ms"],
+            idle_share=bd["idle_share"], device_ops=bd["device_ops"],
+            k1_per_run=k1_runs, rows=outs[1].num_rows,
+            exec_stats={k: v - e0[k] for k, v in texec.STATS.items()
+                        if v != e0[k]},
+            fused_stats={k: fused_agg.STATS[k] - v for k, v in f0.items()})
+        log(f"[tpcds] {name}: {json.dumps(report[name])}")
+    del ctx, cache
+    return report
 
 
 def time_k1_narrow(torch, inputs: list) -> dict:
@@ -2433,10 +2524,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     # `part` for q14 and `partsupp` for phase 6d beside the bench entry
     # point's tables; phase 6g's files written beside them
-    paths, spaths, expect = write_data(
+    paths, spaths, dspaths, expect = write_data(
         args.data_dir, args.hits_rows, args.sf, args.events,
         TPCH_TABLES + ("part", "partsupp"))
-    log(f"[data] {paths} {spaths} ({time.perf_counter() - t0:.1f} s)")
+    log(f"[data] {paths} {spaths} {dspaths} "
+        f"({time.perf_counter() - t0:.1f} s)")
     counters = (k1.LAUNCHES, k2.LAUNCHES)
     _reset(counters)
     from liquid_tpu_torch import LiquidCacheLocalBuilder
@@ -2545,6 +2637,24 @@ def main(argv=None) -> int:
         f"{json.dumps(pressure_launches)}; storage "
         f"{json.dumps(storage_launches)}")
     clock("6g")
+    # 6h. windows and grouping sets over TPC-DS at this run's scale; counts
+    #     reset just before and read just after
+    from liquid_tpu_torch.sql import exec as texec
+    _reset(counters)
+    t0 = time.perf_counter()
+    e0 = dict(texec.STATS)
+    tpcds_report = run_tpcds_path(torch, dspaths, expect)
+    tpcds_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
+    tpcds_stats = {k: texec.STATS[k] - e0[k]
+                   for k in ("windows", "grouping_sets")}
+    log(f"[tpcds] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(tpcds_launches)}; executor {json.dumps(tpcds_stats)}")
+    if tpcds_launches["cmp_const_many"] <= 0 \
+            or min(tpcds_stats.values()) <= 0:
+        raise AssertionError(f"phase 6h did not launch K1 or ran no window "
+                             f"or grouping set: {tpcds_launches} "
+                             f"{tpcds_stats}")
+    clock("6h")
 
     # 7. K1's interval form checked and timed on the main path's own
     #    inputs, the star and multi-table phases' included
@@ -2613,14 +2723,15 @@ def main(argv=None) -> int:
               "star": star_launches, "slice": slice_launches,
               "multi": multi_launches, "classic": classic_launches,
               "pressure": pressure_launches, "storage": storage_launches,
-              "harness": harness_launches,
+              "tpcds": tpcds_launches, "harness": harness_launches,
               "harness_operator_timing": op_launches}
 
     def launches(name):
         # the main path's launches: the query phases and the micro line
         return sum(phases[p][name]
                    for p in ("scalar", "grouped", "star", "slice", "multi",
-                             "classic", "pressure", "storage", "harness"))
+                             "classic", "pressure", "storage", "tpcds",
+                             "harness"))
 
     def by_phase(name):
         return {p: d.get(name, 0) for p, d in phases.items()}
@@ -2685,6 +2796,7 @@ def main(argv=None) -> int:
                             pressure_report.items()},
                "pressure_cap": cap, "pressure_working_set": w_bytes,
                "decimal": decimal_report, "pruning": pruning_report,
+               "tpcds": tpcds_report,
                "json": {m: json_report[m]["summary"]
                         for m in ("uncapped", "capped")}}
     clock("10")

@@ -905,6 +905,190 @@ DECIMAL_ORACLES = {"dec_q6": _dec_q6, "dec_q14": _dec_q14,
                    "dec_qty_lt_24": _dec_qty_lt_24}
 
 
+
+# -- TPC-DS: the window and grouping-set queries of phase 6h ---------------
+#
+# As `bench/tpcds_queries.py` gives them, over the tables of
+# `bench/tpcds_data.py`: windows by numpy over pyarrow's groups, ROLLUP as
+# one `group_by` per level.
+
+def _order(t: pa.Table, keys) -> pa.Table:
+    """t sorted by (column, descending, nulls first) keys."""
+    cols, sort_keys = {}, []
+    for i, (k, desc, nulls_first) in enumerate(keys):
+        isnull = pc.is_null(t[k])
+        cols[f"n{i}"] = pc.invert(isnull) if nulls_first else isnull
+        cols[f"k{i}"] = t[k]
+        sort_keys += [(f"n{i}", "ascending"),
+                      (f"k{i}", "descending" if desc else "ascending")]
+    return t.take(pc.sort_indices(pa.table(cols), sort_keys=sort_keys))
+
+
+def _segments(keys: np.ndarray):
+    """(start, end) of each run of equal values in a sorted key array."""
+    starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]]) \
+        if len(keys) else np.zeros(0, np.int64)
+    return zip(starts, np.r_[starts[1:], len(keys)])
+
+
+def _ds_q98(paths) -> List[pa.Array]:
+    """sum(sum(x)) OVER (PARTITION BY i_class) over a star join."""
+    ss = _read(paths, "store_sales", ["ss_item_sk", "ss_sold_date_sk",
+                                      "ss_ext_sales_price"])
+    it = _read(paths, "item", ["i_item_sk", "i_item_id", "i_item_desc",
+                               "i_category", "i_class", "i_current_price"])
+    it = it.filter(pc.is_in(it["i_category"], value_set=pa.array(
+        ["Sports", "Books", "Home"])))
+    d = _read(paths, "date_dim", ["d_date_sk", "d_date"])
+    d = d.filter(_between(d["d_date"], _date(1999, 2, 22),
+                          _date(1999, 3, 24)))
+    j = _join(_join(ss, it, "ss_item_sk", "i_item_sk"),
+              d.select(["d_date_sk"]), "ss_sold_date_sk", "d_date_sk")
+    keys = ["i_item_id", "i_item_desc", "i_category", "i_class",
+            "i_current_price"]
+    g = j.group_by(keys).aggregate([("ss_ext_sales_price", "sum")]) \
+        .rename_columns(keys + ["itemrevenue"])
+    cls = g.group_by("i_class").aggregate([("itemrevenue", "sum")])
+    g = g.join(cls, "i_class")
+    g = g.append_column("revenueratio", pc.divide(
+        pc.multiply(g["itemrevenue"], 100), g["itemrevenue_sum"]))
+    g = _order(g, [(k, False, False) for k in
+                   ("i_category", "i_class", "i_item_id", "i_item_desc",
+                    "revenueratio")])
+    return [g[c] for c in keys + ["itemrevenue", "revenueratio"]]
+
+
+def _ds_rollup(j: pa.Table, keys: List[str], aggs) -> pa.Table:
+    """ROLLUP(keys): one grouping per key prefix, longest first, the keys
+    left out NULL, and `__level` the number left out."""
+    parts = []
+    for i in range(len(keys), -1, -1):
+        if i:
+            g = j.group_by(keys[:i]).aggregate(aggs)
+            g = g.rename_columns(keys[:i] + [f"{c}_{f}" for c, f in aggs])
+        else:
+            g = pa.table({f"{c}_{f}": [getattr(pc, f)(j[c]).as_py()]
+                          for c, f in aggs})
+        for k in keys[i:]:
+            g = g.append_column(k, pa.nulls(g.num_rows, j.schema.field(
+                k).type))
+        g = g.append_column("__level", pa.array(
+            [len(keys) - i] * g.num_rows, pa.int64()))
+        parts.append(g.select(keys + [f"{c}_{f}" for c, f in aggs]
+                              + ["__level"]))
+    return pa.concat_tables(parts)
+
+
+def _ds_q27(paths) -> List[pa.Array]:
+    """ROLLUP(i_item_id, s_state) with grouping() over a five-table
+    join; its whole answer (`CUTS`)."""
+    ss = _read(paths, "store_sales", [
+        "ss_sold_date_sk", "ss_item_sk", "ss_store_sk", "ss_cdemo_sk",
+        "ss_quantity", "ss_list_price", "ss_coupon_amt", "ss_sales_price"])
+    cd = _read(paths, "customer_demographics", [
+        "cd_demo_sk", "cd_gender", "cd_marital_status", "cd_education_status"])
+    cd = cd.filter(pc.and_(pc.and_(
+        pc.equal(cd["cd_gender"], "M"), pc.equal(cd["cd_marital_status"],
+                                                 "S")),
+        pc.equal(cd["cd_education_status"], "College")))
+    d = _read(paths, "date_dim", ["d_date_sk", "d_year"])
+    d = d.filter(pc.equal(d["d_year"], 2002))
+    st = _read(paths, "store", ["s_store_sk", "s_state"])
+    st = st.filter(pc.is_in(st["s_state"], value_set=pa.array(
+        ["AL", "CA", "GA", "IL", "IN", "KS"])))
+    it = _read(paths, "item", ["i_item_sk", "i_item_id"])
+    j = _join(ss, cd.select(["cd_demo_sk"]), "ss_cdemo_sk", "cd_demo_sk")
+    j = _join(j, d.select(["d_date_sk"]), "ss_sold_date_sk", "d_date_sk")
+    j = _join(j, st, "ss_store_sk", "s_store_sk")
+    j = _join(j, it, "ss_item_sk", "i_item_sk")
+    aggs = [(c, "mean") for c in ("ss_quantity", "ss_list_price",
+                                  "ss_coupon_amt", "ss_sales_price")]
+    g = _ds_rollup(j, ["i_item_id", "s_state"], aggs)
+    g = _order(g, [("i_item_id", False, True), ("s_state", False, True)])
+    g_state = pc.cast(pc.greater_equal(g["__level"], 1), pa.int64())
+    return [g["i_item_id"], g["s_state"], g_state] + [
+        g[f"{c}_mean"] for c, _ in aggs]
+
+
+def _ds_q86(paths) -> List[pa.Array]:
+    """rank() OVER a ROLLUP(i_category, i_class), partitioned by the
+    grouping level and, at level 0, the category; its whole answer."""
+    ws = _read(paths, "web_sales", ["ws_sold_date_sk", "ws_item_sk",
+                                    "ws_net_paid"])
+    d = _read(paths, "date_dim", ["d_date_sk", "d_month_seq"])
+    d = d.filter(_between(d["d_month_seq"], 24, 35))
+    it = _read(paths, "item", ["i_item_sk", "i_category", "i_class"])
+    j = _join(_join(ws, d.select(["d_date_sk"]), "ws_sold_date_sk",
+                    "d_date_sk"), it, "ws_item_sk", "i_item_sk")
+    g = _ds_rollup(j, ["i_category", "i_class"], [("ws_net_paid", "sum")])
+    level = g["__level"].to_numpy()
+    parent = np.where(level == 0, g["i_category"].to_numpy(
+        zero_copy_only=False), None)
+    total = g["ws_net_paid_sum"].to_numpy()
+    rank = np.zeros(g.num_rows, np.int64)
+    groups: Dict[tuple, List[int]] = {}
+    for i, key in enumerate(zip(level.tolist(), parent.tolist())):
+        groups.setdefault(key, []).append(i)
+    for rows in groups.values():
+        v = total[rows]
+        rank[rows] = 1 + (v[None, :] > v[:, None]).sum(axis=1)
+    g = g.append_column("rank_within_parent", pa.array(rank)) \
+        .append_column("__parent", pa.array(parent.tolist(), pa.string()))
+    g = _order(g, [("__level", True, True), ("__parent", False, True),
+                   ("rank_within_parent", False, False)])
+    return [g["ws_net_paid_sum"], g["i_category"], g["i_class"],
+            g["__level"], g["rank_within_parent"]]
+
+
+def _ds_cume_sales(paths, fact: str, pfx: str) -> pa.Table:
+    """q51's view: each item's running sum of its daily sales."""
+    f = _read(paths, fact, [f"{pfx}_sold_date_sk", f"{pfx}_item_sk",
+                            f"{pfx}_sales_price"])
+    f = f.filter(pc.is_valid(f[f"{pfx}_item_sk"]))
+    d = _read(paths, "date_dim", ["d_date_sk", "d_date", "d_month_seq"])
+    d = d.filter(_between(d["d_month_seq"], 24, 27))
+    j = _join(f, d.select(["d_date_sk", "d_date"]), f"{pfx}_sold_date_sk",
+              "d_date_sk")
+    g = j.group_by([f"{pfx}_item_sk", "d_date"]).aggregate([
+        (f"{pfx}_sales_price", "sum")])
+    g = _order(g, [(f"{pfx}_item_sk", False, False), ("d_date", False, False)])
+    v = g[f"{pfx}_sales_price_sum"].to_numpy()
+    cume = np.empty_like(v)
+    for a, b in _segments(g[f"{pfx}_item_sk"].to_numpy()):
+        cume[a:b] = np.cumsum(v[a:b])
+    return pa.table({"item_sk": g[f"{pfx}_item_sk"], "d_date": g["d_date"],
+                     "cume_sales": cume})
+
+
+def _ds_q51(paths) -> List[pa.Array]:
+    """Running sums in a ROWS frame, a full outer join and a running max
+    over a window (NULLs skipped, as SQL's max); its whole answer."""
+    web = _ds_cume_sales(paths, "web_sales", "ws").rename_columns(
+        ["item_sk", "d_date", "web_sales"])
+    store = _ds_cume_sales(paths, "store_sales", "ss").rename_columns(
+        ["item_sk", "d_date", "store_sales"])
+    m = web.join(store, ["item_sk", "d_date"], join_type="full outer")
+    m = _order(m, [("item_sk", False, False), ("d_date", False, False)])
+    items = m["item_sk"].to_numpy()
+    cols = {}
+    for c in ("web_sales", "store_sales"):
+        v = m[c].to_numpy(zero_copy_only=False).astype(np.float64)
+        run = np.empty_like(v)
+        for a, b in _segments(items):
+            run[a:b] = np.fmax.accumulate(v[a:b])
+        cols[c] = pa.array(run, mask=np.isnan(run))
+    keep = pc.fill_null(pc.greater(cols["web_sales"], cols["store_sales"]),
+                        False)
+    m = m.filter(keep)
+    return [m["item_sk"], m["d_date"], m["web_sales"], m["store_sales"],
+            cols["web_sales"].filter(keep), cols["store_sales"].filter(keep)]
+
+
+#: phase 6h's queries, by `bench/tpcds_queries.py` number
+TPCDS_QUERIES = (98, 27, 86, 51)
+TPCDS_ORACLES = {"ds_q98": _ds_q98, "ds_q27": _ds_q27, "ds_q86": _ds_q86,
+                 "ds_q51": _ds_q51}
+
 #: answers cut by a LIMIT that may split rows tied on the ORDER BY keys:
 #: (positions of the order-key columns, OFFSET, LIMIT); their oracles
 #: return every row in order
@@ -918,13 +1102,18 @@ CUTS: Dict[str, Tuple[Tuple[int, ...], int, int]] = {
     "tpch_q11": ((1,), 0, 1 << 40),
     # ClickBench q23 orders SELECT * by EventTime (column 4), which ties;
     # q39's page-view counts tie at its OFFSET 1000 and LIMIT 10 cuts
-    "cb_q23": ((4,), 0, 10), "cb_q39": ((5,), 1000, 10)}
+    "cb_q23": ((4,), 0, 10), "cb_q39": ((5,), 1000, 10),
+    # TPC-DS: q98 orders its whole answer by a ratio that may tie; q27, q86
+    # and q51 return their whole answers under LIMIT 100 (q86's second key
+    # is i_category at level 0, NULL above it)
+    "ds_q98": ((2, 3, 0, 1, 6), 0, 1 << 40), "ds_q27": ((0, 1), 0, 100),
+    "ds_q86": ((3, 1, 4), 0, 100), "ds_q51": ((0, 1), 0, 100)}
 
 
 def answers(paths: Dict[str, str], names: Iterable[str]
             ) -> Dict[str, List[pa.Array]]:
     """{query name: its columns} for the named queries."""
-    return {n: ORACLES[n](paths) for n in names}
+    return {n: {**ORACLES, **TPCDS_ORACLES}[n](paths) for n in names}
 
 
 def _cell_key(v):

@@ -30,21 +30,36 @@ STATS = {"fetches": 0, "packed_fetches": 0, "raw_bytes": 0,
          "wire_bytes": 0}
 
 
+#: the dtypes a column may have, by tag: the integer image of each
+#: round-trips exactly (a float32 through its 32-bit pattern)
+_IMAGE_DTYPES = {"i64": (torch.int64, np.int64),
+                 "i32": (torch.int32, np.int32),
+                 "i16": (torch.int16, np.int16), "i8": (torch.int8, np.int8),
+                 "u8": (torch.uint8, np.uint8), "bool": (torch.bool, bool),
+                 "f32": (torch.float32, np.float32),
+                 "f64": (torch.float64, np.float64)}
+_TAGS = {t: tag for tag, (t, _np) in _IMAGE_DTYPES.items()}
+
+
 def _as_i64_image(x: torch.Tensor):
-    """Reversible int64 bit image of a device column, and its tag."""
-    if x.dtype == torch.float64:
-        return floatbits.f64_bits(x), "f64"
-    if x.dtype == torch.bool:
-        return x.to(torch.int64), "bool"
-    return x.to(torch.int64), "i64"
+    """Reversible int64 bit image of a device column, and its tag (the
+    column's dtype); a dtype with no exact image raises TypeError."""
+    tag = _TAGS.get(x.dtype)
+    if tag is None:
+        raise TypeError(f"packed fetch of a {x.dtype} column")
+    if tag == "f64":
+        return floatbits.f64_bits(x), tag
+    if tag == "f32":
+        return x.contiguous().view(torch.int32).to(torch.int64), tag
+    return x.to(torch.int64), tag
 
 
 def _from_i64_image(v: np.ndarray, tag: str) -> np.ndarray:
     if tag == "f64":
         return v.view(np.float64)
-    if tag == "bool":
-        return v.astype(bool)
-    return v
+    if tag == "f32":
+        return v.astype(np.int32).view(np.float32)
+    return v.astype(_IMAGE_DTYPES[tag][1])
 
 
 def _minmax(mat: torch.Tensor, g: int) -> torch.Tensor:

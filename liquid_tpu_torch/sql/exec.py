@@ -27,13 +27,17 @@ Subqueries: an uncorrelated one becomes a literal (IN -> an `InList`
 that keeps its NULLs, EXISTS -> a bool, a scalar subquery -> its value);
 a correlated EXISTS, IN or scalar aggregate becomes a `CorrLookup` over
 its inner relation, computed once.  The projection, HAVING and ORDER BY
-/ LIMIT run with the host evaluator (`sql/eval.py`).  Windows and
-GROUPING SETS / ROLLUP / CUBE are not ported and raise
-NotImplementedError naming themselves.
+/ LIMIT run with the host evaluator (`sql/eval.py`).
+
+GROUPING SETS / ROLLUP / CUBE run as one grouped query per set through
+the routes above, concatenated (`_exec_grouping_sets`).  Window functions
+run on the host (`sql/window.py`) over the result of an inner window-free
+query that the routes above answer (`_exec_window`).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -44,21 +48,24 @@ from liquid_tpu_torch.sql import ast
 from liquid_tpu_torch.sql.eval import Batch, Evaluator
 from liquid_tpu_torch.sql.parser import parse_statement
 from liquid_tpu_torch.sql.physical import (
-    TopKTracker, collect_columns, find_aggs, make_slots, render, scan_blocks,
-    substitute,
+    AGG_FUNCS, TopKTracker, collect_columns, find_aggs, make_slots, render,
+    scan_blocks, substitute,
 )
 from liquid_tpu_torch.sql.planner import (
     SUBQUERY_NODES, and_all, column_hints, plan_scan_filters, split_conjuncts,
     subqueries,
 )
 from liquid_tpu_torch.sql.qualify import Qualifier, map_expr
+from liquid_tpu_torch.sql.window import _const, compute_window, find_windows
 from liquid_tpu_torch.utils.tracing import TRACER
 
 
 #: the classic path's hand-offs, by shape: an aggregate, a bare SELECT,
 #: a join source materialized (the fused routes' own counters,
-#: `fused_agg.STATS`, say why they passed)
-STATS = {"classic_aggregates": 0, "classic_selects": 0, "classic_joins": 0}
+#: `fused_agg.STATS`, say why they passed); and the queries run as
+#: grouping sets or with windows
+STATS = {"classic_aggregates": 0, "classic_selects": 0, "classic_joins": 0,
+         "grouping_sets": 0, "windows": 0}
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -214,9 +221,11 @@ class QueryExecutor:
                 cols[it.alias or render(it.expr)] = (
                     pa.array([v.as_py()]) if isinstance(v, pa.Scalar) else v)
             return pa.table(cols)
-        if any(_contains(e, ast.WindowFunc) for e in
-               [it.expr for it in q.items] + [o.expr for o in q.order_by]):
-            raise _not_ported("window functions")
+        wfs: List[ast.WindowFunc] = []
+        for e in [it.expr for it in q.items] + [o.expr for o in q.order_by]:
+            find_windows(e, wfs)
+        if wfs:
+            return self._exec_window(q, wfs)
         q = self._inline_derived(q)
         aggs: List[ast.Func] = []
         for it in q.items:
@@ -228,6 +237,118 @@ class QueryExecutor:
         if not (aggs or q.group_by):
             return self._exec_plain(q)
         return self._exec_aggregate(q, aggs)
+
+    # -- windows -----------------------------------------------------------
+    # Windows evaluate after grouping and HAVING, before DISTINCT and
+    # ORDER BY, on the host over the inner query's result.
+
+    def _exec_window(self, q: ast.Select,
+                     wfs: List[ast.WindowFunc]) -> pa.Table:
+        """A query with window functions: an inner window-free query (the
+        same FROM / WHERE / GROUP BY / HAVING, its items every expression
+        the windows and the residual projection need) runs through the
+        engine's routes; `window.compute_window` adds one column per
+        window; the residual items, DISTINCT and ORDER BY / LIMIT run
+        over that."""
+        STATS["windows"] += 1
+        base: Dict[ast.Expr, str] = {}
+
+        def reg(e: ast.Expr) -> str:
+            if isinstance(e, ast.Column):
+                base.setdefault(e, e.name)
+                return e.name
+            if e not in base:
+                base[e] = f"__b{len(base)}"
+            return base[e]
+
+        # constant arguments (ntile(4), lag(x, 2, -1)) are read from the
+        # AST by compute_window, not projected
+        comp = [([reg(a) for a in wf.func.args if _const(a) is None],
+                 [reg(p) for p in wf.partition_by],
+                 [reg(o) for o in wf.order_exprs]) for wf in wfs]
+        wmap: Dict[ast.Expr, str] = {wf: f"__w{j}"
+                                     for j, wf in enumerate(wfs)}
+        # group keys register first, so a residual substitutes whole group
+        # expressions (it may reference only keys, aggregates and windows)
+        alias_map = {it.alias: it.expr for it in q.items if it.alias}
+        resolved_group: List[ast.Expr] = []
+        for g in q.group_by:
+            if isinstance(g, ast.Literal) and isinstance(g.value, int):
+                resolved_group.append(q.items[g.value - 1].expr)
+            elif isinstance(g, ast.Column) and g.name in alias_map:
+                resolved_group.append(alias_map[g.name])
+            else:
+                resolved_group.append(g)
+        gmap = {g: reg(g) for g in resolved_group
+                if not isinstance(g, ast.GroupingSpec)}
+
+        def lower(e: ast.Expr, skip_aliases: bool = False) -> ast.Expr:
+            def walk(x):
+                if isinstance(x, ast.Column):
+                    if skip_aliases and x.name in alias_map:
+                        return x  # an ORDER BY alias resolves outside
+                    if not x.name.startswith("__w"):
+                        reg(x)
+                    return x
+                if isinstance(x, ast.Func) and (x.name in AGG_FUNCS
+                                                or x.name == "grouping"):
+                    # grouping() folds per set inside the inner
+                    # aggregation, like an aggregate's result
+                    return ast.Column(reg(x))
+                return None
+            return map_expr(substitute(substitute(e, wmap), gmap), walk)
+
+        residuals = [lower(it.expr) for it in q.items]
+        order_resid = [lower(o.expr, skip_aliases=True) for o in q.order_by]
+
+        inner = ast.Select()
+        inner.items = [ast.SelectItem(e, nm) for e, nm in base.items()]
+        inner.from_ = q.from_
+        inner.where = q.where
+        inner.group_by = resolved_group
+        inner.having = q.having
+        t = self.execute(inner)
+
+        with TRACER.span("sql.windows", n=len(wfs), rows=t.num_rows):
+            cols = {n: t.column(n) for n in t.column_names}
+            for j, (wf, (argn, partn, ordn)) in enumerate(zip(wfs, comp)):
+                cols[f"__w{j}"] = compute_window(t, wf, argn, partn, ordn)
+            ns = pa.table(cols)
+
+        batch = Batch.from_table(ns)
+        ev = Evaluator(batch, self._scalar_subquery)
+        out_cols: Dict[str, pa.Array] = {}
+        for it, res in zip(q.items, residuals):
+            v = ev.eval(self._rewrite_subqueries(res))
+            out_cols[it.alias or render(it.expr)] = (
+                pa.repeat(v, batch.length) if isinstance(v, pa.Scalar)
+                else v)
+        result = pa.table(out_cols)
+        internal = None
+        mapping: Dict[ast.Expr, str] = {}
+        icols = {}
+        for i, (o, res) in enumerate(zip(q.order_by, order_resid)):
+            if isinstance(o.expr, ast.Literal) or (
+                    isinstance(o.expr, ast.Column)
+                    and o.expr.name in alias_map):
+                continue
+            try:
+                v = ev.eval(self._rewrite_subqueries(res))
+            except KeyError:
+                # an expression over item aliases (TPC-DS q36's `case
+                # when lochierarchy = 0 ...`) resolves in _order_limit
+                # over the projected result
+                continue
+            icols[f"__ob{i}"] = (pa.repeat(v, batch.length)
+                                 if isinstance(v, pa.Scalar) else v)
+            mapping[o.expr] = f"__ob{i}"
+        if icols:
+            internal = pa.table(icols)
+        if q.distinct:
+            result = result.group_by(result.column_names,
+                                     use_threads=False).aggregate([])
+            internal = None
+        return self._order_limit(q, result, internal, mapping)
 
     def _inline_derived(self, q: ast.Select) -> ast.Select:
         """A view named alone in FROM reads as its derived table; a derived
@@ -413,7 +534,7 @@ class QueryExecutor:
         classic path: the scan, or the join source, feeding the device
         aggregators in chunks."""
         if any(isinstance(g, ast.GroupingSpec) for g in q.group_by):
-            raise _not_ported("GROUPING SETS / ROLLUP / CUBE")
+            return self._exec_grouping_sets(q)
         table = self._single_parquet_source(q)
         scope = self._scope_cols(q)
         slots = make_slots(aggs)
@@ -436,6 +557,81 @@ class QueryExecutor:
                                             rew_inputs)
         rq = self._rewrite_query(q, scope, q.where)
         return self._project(rq, group, slots, final)
+
+    def _exec_grouping_sets(self, q: ast.Select) -> pa.Table:
+        """GROUP BY ROLLUP / CUBE / GROUPING SETS: one grouped query per
+        set, each run by `execute` (so through the fused, star and classic
+        routes); a key the set leaves out projects as NULL and
+        `grouping(e)` folds to 0 or 1.  HAVING applies per set (the same
+        predicate on every part, so equal to applying it to the union);
+        ORDER BY / LIMIT apply to the combined result."""
+        STATS["grouping_sets"] += 1
+        sets_per_elem: List[List[Tuple[ast.Expr, ...]]] = []
+        spec_keys: List[ast.Expr] = []
+        for g in q.group_by:
+            if isinstance(g, ast.GroupingSpec):
+                if g.kind == "rollup":
+                    ss = [tuple(g.exprs[:i])
+                          for i in range(len(g.exprs), -1, -1)]
+                elif g.kind == "cube":
+                    ss = [tuple(e for e, keep in zip(g.exprs, mask) if keep)
+                          for mask in itertools.product(
+                              (True, False), repeat=len(g.exprs))]
+                else:
+                    ss = list(g.sets)
+                sets_per_elem.append(ss)
+                for e in (g.exprs or tuple(x for s in g.sets for x in s)):
+                    if e not in spec_keys:
+                        spec_keys.append(e)
+            else:
+                sets_per_elem.append([(g,)])
+        full_keys: List[ast.Expr] = []
+        for elem in sets_per_elem:
+            for s in elem:
+                for e in s:
+                    if e not in full_keys:
+                        full_keys.append(e)
+
+        def rewrite(e, included: List[ast.Expr], in_agg: bool = False):
+            if isinstance(e, ast.Func) and e.name == "grouping":
+                return ast.Literal(0 if e.args[0] in included else 1)
+            if not in_agg and e in spec_keys and e not in included:
+                return ast.Literal(None)
+            if not dataclasses.is_dataclass(e):
+                return e
+            sub_agg = in_agg or (isinstance(e, ast.Func)
+                                 and e.name in AGG_FUNCS)
+
+            def rw(x):
+                if isinstance(x, ast.Expr):
+                    return rewrite(x, included, sub_agg)
+                if isinstance(x, tuple):
+                    return tuple(rw(y) for y in x)
+                return x
+            changes = {f.name: rw(getattr(e, f.name))
+                       for f in dataclasses.fields(e)
+                       if isinstance(getattr(e, f.name), (ast.Expr, tuple))}
+            return dataclasses.replace(e, **changes) if changes else e
+
+        names = [it.alias or render(it.expr) for it in q.items]
+        parts: List[pa.Table] = []
+        for combo in itertools.product(*sets_per_elem):
+            included: List[ast.Expr] = []
+            for s in combo:
+                for e in s:
+                    if e not in included:
+                        included.append(e)
+            qi = ast.Select()
+            qi.items = [ast.SelectItem(rewrite(it.expr, included), nm)
+                        for it, nm in zip(q.items, names)]
+            qi.from_ = q.from_
+            qi.where = q.where
+            qi.group_by = [k for k in full_keys if k in included]
+            qi.having = (rewrite(q.having, included)
+                         if q.having is not None else None)
+            parts.append(self.execute(qi))
+        combined = pa.concat_tables(parts, promote_options="permissive")
+        return self._order_limit(q, combined, None, {})
 
     def _fused_single(self, q, table, scope, group, key_names, slots,
                       rew_keys, rew_inputs) -> Optional[pa.Table]:
@@ -1281,8 +1477,13 @@ def _inline_derived(q: ast.Select) -> ast.Select:
                         if isinstance(x, ast.Column) else None)
 
     q2 = ast.Select()
-    q2.items = [ast.SelectItem(subst(it.expr), it.alias or render(it.expr))
-                for it in q.items]
+    q2.items = []
+    for it in q.items:
+        if isinstance(it.expr, ast.Star):  # the derived table's columns
+            q2.items += [ast.SelectItem(e, nm) for nm, e in mapping.items()]
+        else:
+            q2.items.append(ast.SelectItem(subst(it.expr),
+                                           it.alias or render(it.expr)))
     q2.from_ = inner.from_
     q2.where = and_all([w for w in (inner.where, subst(q.where))
                          if w is not None])

@@ -122,7 +122,8 @@ class _Bail(NotImplementedError):
 # Boolean nodes (residual conditions):
 #   ("cmp", op, l, r)  ("inints", col, values, dtype)
 #   ("incodes", col, gids)   string column membership by vocabulary id
-#   ("band"/"bor", l, r)  ("bnot", x)
+#   ("band"/"bor", l, r)  ("bnot", x)  ("unknown",)   a NULL literal's
+#                                                     comparison
 
 _INT_CASTS = ("int", "integer", "bigint", "smallint")
 
@@ -338,8 +339,9 @@ _FLIP = {"=": "=", "<>": "<>", "!=": "!=", "<": ">", "<=": ">=", ">": "<",
 
 
 def _compile_bool(e: ast.Expr, col_kinds, dictres=None) -> Tuple[tuple, set]:
-    """Boolean IR of a residual condition.  NULL inputs make it FALSE
-    (a WHERE drops NULL and FALSE alike); `_bool_nonnull` implements it."""
+    """Boolean IR of a residual condition, evaluated in SQL's
+    three-valued logic (`_bool3`); a WHERE keeps its TRUE rows
+    (`_bool_nonnull`)."""
     if isinstance(e, ast.Binary) and e.op in ("and", "or"):
         l, lc = _compile_bool(e.left, col_kinds, dictres)
         r, rc = _compile_bool(e.right, col_kinds, dictres)
@@ -371,14 +373,18 @@ def _compile_bool(e: ast.Expr, col_kinds, dictres=None) -> Tuple[tuple, set]:
         name = e.operand.name
         if col_kinds.get(name) == "dict":
             gids: set = set()
+            has_null = False
             for it in e.items:
+                if isinstance(it, ast.Literal) and it.value is None:
+                    has_null = True
+                    continue
                 got = (dictres(name, "=", it.value)
                        if dictres is not None and isinstance(it, ast.Literal)
                        else None)
                 if got is None:
                     raise _Bail(f"IN over {name}")
                 gids.update(got)
-            ir = ("incodes", name, tuple(sorted(gids)))
+            ir = _or_unknown(("incodes", name, tuple(sorted(gids))), has_null)
             return (("bnot", ir) if e.negated else ir), {name}
         vals = []
         has_null = any_float = False
@@ -398,15 +404,13 @@ def _compile_bool(e: ast.Expr, col_kinds, dictres=None) -> Tuple[tuple, set]:
                 raise _Bail(f"IN item {v!r}")
             any_float = any_float or isinstance(v, float)
             vals.append(v)
-        if has_null and e.negated:
-            raise _Bail("NOT IN with NULL item")  # never TRUE
         if not vals:
             raise _Bail("empty IN list")
         kind = col_kinds.get(name)
         if kind not in ("planes", "float"):
             raise _Bail(f"IN over column kind {kind}")
         dt = "f64" if any_float or kind == "float" else "i64"
-        ir = ("inints", name, tuple(vals), dt)
+        ir = _or_unknown(("inints", name, tuple(vals), dt), has_null)
         return (("bnot", ir) if e.negated else ir), {name}
     if isinstance(e, ast.Binary) and e.op == "like":
         got = None
@@ -424,6 +428,8 @@ def _compile_bool(e: ast.Expr, col_kinds, dictres=None) -> Tuple[tuple, set]:
                 and col_kinds.get(l.name) == "dict":
             if op not in ("=", "<>", "!="):
                 raise _Bail("string ordering comparison")
+            if r.value is None:  # = NULL and <> NULL are never TRUE
+                return ("unknown",), {l.name}
             got = dictres(l.name, "=", r.value) if dictres else None
             if got is None:
                 raise _Bail(f"string comparison over {l.name}")
@@ -435,6 +441,12 @@ def _compile_bool(e: ast.Expr, col_kinds, dictres=None) -> Tuple[tuple, set]:
             li, ri = _as_f64(li), _as_f64(ri)
         return ("cmp", _BOOL_CMP[op], li, ri), lc | rc
     raise _Bail(f"condition {type(e).__name__}")
+
+
+def _or_unknown(ir, has_null: bool):
+    """`x IN (..., NULL)` is `x IN (...) OR UNKNOWN`: TRUE on a match, else
+    UNKNOWN, so its NOT is never TRUE."""
+    return ("bor", ir, ("unknown",)) if has_null else ir
 
 
 def bool_ir_columns(ir) -> set:
@@ -463,8 +475,8 @@ def _lit(env, v, dt: str) -> torch.Tensor:
 def eval_ir_nulls(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
     """Null-aware IR interpreter -> (value, isnull).  `env.decode(name,
     dtype)` gives decoded column values, `env.nulls(name)` a column's
-    null mask; value nodes propagate nulls, boolean nodes fold NULL to
-    FALSE."""
+    null mask; value nodes propagate nulls, a boolean node gives its
+    TRUE rows and its UNKNOWN rows (`_bool3`)."""
     tag = ir[0]
     if tag == "col":
         return env.decode(ir[1], ir[2]), env.nulls(ir[1])
@@ -487,9 +499,8 @@ def eval_ir_nulls(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
         tv, tn = eval_ir_nulls(t, env)
         fv, fn = eval_ir_nulls(f, env)
         return torch.where(cv, tv, fv), torch.where(cv, tn, fn)
-    if tag in ("cmp", "inints", "incodes", "band", "bor", "bnot"):
-        return _bool_nonnull(ir, env), torch.zeros(
-            (), dtype=torch.bool, device=env.device)
+    if tag in _BOOL_TAGS:
+        return _bool3(ir, env)
     _, op, _, l, r = ir
     lv, ln = eval_ir_nulls(l, env)
     rv, rn = eval_ir_nulls(r, env)
@@ -507,36 +518,55 @@ def eval_ir_nulls(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
     return lv / rv, n
 
 
-def _bool_nonnull(ir, env) -> torch.Tensor:
-    """Boolean IR with NULL folded to False (non-null result)."""
+_BOOL_TAGS = ("cmp", "inints", "incodes", "band", "bor", "bnot", "unknown")
+
+
+def _bool3(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Boolean IR in SQL's three-valued logic -> (TRUE, UNKNOWN), two
+    disjoint masks; FALSE is neither.  A NULL input makes a comparison or
+    a membership UNKNOWN; AND is FALSE if either side is, OR is TRUE if
+    either side is, NOT keeps UNKNOWN."""
     tag = ir[0]
     if tag == "cmp":
         _, op, l, r = ir
         lv, ln = eval_ir_nulls(l, env)
         rv, rn = eval_ir_nulls(r, env)
-        return _CMP_FNS[op](lv, rv) & ~(ln | rn)
+        unk = ln | rn
+        return _CMP_FNS[op](lv, rv) & ~unk, unk
     if tag == "inints":
         v = env.decode(ir[1], ir[3])
         want = torch.tensor(ir[2], dtype=v.dtype, device=env.device)
-        return torch.isin(v, want) & ~env.nulls(ir[1])
+        unk = env.nulls(ir[1])
+        return torch.isin(v, want) & ~unk, unk
     if tag == "incodes":
         gids = env.decode(ir[1], "i64")
+        unk = env.nulls(ir[1])
         if not ir[2]:
-            return torch.zeros_like(gids, dtype=torch.bool)
+            return torch.zeros_like(gids, dtype=torch.bool), unk
         want = torch.tensor(ir[2], dtype=torch.int64, device=env.device)
-        return torch.isin(gids, want) & ~env.nulls(ir[1])
-    if tag == "band":
-        return _bool_nonnull(ir[1], env) & _bool_nonnull(ir[2], env)
-    if tag == "bor":
-        return _bool_nonnull(ir[1], env) | _bool_nonnull(ir[2], env)
+        return torch.isin(gids, want) & ~unk, unk
+    if tag == "unknown":
+        return (torch.zeros((), dtype=torch.bool, device=env.device),
+                torch.ones((), dtype=torch.bool, device=env.device))
     if tag == "bnot":
-        # NOT over null-folded False would match NULL rows: fold the
-        # operand's nulls out of the complement too
-        v = ~_bool_nonnull(ir[1], env)
-        for c in sorted(bool_ir_columns(ir[1])):
-            v = v & ~env.nulls(c)
-        return v
-    raise AssertionError(f"not a bool IR: {tag}")
+        t, u = _bool3(ir[1], env)
+        return ~t & ~u, u
+    t1, u1 = _bool3(ir[1], env)
+    t2, u2 = _bool3(ir[2], env)
+    if tag == "band":
+        t = t1 & t2
+        false = (~t1 & ~u1) | (~t2 & ~u2)
+    elif tag == "bor":
+        t = t1 | t2
+        false = ~t1 & ~u1 & ~t2 & ~u2
+    else:
+        raise AssertionError(f"not a bool IR: {tag}")
+    return t, ~t & ~false
+
+
+def _bool_nonnull(ir, env) -> torch.Tensor:
+    """Boolean IR's TRUE rows (a WHERE drops FALSE and UNKNOWN alike)."""
+    return _bool3(ir, env)[0]
 
 
 def _ir_dtype(ir) -> str:
