@@ -154,6 +154,27 @@ Phases (any failure raises and the script exits non-zero):
    (the inner queries' scans and probes) above 0; per query: first run,
    warm best, device busy and idle share, K1 launches per run; counts set
    to 0 just before this phase and read after;
+   6i. multi-device execution (`liquid_tpu_torch/parallel/`) on a mesh of
+   `DIST_SHARDS` shards on the one card (`make_mesh(devices=["cuda:0"] *
+   4)`), over the files of phase 5 (TPC-H, the hits rows, TPC-DS), each
+   table registered with only the columns its queries name
+   (`dist_columns`, logged): the reference's distributed sets as
+   written -- TPC-H {1, 3, 5, 6, 9, 10, 11, 12, 14, 15, 16, 18, 19},
+   ClickBench {0-17, 29-33} and TPC-DS `DIST_TPCDS_SUPPORTED` -- one
+   first run and `DIST_WARM_RUNS` warm runs each (`run_dist_path`);
+   TPC-H and ClickBench answers equal to pyarrow (`oracle.DIST_TPCH`,
+   `oracle.DIST_CB`, the tie rule of a LIMIT cut), TPC-DS answers equal
+   to the port's single-device session on the same files
+   (`dist_tpcds_expect`, run before the counts are reset); every run
+   counted distributed (`route_stats`, no single-device route), the
+   exchanges' overflow 0, and K4's launches in the phase above 0 and
+   equal to the plans' count (`DIAG["k4_planned"]`: one per shard per
+   bit-plane predicate per run); per query: first run, warm times, K4
+   launches per run, the collectives and their bytes, the exchanges,
+   their rows and balance, and the scan's bytes; one shard's
+   `l_shipdate` planes kept for phase 10; counts set to 0 just before
+   this phase and read after.  Four shards share the card: the phase
+   checks the algorithm and the launches, not an interconnect;
 7. K1's interval form checked bit-exact against its plain version and
    timed (CUDA events, L2 flushed before each timed call) on the exact
    (planes, lo, hi) the main path gave it -- the single-table plans'
@@ -187,7 +208,9 @@ Phases (any failure raises and the script exits non-zero):
    counted apart: each kernel's `launches` is the query phases' and the
    micro line's, `launches_by_phase` splits it and adds the loops';
 10. K3 and K4 timed (CUDA events, L2 flushed) on the micro line's input,
-   w = 10 over 2^27 rows, beside their plain versions and byte bounds.
+   w = 10 over 2^27 rows, beside their plain versions and byte bounds;
+   K4 also on phase 6i's per-shard `l_shipdate` planes (TPC-H lineitem
+   over four shards).
 
 The last lines are the card's name and power limit, a {"kernels": [...]}
 JSON line, and {"ok": true, "device": {...}}.  `--trash-band NAME` runs
@@ -806,10 +829,12 @@ def k34_bound_ms(width: int, n_words: int, outputs: int):
             else "operations", nbytes)
 
 
-def time_k34(torch) -> dict:
+def time_k34(torch, shard_planes) -> dict:
     """Phase 10: K3 and K4 timed (CUDA events, L2 flushed) on the micro
     line's input -- w = 10 over 2^27 rows, uniform values, seed 0 --
-    beside their plain versions and byte bounds."""
+    beside their plain versions and byte bounds; K4 also on one shard's
+    planes from phase 6i (`shard_planes`, int32[w, W]) against a
+    constant inside its width, under "shard"."""
     import numpy as np
     from liquid_tpu_torch.bench import main as bench
     from liquid_tpu_torch.device import words_to_tensor
@@ -841,6 +866,23 @@ def time_k34(torch) -> dict:
                    bound_ms=bound, bound_by=by, max_abs_err=err)
         out[name] = row
         log(f"[k34] {name}: {json.dumps(row)}")
+    width, n_words = shard_planes.shape
+    c = int(rng.integers(1, 1 << width))
+    got = k.cmp_const_planes(shard_planes, c)
+    err = _max_abs_err(torch, got, k.cmp_const_planes_ref(shard_planes, c))
+    if err:
+        raise AssertionError(f"K4 != plain on 6i's shard planes: {err}")
+    bound, by, nbytes = k34_bound_ms(width, n_words, 2)
+    out["shard"] = dict(
+        w=width, n_words=n_words, c=c, bytes=nbytes,
+        ms=time_cold(torch, lambda: k.cmp_const_planes(shard_planes, c),
+                     flush, 50),
+        warm_ms=time_warm(torch, lambda: k.cmp_const_planes(
+            shard_planes, c), 100),
+        plain_ms=time_cold(torch, lambda: k.cmp_const_planes_ref(
+            shard_planes, c), flush, 10),
+        bound_ms=bound, bound_by=by, max_abs_err=err)
+    log(f"[k34] cmp_const_planes on a 6i shard: {json.dumps(out['shard'])}")
     return out
 
 
@@ -2033,7 +2075,10 @@ def run_pruning_path(torch, path: str):
 
 #: the TPC-DS tables phase 6h's queries read
 TPCDS_TABLES = ("store_sales", "web_sales", "item", "date_dim", "store",
-                "customer_demographics")
+                "customer_demographics",
+                # phase 6i's TPC-DS queries besides
+                "catalog_sales", "promotion", "household_demographics",
+                "customer_address", "inventory", "time_dim")
 #: phase 6h's warm runs per query (beside its first and profiled runs)
 TPCDS_WARM_RUNS = 1
 
@@ -2101,6 +2146,137 @@ def run_tpcds_path(torch, dspaths: dict, expect: dict) -> dict:
         log(f"[tpcds] {name}: {json.dumps(report[name])}")
     del ctx, cache
     return report
+
+
+# -- phase 6i: multi-device execution on a mesh of shards on the card ---------
+
+#: shards of phase 6i's mesh, all on the one card
+DIST_SHARDS = 4
+#: phase 6i's warm runs per query of each set, beside its first run
+DIST_WARM_RUNS = {"tpch": 1, "clickbench": 1, "tpcds": 1}
+
+
+def dist_queries() -> list:
+    """Phase 6i's queries: (set, name, SQL or statement list, oracle key of
+    `expect` or None for TPC-DS, held to the single-device session)."""
+    from liquid_tpu_torch.bench import oracle, tpcds_queries, tpch_queries
+    from liquid_tpu_torch.parallel.session import DIST_TPCDS_SUPPORTED
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = [("tpch", f"tpch_q{q}", tpch_queries.QUERIES[q], key)
+           for q, key in oracle.DIST_TPCH.items()]
+    for q, key in oracle.DIST_CB.items():
+        with open(os.path.join(here, "benchmark", "clickbench", "queries",
+                               f"q{q}.sql")) as f:
+            out.append(("clickbench", f"cb_q{q}",
+                        f.read().strip().rstrip(";"), key))
+    out += [("tpcds", f"ds_q{q}", tpcds_queries.QUERIES[q], None)
+            for q in DIST_TPCDS_SUPPORTED]
+    return out
+
+
+def dist_columns(table_paths: dict, queries: list) -> dict:
+    """{table: the columns of its schema that the queries' texts name}."""
+    import re
+    import pyarrow.parquet as pq
+    words = set()
+    for _set, _name, sql, _key in queries:
+        for text in (sql if isinstance(sql, list) else [sql]):
+            words |= set(re.findall(r"[A-Za-z_][A-Za-z0-9_]*", text))
+    return {t: [c for c in pq.read_schema(p).names if c in words]
+            for t, p in table_paths.items()}
+
+
+def dist_tpcds_expect(torch, dspaths: dict, device="cuda") -> dict:
+    """The single-device session's answers to phase 6i's TPC-DS queries on
+    the same files and card (the phase's oracle for that set)."""
+    from liquid_tpu_torch import LiquidCacheLocalBuilder
+    ctx, cache = LiquidCacheLocalBuilder(device).with_max_memory_bytes(
+        16 << 30).build()
+    for name, p in dspaths.items():
+        ctx.register_parquet(name, p)
+    out = {}
+    for _set, name, sql, key in dist_queries():
+        if key is None:
+            got = ctx.sql(sql).to_arrow()
+            torch.cuda.synchronize()
+            out[name] = got.columns
+    del ctx, cache
+    return out
+
+
+def run_dist_path(torch, paths: dict, dspaths: dict, expect: dict,
+                  ds_expect: dict, device="cuda:0"):
+    """Phase 6i (module doc), its shards on `device` -> (report, summary,
+    one shard's l_shipdate planes)."""
+    from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.ops import bitpack_cuda as k
+    from liquid_tpu_torch.parallel import dist, make_mesh
+    from liquid_tpu_torch.parallel.session import DistributedSession
+    queries = dist_queries()
+    mesh = make_mesh(devices=[device] * DIST_SHARDS)
+    sess = DistributedSession(mesh)
+    t0 = time.perf_counter()
+    tables = {**paths, **dspaths}  # TPC-H, hits and TPC-DS
+    cols = dist_columns(tables, queries)
+    for t, names in cols.items():
+        if names:
+            sess.register_parquet(t, tables[t], names)
+    torch.cuda.synchronize()
+    log(f"[dist] mesh {mesh}; tables registered with the columns their "
+        f"queries name in {time.perf_counter() - t0:.1f} s: "
+        f"{json.dumps({t: c for t, c in cols.items() if c})}")
+    report, planned, launched = {}, 0, 0
+    for qset, name, sql, key in queries:
+        want = expect[key] if key is not None else ds_expect[name]
+        cut = oracle.CUTS.get(key) if key is not None else None
+        times, k4_runs, plan_runs = [], [], []
+        for run in range(1 + DIST_WARM_RUNS[qset]):
+            routed0 = dict(sess.route_stats)
+            k40 = k.LAUNCHES["cmp_const_planes"]
+            t1 = time.perf_counter()
+            got = sess.sql(sql)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            k4_runs.append(k.LAUNCHES["cmp_const_planes"] - k40)
+            plan_runs.append(dist.DIAG["k4_planned"])
+            stmts = len(sql) if isinstance(sql, list) else 1
+            if sess.route_stats["fallback"] != routed0["fallback"] or \
+                    sess.route_stats["distributed"] \
+                    != routed0["distributed"] + stmts:
+                raise AssertionError(
+                    f"6i {name} run {run} took the single-device route: "
+                    f"{sess.route_stats['fallback_reasons'][-1:]}")
+            if dist.DIAG["exchange_overflow"]:
+                raise AssertionError(f"6i {name}: exchange overflow "
+                                     f"{dist.DIAG['exchange_overflow']}")
+            if not oracle.same_table(got, want, cut):
+                raise AssertionError(
+                    f"6i {name} (run {run}): mesh {got.to_pylist()[:3]} != "
+                    f"oracle {[c.to_pylist()[:3] for c in want]}")
+        if k4_runs != plan_runs:
+            raise AssertionError(f"6i {name}: K4 launches {k4_runs} per run "
+                                 f"!= the plans' {plan_runs}")
+        planned += sum(plan_runs)
+        launched += sum(k4_runs)
+        diag = {d: dist.DIAG[d] for d in (
+            "collectives", "collective_bytes", "exchanges", "exchange_rows",
+            "exchange_bytes", "exchange_balance")}
+        report[name] = dict(
+            set=qset, first_run_s=times[0],
+            warm_ms=[t * 1e3 for t in times[1:]], k4_per_run=k4_runs,
+            scan_bytes=sess.last_scan_bytes, rows=got.num_rows, **diag)
+        log(f"[dist] {name}: {json.dumps(report[name])}")
+    if launched <= 0 or launched != planned:
+        raise AssertionError(f"6i: K4 launches {launched}, planned "
+                             f"{planned}")
+    shard = sess.tables["lineitem"].columns["l_shipdate"].planes[0]
+    summary = dict(shards=DIST_SHARDS, queries=len(report),
+                   k4_launches=launched, k4_planned=planned,
+                   route_stats={k_: v for k_, v in sess.route_stats.items()
+                                if k_ != "fallback_reasons"},
+                   shard_planes=list(shard.shape))
+    del sess
+    return report, summary, shard
 
 
 def time_k1_narrow(torch, inputs: list) -> dict:
@@ -2655,6 +2831,23 @@ def main(argv=None) -> int:
                              f"or grouping set: {tpcds_launches} "
                              f"{tpcds_stats}")
     clock("6h")
+    # 6i. multi-device execution on a mesh of shards on the card: the
+    #     single-device TPC-DS answers first, then counts reset just before
+    #     and read just after
+    t0 = time.perf_counter()
+    ds_expect = dist_tpcds_expect(torch, dspaths)
+    log(f"[dist] single-device TPC-DS answers in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _reset(counters)
+    t0 = time.perf_counter()
+    dist_report, dist_summary, shard_planes = run_dist_path(
+        torch, paths, dspaths, expect, ds_expect)
+    dist_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
+    log(f"[dist] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(dist_launches)}; {json.dumps(dist_summary)}")
+    if dist_launches["cmp_const_planes"] <= 0:
+        raise AssertionError(f"phase 6i did not launch K4: {dist_launches}")
+    clock("6i")
 
     # 7. K1's interval form checked and timed on the main path's own
     #    inputs, the star and multi-table phases' included
@@ -2718,12 +2911,13 @@ def main(argv=None) -> int:
     clock("9b")
 
     # 10. K3 and K4 timed on the micro line's input
-    k34 = time_k34(torch)
+    k34 = time_k34(torch, shard_planes)
     phases = {"scalar": scalar_launches, "grouped": grouped_launches,
               "star": star_launches, "slice": slice_launches,
               "multi": multi_launches, "classic": classic_launches,
               "pressure": pressure_launches, "storage": storage_launches,
-              "tpcds": tpcds_launches, "harness": harness_launches,
+              "tpcds": tpcds_launches, "dist": dist_launches,
+              "harness": harness_launches,
               "harness_operator_timing": op_launches}
 
     def launches(name):
@@ -2731,7 +2925,7 @@ def main(argv=None) -> int:
         return sum(phases[p][name]
                    for p in ("scalar", "grouped", "star", "slice", "multi",
                              "classic", "pressure", "storage", "tpcds",
-                             "harness"))
+                             "dist", "harness"))
 
     def by_phase(name):
         return {p: d.get(name, 0) for p, d in phases.items()}
@@ -2790,13 +2984,17 @@ def main(argv=None) -> int:
             "library_ms": None,
             "shape": [row["w"], row["rows"] // 32], "matches_plain": True,
         })
+    kernels[-1]["shard_form"] = {k_: k34["shard"][k_] for k_ in (
+        "w", "n_words", "c", "ms", "plain_ms", "bound_ms", "bound_by")}
+    kernels[-1]["shard_form"]["phase"] = "6i"
     summary = {**report, **greport, **sreport, **slice_report,
                **multi_report, **classic_report,
                "pressure": {m: r["summary"] for m, r in
                             pressure_report.items()},
                "pressure_cap": cap, "pressure_working_set": w_bytes,
                "decimal": decimal_report, "pruning": pruning_report,
-               "tpcds": tpcds_report,
+               "tpcds": tpcds_report, "dist": dist_report,
+               "dist_summary": dist_summary,
                "json": {m: json_report[m]["summary"]
                         for m in ("uncapped", "capped")}}
     clock("10")

@@ -774,6 +774,119 @@ def _cb_distinct_fold(paths) -> List[pa.Array]:
             g["AdvEngineID_count_distinct"], g["TraficSourceID_count"]]
 
 
+# -- the distributed sets' texts (phase 6i of `chip_smoke.py`) -------------
+
+def _tpch_q6_spec(paths) -> List[pa.Array]:
+    """q6 as `bench/tpch_queries.py` words it: its discount bounds are the
+    float sums 0.06 - 0.01 and 0.06 + 0.01 (0.0699...: 0.07 is out)."""
+    li = pq.read_table(paths["lineitem"], columns=[
+        "l_extendedprice", "l_discount", "l_shipdate", "l_quantity"])
+    m = pc.and_(
+        pc.and_(pc.greater_equal(li["l_shipdate"], _date(1994, 1, 1)),
+                pc.less(li["l_shipdate"], _date(1995, 1, 1))),
+        pc.and_(pc.and_(pc.greater_equal(li["l_discount"], 0.06 - 0.01),
+                        pc.less_equal(li["l_discount"], 0.06 + 0.01)),
+                pc.less(li["l_quantity"], 24)))
+    f = li.filter(m)
+    rev = pc.sum(pc.multiply(f["l_extendedprice"], f["l_discount"])).as_py()
+    return [pa.array([rev], pa.float64())]
+
+
+def _top_ties(g: pa.Table, col: str, k: int) -> pa.Table:
+    """`g` by `col` descending, cut after the rows tied with the k-th (all
+    the tie rule of `CUTS` reads)."""
+    g = g.sort_by([(col, "descending")])
+    if g.num_rows <= k:
+        return g
+    kth = g[col][k - 1].as_py()
+    return g.filter(pc.greater_equal(g[col], kth))
+
+
+def _cb_counts(paths, keys, nonempty_phrase: bool, k: int,
+               extra=()) -> List[pa.Array]:
+    """GROUP BY keys with COUNT(*) AS c (and `extra` aggregates) ORDER BY c
+    DESC LIMIT k: the rows through the cut's ties."""
+    cols = list(dict.fromkeys(list(keys) + [c for c, _f in extra]
+                              + (["SearchPhrase"] if nonempty_phrase
+                                 else [])))
+    h = _hits(paths, cols)
+    if nonempty_phrase:
+        h = h.filter(pc.not_equal(h["SearchPhrase"], ""))
+    g = h.group_by(list(keys)).aggregate(
+        [(keys[0], "count", _EVERY)] + list(extra))
+    g = _top_ties(g, f"{keys[0]}_count", k)
+    return [g[c] for c in keys] + [g[f"{keys[0]}_count"]] + [
+        g[f"{c}_{f}"] for c, f in extra]
+
+
+def _cb_q0(paths) -> List[pa.Array]:
+    return [pa.array([pq.read_metadata(paths["hits"]).num_rows], pa.int64())]
+
+
+def _cb_q2(paths) -> List[pa.Array]:
+    h = _hits(paths, ["AdvEngineID", "ResolutionWidth"])
+    return [pa.array([pc.sum(h["AdvEngineID"]).as_py()], pa.int64()),
+            pa.array([h.num_rows], pa.int64()),
+            pa.array([pc.mean(pc.cast(h["ResolutionWidth"],
+                                      pa.float64())).as_py()])]
+
+
+def _cb_q3(paths) -> List[pa.Array]:
+    u = _hits(paths, ["UserID"])["UserID"]
+    return [pa.array([pc.mean(pc.cast(u, pa.float64(),
+                                      safe=False)).as_py()])]
+
+
+def _cb_q6(paths) -> List[pa.Array]:
+    d = pc.cast(pc.cast(_hits(paths, ["EventDate"])["EventDate"],
+                        pa.int32()), pa.date32())
+    return [pa.array([pc.min(d).as_py()], pa.date32()),
+            pa.array([pc.max(d).as_py()], pa.date32())]
+
+
+def _cb_q7(paths) -> List[pa.Array]:
+    h = _hits(paths, ["AdvEngineID"])
+    h = h.filter(pc.not_equal(h["AdvEngineID"], 0))
+    g = h.group_by("AdvEngineID").aggregate(
+        [("AdvEngineID", "count", _EVERY)]).sort_by(
+            [("AdvEngineID_count", "descending")])
+    return [g["AdvEngineID"], g["AdvEngineID_count"]]
+
+
+def _cb_q17(paths) -> List[pa.Array]:
+    """GROUP BY UserID, SearchPhrase LIMIT 10 with no ORDER BY: any ten
+    groups, so the whole answer (`CUTS` ties every row)."""
+    g = _hits(paths, ["UserID", "SearchPhrase"]).group_by(
+        ["UserID", "SearchPhrase"]).aggregate([("UserID", "count", _EVERY)])
+    return [g["UserID"], g["SearchPhrase"], g["UserID_count"]]
+
+
+def _cb_q29(paths) -> List[pa.Array]:
+    w = _hits(paths, ["ResolutionWidth"])["ResolutionWidth"]
+    total, n = pc.sum(pc.cast(w, pa.int64())).as_py(), len(w)
+    return [pa.array([total + k * n], pa.int64()) for k in range(90)]
+
+
+def _cb_wide(paths, keys, nonempty_phrase: bool) -> List[pa.Array]:
+    """q30-q32: COUNT(*) AS c, SUM(IsRefresh), AVG(ResolutionWidth) by
+    two keys, ORDER BY c DESC LIMIT 10."""
+    return _cb_counts(paths, keys, nonempty_phrase, 10,
+                      [("IsRefresh", "sum"), ("ResolutionWidth", "mean")])
+
+
+#: phase 6i's query sets, each query by its number -> its oracle here
+DIST_TPCH = {1: "tpch_q1", 3: "tpch_q3", 5: "tpch_q5", 6: "tpch_q6_spec",
+             9: "tpch_q9", 10: "tpch_q10", 11: "tpch_q11", 12: "tpch_q12",
+             14: "tpch_q14", 15: "tpch_q15", 16: "tpch_q16",
+             18: "tpch_q18", 19: "tpch_q19"}
+DIST_CB = {0: "cb_q0", 1: "cb_filter", 2: "cb_q2", 3: "cb_q3", 4: "cb_q4",
+           5: "cb_q5", 6: "cb_q6", 7: "cb_q7", 8: "cb_q8", 9: "cb_q9",
+           10: "cb_q10", 11: "cb_q11", 12: "cb_q12", 13: "cb_q13",
+           14: "cb_q14", 15: "cb_q15_spec", 16: "cb_q16", 17: "cb_q17",
+           29: "cb_q29", 30: "cb_q30", 31: "cb_q31", 32: "cb_q32",
+           33: "cb_q33"}
+
+
 ORACLES = {"cb_filter": _cb_filter, "cb_like": _cb_like,
            "tpch_q6": _tpch_q6, "cb_groupby": _cb_groupby,
            "cb_q15": _cb_q15, "tpch_q15_revenue": _tpch_q15_revenue,
@@ -796,7 +909,21 @@ ORACLES = {"cb_filter": _cb_filter, "cb_like": _cb_like,
            "cb_distinct_fold": _cb_distinct_fold,
            "tpch_q2": _tpch_q2, "tpch_q13": _tpch_q13, "tpch_q15": _tpch_q15,
            "tpch_q17": _tpch_q17, "tpch_q20": _tpch_q20, "cb_q19": _cb_q19,
-           "cb_q23": _cb_q23, "cb_q39": _cb_q39}
+           "cb_q23": _cb_q23, "cb_q39": _cb_q39,
+           "tpch_q6_spec": _tpch_q6_spec, "cb_q0": _cb_q0, "cb_q2": _cb_q2,
+           "cb_q3": _cb_q3, "cb_q6": _cb_q6, "cb_q7": _cb_q7,
+           "cb_q12": lambda p: _cb_counts(p, ["SearchPhrase"], True, 10),
+           "cb_q14": lambda p: _cb_counts(
+               p, ["SearchEngineID", "SearchPhrase"], True, 10),
+           "cb_q15_spec": lambda p: _cb_counts(p, ["UserID"], False, 10),
+           "cb_q16": lambda p: _cb_counts(p, ["UserID", "SearchPhrase"],
+                                          False, 10),
+           "cb_q17": _cb_q17, "cb_q29": _cb_q29,
+           "cb_q30": lambda p: _cb_wide(p, ["SearchEngineID", "ClientIP"],
+                                        True),
+           "cb_q31": lambda p: _cb_wide(p, ["WatchID", "ClientIP"], True),
+           "cb_q32": lambda p: _cb_wide(p, ["WatchID", "ClientIP"], False),
+           "cb_q33": lambda p: _cb_counts(p, ["URL"], False, 10)}
 
 # -- TPC-H over the specification's DECIMAL(15,2) money columns ------------
 
@@ -1107,7 +1234,14 @@ CUTS: Dict[str, Tuple[Tuple[int, ...], int, int]] = {
     # and q51 return their whole answers under LIMIT 100 (q86's second key
     # is i_category at level 0, NULL above it)
     "ds_q98": ((2, 3, 0, 1, 6), 0, 1 << 40), "ds_q27": ((0, 1), 0, 100),
-    "ds_q86": ((3, 1, 4), 0, 100), "ds_q51": ((0, 1), 0, 100)}
+    "ds_q86": ((3, 1, 4), 0, 100), "ds_q51": ((0, 1), 0, 100),
+    # phase 6i's ClickBench texts: counts that tie under LIMIT 10 (q7
+    # orders its whole answer by one); q17 has no ORDER BY at all
+    "cb_q7": ((1,), 0, 1 << 40), "cb_q12": ((1,), 0, 10),
+    "cb_q14": ((2,), 0, 10), "cb_q15_spec": ((1,), 0, 10),
+    "cb_q16": ((2,), 0, 10), "cb_q17": ((), 0, 10), "cb_q30": ((2,), 0, 10),
+    "cb_q31": ((2,), 0, 10), "cb_q32": ((2,), 0, 10),
+    "cb_q33": ((1,), 0, 10)}
 
 
 def answers(paths: Dict[str, str], names: Iterable[str]
@@ -1151,7 +1285,18 @@ def _same_cut(out: pa.Table, want: List[pa.Array], cut) -> bool:
                       [r for r in full[lo:hi] if key(r) not in tied]):
         return False
     pool = [r for r in full if key(r) in tied]
-    for r in (r for r in got if key(r) in tied):
+    mine = [r for r in got if key(r) in tied]
+    if not any(isinstance(v, float) for r in mine for v in r):
+        # exact cells: a multiset test (every row of `pool` when no key
+        # orders the answer: a linear search would be quadratic)
+        from collections import Counter
+        left = Counter(pool)
+        for r in mine:
+            if left[r] <= 0:
+                return False
+            left[r] -= 1
+        return True
+    for r in mine:
         hit = next((i for i, w in enumerate(pool) if _close_row(r, w)), None)
         if hit is None:
             return False

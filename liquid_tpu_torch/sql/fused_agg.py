@@ -110,6 +110,19 @@ class _Bail(NotImplementedError):
     path here; the port has none yet, so the bail reaches the caller."""
 
 
+class KindsWithTypes(dict):
+    """col -> kind mapping that also resolves arrow types: `_compile_expr`
+    consults ``arrow_type(col)`` to validate value-preserving casts
+    (``::date`` passes only over date32 or integer images)."""
+
+    def __init__(self, kinds, typeres):
+        super().__init__(kinds)
+        self._typeres = typeres
+
+    def arrow_type(self, c):
+        return self._typeres(c)
+
+
 # -- expression IR -------------------------------------------------------------
 #
 # Nodes carry their dtype ("i64" | "f64"); casts are explicit.

@@ -54,7 +54,8 @@ def test_importing_every_module_loads_no_jax():
                  "ops.groupby", "cache.store", "arrays.ipc",
                  "arrays.hybrid", "utils.dates", "arrays.decimal",
                  "arrays.variant", "io.bloom", "io.pageindex",
-                 "common.object_store"):
+                 "common.object_store", "parallel.dist",
+                 "parallel.session", "parallel.join"):
         assert f"liquid_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
