@@ -11,8 +11,9 @@ Phases (any failure raises and the script exits non-zero):
    all started together with g++ for the native FSST library
    (`native/*.cpp` into `liquid_tpu_torch/_build/`), timed: K1
    (`ops/csrc/cmp_const_many.cu`), K2 (`ops/csrc/group_accumulate.cu`),
-   K3 and K4 (`ops/csrc/cmp_planes.cu`); K2's shared-memory atomics read
-   from its SASS (`cuobjdump -sass`), failing on a CAS loop;
+   K3 and K4 (`ops/csrc/cmp_planes.cu`), K4's fused form
+   (`ops/csrc/select_planes.cu`); K2's shared-memory atomics read from
+   its SASS (`cuobjdump -sass`), failing on a CAS loop;
 3. K1 against its plain PyTorch version on the card, bit-exact, over
    every width bucket 1..64, B in {1, 3, 489, 4097} and constants 0, 1,
    random, with bits at or above the width, and 2^64-1: the single form,
@@ -27,7 +28,13 @@ Phases (any failure raises and the script exits non-zero):
    4b. K3 (`count_gt`) and K4 (`cmp_const_planes`) against their plain
    versions, bit-exact, over every width 0..64, W in {256, 4096, 2^22}
    words, constants 0, 1, random, 2^w-1, with bits at or above w, and
-   2^64-1, on flat and prepped planes;
+   2^64-1, on flat and prepped planes; K4's fused form (`select_planes`,
+   the mesh's shard selection) against `select_planes_ref`, bit-exact,
+   over W in {1, 255, 46,863, 2^22} words and P in {1, 2, 5, 16, 17}
+   predicates per call (17 lone columns: two chained launches), widths
+   0..64 mixed within a call, every op, interval pairs, validity on and
+   off, constants 0, 2^w-1, 2^w, 2^64-1 and one inside the width, its
+   launches equal to `select_launches` (`check_select`);
 5. the scalar main path: 4,000,000 synthesized ClickBench `hits` rows and
    TPC-H SF1 `lineitem` as parquet (every data file of the run, phases
    6g's and 6h's included, written by `write_data` in four worker
@@ -167,13 +174,18 @@ Phases (any failure raises and the script exits non-zero):
    to the port's single-device session on the same files
    (`dist_tpcds_expect`, run before the counts are reset); every run
    counted distributed (`route_stats`, no single-device route), the
-   exchanges' overflow 0, and K4's launches in the phase above 0 and
-   equal to the plans' count (`DIAG["k4_planned"]`: one per shard per
-   bit-plane predicate per run); per query: first run, warm times, K4
-   launches per run, the collectives and their bytes, the exchanges,
-   their rows and balance, and the scan's bytes; one shard's
-   `l_shipdate` planes kept for phase 10; counts set to 0 just before
-   this phase and read after.  Four shards share the card: the phase
+   exchanges' overflow 0, and K4's launches (its fused form) in every run
+   equal to the plans' count (`DIAG["k4_planned"]`: ceil(D / 16) per
+   shard per table scan with a bit-plane predicate, D its descriptors),
+   above 0 and below the phase's bit-plane predicates over the shards
+   (the single form's count); per query: first run, warm times, K4
+   launches and bit-plane predicates per run, the collectives and their
+   bytes, the exchanges, their rows and balance, and the scan's bytes;
+   `ds_q37` and `ds_q82` (`DIST_PROFILED`) once more under
+   torch.profiler (device busy, idle share); one shard's `l_shipdate`
+   planes, and the first shard's fused selections of `tpch_q6` and of
+   `ds_q37`'s largest scan (`DIST_SELECT_SETS`), kept for phase 10;
+   counts set to 0 just before this phase and read after.  Four shards share the card: the phase
    checks the algorithm and the launches, not an interconnect;
 7. K1's interval form checked bit-exact against its plain version and
    timed (CUDA events, L2 flushed before each timed call) on the exact
@@ -210,7 +222,10 @@ Phases (any failure raises and the script exits non-zero):
 10. K3 and K4 timed (CUDA events, L2 flushed) on the micro line's input,
    w = 10 over 2^27 rows, beside their plain versions and byte bounds;
    K4 also on phase 6i's per-shard `l_shipdate` planes (TPC-H lineitem
-   over four shards).
+   over four shards); K4's fused form on phase 6i's two shard selections
+   (`time_select`), cold and warm, beside the composed chain it replaces
+   (per predicate a single-form K4 launch, its op and the ANDs), its
+   plain version and its byte bound.
 
 The last lines are the card's name and power limit, a {"kernels": [...]}
 JSON line, and {"ok": true, "device": {...}}.  `--trash-band NAME` runs
@@ -818,6 +833,95 @@ def check_k34(torch, dev) -> int:
     return worst
 
 
+#: phase 4b's word counts for K4's fused form: 46,863 is a 6i shard of
+#: TPC-H SF 1 lineitem
+SELECT_CHECK_WORDS = (1, 255, 46_863, 1 << 22)
+#: an interval's two ops in phase 4b, lower bound first
+SELECT_PAIRS = (("gt_eq", "lt_eq"), ("gt", "lt"), ("gt_eq", "lt"),
+                ("gt", "lt_eq"), ("ne", "lt_eq"), ("eq", "gt_eq"))
+
+
+def check_select(torch, dev) -> int:
+    """Phase 4b, K4's fused form: `select_planes` vs `select_planes_ref`,
+    bit-exact, over W in {1, 255, 46863, 2^22} words and P in {1, 2, 5,
+    16, 17} predicates per call (17 lone columns: two chained launches);
+    widths 0..64 mixed within a call (every width at each W but 2^22,
+    which takes 30 of them), every op, interval pairs (every third
+    predicate the second bound on the column before), validity present
+    and absent, constants 0, 2^w-1, 2^w, 2^64-1 and one inside the
+    width; launches equal `select_launches`, sel left as it was, and a
+    CPU tensor among CUDA ones refused -> max abs error (0)."""
+    import itertools
+    import numpy as np
+    from liquid_tpu_torch.ops import bitpack_cuda as k
+    gen = torch.Generator(device=dev).manual_seed(1313)
+    rng = np.random.default_rng(1313)
+    ops = k.SELECT_OPS
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    def pool(w):
+        top = (1 << w) - 1
+        out = [0, top, (1 << 64) - 1,
+               int(rng.integers(0, top + 1, dtype=np.uint64))]
+        return out + [1 << w] if w < 64 else out
+
+    worst = 0
+    for n_words in SELECT_CHECK_WORDS:
+        widths = itertools.cycle(int(w) for w in rng.permutation(65))
+        for rnd in range(1 if n_words == 1 << 22 else 3):
+            for n_preds in (1, 2, 5, 16, 17):
+                sel = ~(words(n_words) & words(n_words))
+                preds = []
+                for i in range(n_preds):
+                    if i % 3 == 2:
+                        planes, _c, _op, valid = preds[-1]
+                        cs = pool(planes.shape[0])
+                        lo, hi = sorted(cs[j] for j in rng.choice(len(cs), 2))
+                        lo_op, hi_op = SELECT_PAIRS[(i + rnd) % 6]
+                        preds[-1] = (planes, lo, lo_op, valid)
+                        preds.append((planes, hi, hi_op, valid))
+                        continue
+                    w = next(widths)
+                    valid = ~(words(n_words) & words(n_words)
+                              & words(n_words)) if (i + rnd) % 2 else None
+                    cs = pool(w)
+                    preds.append((words(w, n_words), cs[(i + rnd) % len(cs)],
+                                  ops[(i + rnd) % len(ops)], valid))
+                if n_preds == 17 and rnd == 0:  # 17 descriptors: chained
+                    preds = [(words(next(widths), n_words), 1 << 63,
+                              ops[i % len(ops)], None) for i in range(17)]
+                ref = k.select_planes_ref(sel, preds)
+                before = sel.clone()
+                n0 = k.LAUNCHES["cmp_const_planes"]
+                got = k.select_planes(sel, preds)
+                torch.cuda.synchronize()
+                launched = k.LAUNCHES["cmp_const_planes"] - n0
+                if launched != k.select_launches(sel, preds):
+                    raise AssertionError(
+                        f"K4's fused form launched {launched} times for "
+                        f"{n_preds} predicates, planned "
+                        f"{k.select_launches(sel, preds)}")
+                err = _max_abs_err(torch, [got, sel], [ref, before])
+                if err:
+                    raise AssertionError(
+                        f"K4's fused form != plain at W {n_words}, P "
+                        f"{n_preds}, round {rnd}: max abs err {err}")
+                worst = max(worst, err)
+                del preds, ref, got, before
+    sel = words(255)
+    try:
+        k.select_planes(sel, [(words(3, 255).cpu(), 1, "lt", None)])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K4's fused form took a CPU stack beside a "
+                             "CUDA sel")
+    return worst
+
+
 def k34_bound_ms(width: int, n_words: int, outputs: int):
     """(least time in ms, what bounds it) for K3 (outputs 0: one scalar)
     or K4 (outputs 2: lt and eq): planes read once, outputs written, vs
@@ -883,6 +987,73 @@ def time_k34(torch, shard_planes) -> dict:
             shard_planes, c), flush, 10),
         bound_ms=bound, bound_by=by, max_abs_err=err)
     log(f"[k34] cmp_const_planes on a 6i shard: {json.dumps(out['shard'])}")
+    return out
+
+
+def select_bound_ms(sel, preds):
+    """(least time in ms, what bounds it, bytes) of one fused selection:
+    each column's planes read once (a descriptor's two bounds share
+    them), sel and each validity read, sel written, vs ~10 word
+    operations per plane per word (two compares) over the word rate."""
+    from liquid_tpu_torch.ops import bitpack_cuda as k
+    descs = k._descriptors(k._select_check(sel, preds))
+    n_words = sel.shape[0]
+    planes = sum(d[0].shape[0] for d in descs)
+    nbytes = 4 * n_words * (planes + 2 + sum(d[5] is not None
+                                             for d in descs))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 10 * planes * n_words / WORD_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes)
+
+
+def composed_select(sel, preds):
+    """The chain the fused form replaces (the mesh's selection before
+    it): per predicate one K4 single-form launch, its op, and the ANDs."""
+    from liquid_tpu_torch.ops import bitpack_cuda as k
+    from liquid_tpu_torch.ops.bitpack import combine_op
+    for planes, c, op, valid in preds:
+        sel = sel & combine_op(*k.cmp_const_planes(planes, c), op)
+        if valid is not None:
+            sel = sel & valid
+    return sel
+
+
+def time_select(torch, sets: dict) -> dict:
+    """Phase 10, K4's fused form on the (sel, predicates) phase 6i gave it
+    on its first shard (`sets`: `tpch_q6`'s l_shipdate interval and the
+    largest scan of `ds_q37`): checked bit-exact against the plain
+    version and the composed chain, then timed cold (L2 flushed) and warm
+    (back to back) beside that chain, the plain version and the bound."""
+    from liquid_tpu_torch.ops import bitpack_cuda as k
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, (sel, preds) in sets.items():
+        got = k.select_planes(sel, preds)
+        err = _max_abs_err(torch, [got, got], [
+            k.select_planes_ref(sel, preds), composed_select(sel, preds)])
+        if err:
+            raise AssertionError(f"K4's fused form != plain on 6i's {name}: "
+                                 f"{err}")
+        bound, by, nbytes = select_bound_ms(sel, preds)
+        row = dict(
+            n_words=sel.shape[0], preds=[
+                dict(w=p.shape[0], c=int(c), op=op, valid=v is not None)
+                for p, c, op, v in preds],
+            launches=k.select_launches(sel, preds), bytes=nbytes,
+            ms=time_cold(torch, lambda: k.select_planes(sel, preds), flush,
+                         50),
+            warm_ms=time_warm(torch, lambda: k.select_planes(sel, preds),
+                              200),
+            composed_ms=time_cold(torch, lambda: composed_select(sel, preds),
+                                  flush, 50),
+            composed_warm_ms=time_warm(
+                torch, lambda: composed_select(sel, preds), 200),
+            plain_ms=time_cold(torch, lambda: k.select_planes_ref(sel, preds),
+                               flush, 10),
+            bound_ms=bound, bound_by=by, max_abs_err=err)
+        out[name] = row
+        log(f"[select] {name} on a 6i shard: {json.dumps(row)}")
     return out
 
 
@@ -2204,79 +2375,131 @@ def dist_tpcds_expect(torch, dspaths: dict, device="cuda") -> dict:
     return out
 
 
+#: phase 6i's queries whose first shard's fused selections phase 10 times
+DIST_SELECT_SETS = ("tpch_q6", "ds_q37")
+#: phase 6i's queries profiled in one more warm run (device busy, idle)
+DIST_PROFILED = ("ds_q37", "ds_q82")
+
+
 def run_dist_path(torch, paths: dict, dspaths: dict, expect: dict,
                   ds_expect: dict, device="cuda:0"):
     """Phase 6i (module doc), its shards on `device` -> (report, summary,
-    one shard's l_shipdate planes)."""
+    one shard's l_shipdate planes, {query: the first shard's (sel,
+    predicates) of its largest scan} for `DIST_SELECT_SETS`)."""
+    import types
     from liquid_tpu_torch.bench import oracle
     from liquid_tpu_torch.ops import bitpack_cuda as k
     from liquid_tpu_torch.parallel import dist, make_mesh
     from liquid_tpu_torch.parallel.session import DistributedSession
     queries = dist_queries()
-    mesh = make_mesh(devices=[device] * DIST_SHARDS)
-    sess = DistributedSession(mesh)
-    t0 = time.perf_counter()
-    tables = {**paths, **dspaths}  # TPC-H, hits and TPC-DS
-    cols = dist_columns(tables, queries)
-    for t, names in cols.items():
-        if names:
-            sess.register_parquet(t, tables[t], names)
-    torch.cuda.synchronize()
-    log(f"[dist] mesh {mesh}; tables registered with the columns their "
-        f"queries name in {time.perf_counter() - t0:.1f} s: "
-        f"{json.dumps({t: c for t, c in cols.items() if c})}")
-    report, planned, launched = {}, 0, 0
-    for qset, name, sql, key in queries:
-        want = expect[key] if key is not None else ds_expect[name]
-        cut = oracle.CUTS.get(key) if key is not None else None
-        times, k4_runs, plan_runs = [], [], []
-        for run in range(1 + DIST_WARM_RUNS[qset]):
-            routed0 = dict(sess.route_stats)
-            k40 = k.LAUNCHES["cmp_const_planes"]
-            t1 = time.perf_counter()
-            got = sess.sql(sql)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t1)
-            k4_runs.append(k.LAUNCHES["cmp_const_planes"] - k40)
-            plan_runs.append(dist.DIAG["k4_planned"])
-            stmts = len(sql) if isinstance(sql, list) else 1
-            if sess.route_stats["fallback"] != routed0["fallback"] or \
-                    sess.route_stats["distributed"] \
-                    != routed0["distributed"] + stmts:
-                raise AssertionError(
-                    f"6i {name} run {run} took the single-device route: "
-                    f"{sess.route_stats['fallback_reasons'][-1:]}")
-            if dist.DIAG["exchange_overflow"]:
-                raise AssertionError(f"6i {name}: exchange overflow "
-                                     f"{dist.DIAG['exchange_overflow']}")
-            if not oracle.same_table(got, want, cut):
-                raise AssertionError(
-                    f"6i {name} (run {run}): mesh {got.to_pylist()[:3]} != "
-                    f"oracle {[c.to_pylist()[:3] for c in want]}")
-        if k4_runs != plan_runs:
-            raise AssertionError(f"6i {name}: K4 launches {k4_runs} per run "
-                                 f"!= the plans' {plan_runs}")
-        planned += sum(plan_runs)
-        launched += sum(k4_runs)
-        diag = {d: dist.DIAG[d] for d in (
-            "collectives", "collective_bytes", "exchanges", "exchange_rows",
-            "exchange_bytes", "exchange_balance")}
-        report[name] = dict(
-            set=qset, first_run_s=times[0],
-            warm_ms=[t * 1e3 for t in times[1:]], k4_per_run=k4_runs,
-            scan_bytes=sess.last_scan_bytes, rows=got.num_rows, **diag)
-        log(f"[dist] {name}: {json.dumps(report[name])}")
-    if launched <= 0 or launched != planned:
-        raise AssertionError(f"6i: K4 launches {launched}, planned "
-                             f"{planned}")
-    shard = sess.tables["lineitem"].columns["l_shipdate"].planes[0]
-    summary = dict(shards=DIST_SHARDS, queries=len(report),
-                   k4_launches=launched, k4_planned=planned,
-                   route_stats={k_: v for k_, v in sess.route_stats.items()
-                                if k_ != "fallback_reasons"},
-                   shard_planes=list(shard.shape))
-    del sess
-    return report, summary, shard
+    select = k.select_planes
+    calls = []  # (sel, predicates) of every fused selection
+
+    def counted(sel, preds):
+        calls.append((sel, preds))
+        return select(sel, preds)
+
+    k.select_planes = counted
+    try:
+        mesh = make_mesh(devices=[device] * DIST_SHARDS)
+        sess = DistributedSession(mesh)
+        t0 = time.perf_counter()
+        tables = {**paths, **dspaths}  # TPC-H, hits and TPC-DS
+        cols = dist_columns(tables, queries)
+        for t, names in cols.items():
+            if names:
+                sess.register_parquet(t, tables[t], names)
+        torch.cuda.synchronize()
+        log(f"[dist] mesh {mesh}; tables registered with the columns their "
+            f"queries name in {time.perf_counter() - t0:.1f} s: "
+            f"{json.dumps({t: c for t, c in cols.items() if c})}")
+        report, planned, launched, predicates, sets = {}, 0, 0, 0, {}
+        for qset, name, sql, key in queries:
+            want = expect[key] if key is not None else ds_expect[name]
+            cut = oracle.CUTS.get(key) if key is not None else None
+            times, k4_runs, plan_runs, pred_runs = [], [], [], []
+            for run in range(1 + DIST_WARM_RUNS[qset]):
+                routed0 = dict(sess.route_stats)
+                calls.clear()
+                k40 = k.LAUNCHES["cmp_const_planes"]
+                t1 = time.perf_counter()
+                got = sess.sql(sql)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+                k4_runs.append(k.LAUNCHES["cmp_const_planes"] - k40)
+                plan_runs.append(dist.DIAG["k4_planned"])
+                # the single form's count: a launch per shard per predicate
+                pred_runs.append(sum(len(p) for _s, p in calls))
+                if run == 0 and name in DIST_SELECT_SETS:
+                    # the first shard's selection of each scan (a scan's
+                    # shards come in order), the most plane bytes kept
+                    sets[name] = max(calls[::DIST_SHARDS],
+                                     key=lambda sp: sum(
+                                         p.numel() for p, *_r in sp[1]))
+                stmts = len(sql) if isinstance(sql, list) else 1
+                if sess.route_stats["fallback"] != routed0["fallback"] or \
+                        sess.route_stats["distributed"] \
+                        != routed0["distributed"] + stmts:
+                    raise AssertionError(
+                        f"6i {name} run {run} took the single-device route: "
+                        f"{sess.route_stats['fallback_reasons'][-1:]}")
+                if dist.DIAG["exchange_overflow"]:
+                    raise AssertionError(f"6i {name}: exchange overflow "
+                                         f"{dist.DIAG['exchange_overflow']}")
+                if not oracle.same_table(got, want, cut):
+                    raise AssertionError(
+                        f"6i {name} (run {run}): mesh "
+                        f"{got.to_pylist()[:3]} != oracle "
+                        f"{[c.to_pylist()[:3] for c in want]}")
+            if k4_runs != plan_runs:
+                raise AssertionError(f"6i {name}: K4 launches {k4_runs} per "
+                                     f"run != the plans' {plan_runs}")
+            planned += sum(plan_runs)
+            launched += sum(k4_runs)
+            predicates += sum(pred_runs)
+            diag = {d: dist.DIAG[d] for d in (
+                "collectives", "collective_bytes", "exchanges",
+                "exchange_rows", "exchange_bytes", "exchange_balance")}
+            report[name] = dict(
+                set=qset, first_run_s=times[0],
+                warm_ms=[t * 1e3 for t in times[1:]], k4_per_run=k4_runs,
+                k4_predicates_per_run=pred_runs,
+                scan_bytes=sess.last_scan_bytes, rows=got.num_rows, **diag)
+            if name in DIST_PROFILED:
+                # device_breakdown's session: .sql(...).to_arrow()
+                ctx = types.SimpleNamespace(
+                    sql=lambda q: types.SimpleNamespace(
+                        to_arrow=lambda: sess.sql(q)))
+                k40 = k.LAUNCHES["cmp_const_planes"]
+                bd = device_breakdown(torch, ctx, sql, min(report[name][
+                    "warm_ms"]))
+                # a settling run and the profiled one
+                if k.LAUNCHES["cmp_const_planes"] - k40 != 2 * plan_runs[-1]:
+                    raise AssertionError(f"6i {name}: K4 launches in the "
+                                         f"profiled runs != the plans'")
+                del bd["ms_by_name"]
+                report[name]["profile"] = bd
+            log(f"[dist] {name}: {json.dumps(report[name])}")
+        # the fused form: fewer launches than one per shard per predicate
+        if launched <= 0 or launched != planned or launched >= predicates:
+            raise AssertionError(f"6i: K4 launches {launched}, planned "
+                                 f"{planned}, bit-plane predicates over the "
+                                 f"shards {predicates}")
+        if set(sets) != set(DIST_SELECT_SETS):
+            raise AssertionError(f"6i: no fused selection in "
+                                 f"{set(DIST_SELECT_SETS) - set(sets)}")
+        shard = sess.tables["lineitem"].columns["l_shipdate"].planes[0]
+        summary = dict(shards=DIST_SHARDS, queries=len(report),
+                       k4_launches=launched, k4_planned=planned,
+                       k4_predicates=predicates,
+                       route_stats={k_: v for k_, v in
+                                    sess.route_stats.items()
+                                    if k_ != "fallback_reasons"},
+                       shard_planes=list(shard.shape))
+        del sess
+        return report, summary, shard, sets
+    finally:
+        k.select_planes = select
 
 
 def time_k1_narrow(torch, inputs: list) -> dict:
@@ -2659,13 +2882,13 @@ def main(argv=None) -> int:
         f"{pyarrow.__version__}; nvidia-smi: {card}")
     clock("1")
 
-    # 2. build the three kernel sources (one nvcc each) and the native
+    # 2. build the four kernel sources (one nvcc each) and the native
     #    FSST library (g++), all started together
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
         native = pool.submit(_native.build)
-        libs = nvcc.build_many([k1.SOURCE, k2.SOURCE, k1.PLANES_SOURCE],
-                               verbose=True)
+        libs = nvcc.build_many([k1.SOURCE, k2.SOURCE, k1.PLANES_SOURCE,
+                                k1.SELECT_SOURCE], verbose=True)
         native_lib = native.result()
     log(f"[build] {sorted(os.path.relpath(v) for v in libs.values())} + "
         f"{os.path.relpath(native_lib)} in {time.perf_counter() - t0:.2f} s")
@@ -2694,6 +2917,11 @@ def main(argv=None) -> int:
     log(f"[k34-check] bit-exact over widths 0..64 x W {{256,4096,2^22}} x "
         f"constants {{0,1,random,2^w-1,>=2^w,2^64-1}}, flat and prepped "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    err_sel = check_select(torch, dev)
+    log(f"[select-check] K4's fused form bit-exact over W {{1,255,46863,"
+        f"2^22}} x P {{1,2,5,16,17}}, widths 0..64 mixed, every op, "
+        f"intervals, validity on and off ({time.perf_counter() - t0:.1f} s)")
     clock("4b")
 
     # 5. scalar main path, counts reset just before and read just after
@@ -2840,7 +3068,7 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f} s")
     _reset(counters)
     t0 = time.perf_counter()
-    dist_report, dist_summary, shard_planes = run_dist_path(
+    dist_report, dist_summary, shard_planes, select_sets = run_dist_path(
         torch, paths, dspaths, expect, ds_expect)
     dist_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
     log(f"[dist] phase {time.perf_counter() - t0:.1f} s; launches "
@@ -2910,8 +3138,11 @@ def main(argv=None) -> int:
                              f"{harness_launches}")
     clock("9b")
 
-    # 10. K3 and K4 timed on the micro line's input
+    # 10. K3 and K4 timed on the micro line's input, K4's fused form on 6i's
+    #     shard selections
     k34 = time_k34(torch, shard_planes)
+    sel_timing = time_select(torch, select_sets)
+    del select_sets
     phases = {"scalar": scalar_launches, "grouped": grouped_launches,
               "star": star_launches, "slice": slice_launches,
               "multi": multi_launches, "classic": classic_launches,
@@ -2987,6 +3218,25 @@ def main(argv=None) -> int:
     kernels[-1]["shard_form"] = {k_: k34["shard"][k_] for k_ in (
         "w", "n_words", "c", "ms", "plain_ms", "bound_ms", "bound_by")}
     kernels[-1]["shard_form"]["phase"] = "6i"
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], err_sel,
+                                     *(r["max_abs_err"]
+                                       for r in sel_timing.values()))
+    q6 = sel_timing["tpch_q6"]
+    kernels[-1]["select_form"] = {
+        "name": "select_planes", "route": "cuda",
+        "source": "liquid_tpu_torch/ops/csrc/select_planes.cu",
+        "replaces": "liquid_tpu/ops/bitpack_pallas.py:77",
+        "launches": launches("cmp_const_planes"),
+        "max_abs_err": max(err_sel, *(r["max_abs_err"]
+                                      for r in sel_timing.values())),
+        "tolerance": 0, "ms": q6["ms"], "plain_ms": q6["plain_ms"],
+        "bound_ms": q6["bound_ms"], "bound_by": q6["bound_by"],
+        "library_ms": None, "phase": "6i", "query": "tpch_q6",
+        "sets": {n: {k_: r[k_] for k_ in (
+            "n_words", "preds", "launches", "ms", "warm_ms", "composed_ms",
+            "composed_warm_ms", "plain_ms", "bound_ms", "bound_by")}
+            for n, r in sel_timing.items()},
+        "matches_plain": True}
     summary = {**report, **greport, **sreport, **slice_report,
                **multi_report, **classic_report,
                "pressure": {m: r["summary"] for m, r in

@@ -30,6 +30,18 @@ build from `csrc/cmp_planes.cu`; CPU tensors take `count_gt_ref` /
 `cmp_const_planes_ref`.  w = 0, and for K3 a constant with a bit at or
 above w, are decided on the host with no launch.
 
+`select_planes(sel, preds)` is K4's fused form, the mesh's shard
+selection: `sel & AND_p(op_p(planes_p, c_p) & valid_p)` over predicates
+`(planes int32[w, W], c, op, valid int32[W] or None)` with op in
+`SELECT_OPS` and w from 0 to 64, from one launch of
+`csrc/select_planes.cu` per `SELECT_MAX_PREDS` descriptors (chained on
+sel).  A column's predicates go two to a descriptor, so both bounds of
+an interval read its planes once; w = 0 and constants at or above 2^w
+are decided in the kernel.  `select_launches` is that plan's launch
+count; `select_planes_ref` is the plain version (`cmp_const_planes_ref`
+and `combine_op`), which a CPU tensor takes.  Its launches count into
+`LAUNCHES["cmp_const_planes"]`, beside the single form's.
+
 Anything else (dtype, shape, layout, device) raises.  `LAUNCHES` counts
 kernel launches, so a run can show that its path went through the
 kernel.
@@ -38,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import struct
 import threading
 from typing import Tuple
 
@@ -337,3 +350,131 @@ def cmp_const_planes(planes: torch.Tensor, c
         raise RuntimeError(f"cmp_const_planes launch failed: CUDA error {rc}")
     LAUNCHES["cmp_const_planes"] += 1
     return lt, eq
+
+
+# -- K4's fused form: one shard's whole bit-plane selection -------------------
+
+SELECT_SOURCE = os.path.join(nvcc.CSRC, "select_planes.cu")
+#: descriptors one launch of the fused form takes (`kMaxPreds` in the source)
+SELECT_MAX_PREDS = 16
+#: the compare ops, in the source's `Op` order
+SELECT_OPS = ("eq", "ne", "lt", "lt_eq", "gt", "gt_eq")
+_OP_CODE = {op: i for i, op in enumerate(SELECT_OPS)}
+#: a launch's parameter block as the source's `Head` (sel_in, sel_out,
+#: W, descriptors) and n descriptors as its `Pred` (planes, valid, c0,
+#: c1 as u64, width, op0, op1, padding)
+_HEAD = struct.Struct("<QQqi4x")
+_DESC = struct.Struct("<QQQQiiii")
+
+
+def _select_check(sel: torch.Tensor, preds) -> list:
+    """Check one fused selection's inputs -> [(flat planes, c, op, valid)]."""
+    if sel.dtype != torch.int32:
+        raise TypeError(f"sel must be int32 words, got {sel.dtype}")
+    if sel.dim() != 1 or not sel.is_contiguous():
+        raise ValueError(f"sel must be a contiguous int32[W], got "
+                         f"{tuple(sel.shape)}")
+    dev = _device(sel, "select_planes")
+    n_words = sel.shape[0]
+    out = []
+    for pred in preds:
+        if len(pred) != 4:
+            raise ValueError("a predicate is (planes, c, op, valid)")
+        planes, c, op, valid = pred
+        flat = _flat_planes(planes)
+        if flat.device != dev:
+            raise ValueError(f"planes on {flat.device}, sel on {dev}")
+        if flat.shape[1] != n_words:
+            raise ValueError(f"planes of {flat.shape[1]} words, sel of "
+                             f"{n_words}")
+        if op not in _OP_CODE:
+            raise ValueError(f"unknown op {op!r}")
+        if valid is not None:
+            if valid.dtype != torch.int32:
+                raise TypeError(f"validity must be int32 words, got "
+                                f"{valid.dtype}")
+            if valid.shape != (n_words,) or not valid.is_contiguous():
+                raise ValueError(f"validity must be a contiguous int32"
+                                 f"[{n_words}], got {tuple(valid.shape)}")
+            if valid.device != dev:
+                raise ValueError(f"validity on {valid.device}, sel on {dev}")
+        out.append((flat, _const(c), op, valid))
+    return out
+
+
+def _descriptors(preds) -> list:
+    """A column's predicates two to a descriptor -- [planes, c0, op0, c1,
+    op1, valid], a lone compare repeating its own -- so an interval reads
+    its planes once."""
+    open_, out = {}, []
+    for planes, c, op, valid in preds:
+        key = (planes.data_ptr(), tuple(planes.shape),
+               None if valid is None else valid.data_ptr())
+        i = open_.pop(key, None)
+        if i is None:
+            open_[key] = len(out)
+            out.append([planes, c, op, c, op, valid])
+        else:
+            out[i][3:5] = [c, op]
+    return out
+
+
+def select_launches(sel: torch.Tensor, preds) -> int:
+    """Launches `select_planes(sel, preds)` makes on a CUDA tensor: one per
+    `SELECT_MAX_PREDS` descriptors, none without rows or predicates.  A
+    plan only: the inputs are checked by the call."""
+    if sel.shape[0] == 0:
+        return 0
+    return -(-len(_descriptors(preds)) // SELECT_MAX_PREDS)
+
+
+def select_planes_ref(sel: torch.Tensor, preds) -> torch.Tensor:
+    """Plain PyTorch version of K4's fused form (same contract, any
+    device): the single form's plain version, the op and the ANDs, one
+    predicate at a time."""
+    # ops.bitpack imports this module
+    from liquid_tpu_torch.ops.bitpack import combine_op
+    out = sel.clone()
+    for flat, c, op, valid in _select_check(sel, preds):
+        out &= combine_op(*cmp_const_planes_ref(flat, c), op)
+        if valid is not None:
+            out &= valid
+    return out
+
+
+def select_planes(sel: torch.Tensor, preds) -> torch.Tensor:
+    """The packed selection `sel & AND_p(op_p(planes_p, c_p) & valid_p)`,
+    int32[W], for predicates (planes int32[w, W], c, op, valid int32[W]
+    or None).  CUDA tensors run K4's fused form, ceil(D / 16) launches
+    for D descriptors; CPU tensors the plain version; anything else
+    raises."""
+    dev = sel.device
+    if dev.type == "cpu":
+        return select_planes_ref(sel, preds)
+    checked = _select_check(sel, preds)
+    n_words = sel.shape[0]
+    if not checked or n_words == 0:
+        return sel.clone()
+    descs = _descriptors(checked)
+    out = torch.empty_like(sel)
+    launch = _bind(SELECT_SOURCE, "select_planes_launch",
+                   [ctypes.c_char_p, ctypes.c_void_p])
+    src = sel
+    with torch.cuda.device(dev):
+        # the current stream's raw handle: `current_stream(dev)` would
+        # build a Stream object on every call, on a path that is host-bound
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        for i in range(0, len(descs), SELECT_MAX_PREDS):
+            part = descs[i:i + SELECT_MAX_PREDS]
+            block = _HEAD.pack(src.data_ptr(), out.data_ptr(), n_words,
+                               len(part)) + b"".join(_DESC.pack(
+                flat.data_ptr(), 0 if valid is None else valid.data_ptr(),
+                c0, c1, flat.shape[0], _OP_CODE[op0], _OP_CODE[op1], 0)
+                for flat, c0, op0, c1, op1, valid in part)
+            rc = launch(block, stream)
+            if rc != 0:
+                raise RuntimeError(f"select_planes launch failed: CUDA "
+                                   f"error {rc}")
+            LAUNCHES["cmp_const_planes"] += 1
+            src = out
+    return out

@@ -16,9 +16,11 @@ keeps that model without JAX:
 On one host with several cards the same code puts one shard on each
 card; on one card the shards share it.
 
-Every shard-local predicate on an integer column is K4
-(`bitpack_cuda.cmp_const_planes`): one launch per shard on a CUDA
-tensor, its plain version on a CPU tensor.
+A shard's bit-plane predicates on integer columns run as K4's fused
+form (`bitpack_cuda.select_planes`): one launch per shard per table scan
+(one per 16 descriptors) on a CUDA tensor, its plain version on a CPU
+tensor.  The primitives below keep K4's single form
+(`bitpack_cuda.cmp_const_planes`).
 """
 from __future__ import annotations
 
@@ -35,8 +37,9 @@ from liquid_tpu_torch.ops.bitpack import combine_op
 #: `DistributedSession.sql`: collectives and their bytes (per-shard
 #: operand size, as the reference counts them at trace time), the
 #: exchanges with their rows, bytes and destination balance (max over
-#: mean), and the K4 launches the statement's plans call for (one per
-#: shard per bit-plane predicate on a non-empty stack)
+#: mean), and the K4 launches the statement's plans call for
+#: (`k4_launches`: ceil(D / 16) per shard per table scan with at least
+#: one bit-plane predicate, D its descriptors, on a shard with rows)
 DIAG = {"collectives": 0, "collective_bytes": 0, "exchanges": 0,
         "exchange_rows": 0, "exchange_bytes": 0, "exchange_balance": 1.0,
         "exchange_overflow": 0, "k4_planned": 0}
@@ -154,9 +157,10 @@ def cmp_planes_op(planes: torch.Tensor, c: int, op: str) -> torch.Tensor:
     return combine_op(*bitpack_cuda.cmp_const_planes(planes, int(c)), op)
 
 
-def k4_launches(planes: torch.Tensor) -> int:
-    """K4 launches one compare of this stack makes on a CUDA tensor."""
-    return int(planes.shape[0] > 0 and planes.shape[1] > 0)
+def k4_launches(sel: torch.Tensor, preds) -> int:
+    """K4 launches one shard's fused selection over these bit-plane
+    predicates makes on a CUDA tensor (`bitpack_cuda.select_launches`)."""
+    return bitpack_cuda.select_launches(sel, preds)
 
 
 # -- distributed fused filter + aggregate -----------------------------------------

@@ -8,8 +8,9 @@ int32 codes into a table-wide vocabulary, floats as float64, each with a
 packed validity mask.  A query runs as per-shard steps whose partial
 tables merge with `psum` / `pmin` / `pmax`:
 
-- every comparison on an integer column is K4 on each shard's planes
-  (`dist.cmp_planes_op`); float and string comparisons are packed
+- a shard's comparisons on integer columns are one launch of K4's fused
+  form over its planes (`bitpack_cuda.select_planes`, two bounds on one
+  column reading it once); float and string comparisons are packed
   elementwise masks (a string comparison is a boolean table over the
   vocabulary, evaluated once on the host);
 - GROUP BY addresses small key domains directly and hashes the rest with
@@ -43,6 +44,7 @@ import torch
 
 from liquid_tpu_torch.device import srl, words_to_tensor, wrap_i64
 from liquid_tpu_torch.ops import bitpack as bp
+from liquid_tpu_torch.ops import bitpack_cuda
 from liquid_tpu_torch.ops import mask as mops
 from liquid_tpu_torch.ops.floatbits import f64_bits
 from liquid_tpu_torch.ops.groupby import _neutral
@@ -1159,8 +1161,11 @@ class DistributedSession:
 
     def selection(self, dt, preds) -> List[torch.Tensor]:
         """The packed selection of every shard: row validity AND each
-        predicate AND its column's validity.  A bit-plane predicate is one
-        K4 launch per shard (`dist.cmp_planes_op`)."""
+        predicate AND its column's validity.  A shard's bit-plane
+        predicates, with their columns' validity, are one call of K4's
+        fused form (`bitpack_cuda.select_planes`: one launch per 16
+        descriptors); the float and dictionary predicates are ANDed
+        after it."""
         luts = {}
         for j, p in enumerate(preds):
             if p.mode == "lut":
@@ -1171,14 +1176,22 @@ class DistributedSession:
         for s in range(dt.n_dev):
             sel = dt.valid[s]
             dev = sel.device
+            planes = []
+            for p in preds:
+                if p.mode == "planes":
+                    sc = dt.columns[p.col]
+                    planes.append((sc.planes[s], p.value_i,
+                                   {"le": "lt_eq", "ge": "gt_eq"}.get(p.op,
+                                                                     p.op),
+                                   None if sc.valid is None else sc.valid[s]))
+            if planes:
+                dist.DIAG["k4_planned"] += dist.k4_launches(sel, planes)
+                sel = bitpack_cuda.select_planes(sel, planes)
             for j, p in enumerate(preds):
                 sc = dt.columns[p.col]
                 if p.mode == "planes":
-                    bop = {"le": "lt_eq", "ge": "gt_eq"}.get(p.op, p.op)
-                    dist.DIAG["k4_planned"] += dist.k4_launches(sc.planes[s])
-                    sel = sel & dist.cmp_planes_op(sc.planes[s], p.value_i,
-                                                   bop)
-                elif p.mode == "float":
+                    continue
+                if p.mode == "float":
                     c = sc.data[s]
                     v = p.value_f
                     m = {"eq": c == v, "ne": c != v, "lt": c < v,

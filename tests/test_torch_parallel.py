@@ -114,7 +114,10 @@ def test_cmp_planes_op_matches_reference(width):
             want = np.asarray(jbp.cmp_const_op(jplanes, jnp.uint64(c), op))
             got = words_to_numpy(dist.cmp_planes_op(tplanes, c, op))
             np.testing.assert_array_equal(got, want, err_msg=f"{c} {op}")
-    assert dist.k4_launches(tplanes) == int(bucket > 0)
+    # the mesh's plan: this stack's predicate is one launch of K4's fused
+    # form, w = 0 included (decided in the kernel)
+    sel = torch.full((tplanes.shape[1],), -1, dtype=torch.int32)
+    assert dist.k4_launches(sel, [(tplanes, 0, "eq", None)]) == 1
 
 
 # -- the primitives ------------------------------------------------------------------
