@@ -187,6 +187,31 @@ Phases (any failure raises and the script exits non-zero):
    `ds_q37`'s largest scan (`DIST_SELECT_SETS`), kept for phase 10;
    counts set to 0 just before this phase and read after.  Four shards share the card: the phase
    checks the algorithm and the launches, not an interconnect;
+   6j. the disaggregated path (`liquid_tpu_torch/server/`): the Flight
+   service and the admin HTTP server on 127.0.0.1 (port 0) over the
+   session phases 5-6b filled, installed as `bench/clients.serve`
+   installs its session, its cache asserted on the card
+   (`run_server_path`); `cb_filter`, `cb_groupby`, `tpch_q6`, `tpch_q1`
+   and `tpch_q3` from `bench/main.py`'s list through
+   `LiquidCacheClient.sql` (one partition): each answer equal to
+   pyarrow, the first fetch's route counters and K1 / K2 launches equal
+   to the second of two in-process runs just before it (K1 also to
+   `K1_PER_RUN`), a repeated fetch equal and launching nothing (the
+   plan's result is kept per handle); the scan `SERVER_SCAN` over four partitions, twice:
+   a partitionable scan of `hits`, each partition executing only its
+   row group, the rows as a multiset equal to pyarrow's filter of the
+   file and as many as `cb_filter` counts, K1 launched in each run; the
+   admin routes (`/cache_stats`, `/cache_info`, `/execution_plans` with
+   every plan executed, `/execution_metrics?handle=`), a cache trace
+   around the second scan flushed by `/stop_trace?path=` and rendered by
+   `devtools/trace_viz.py`, and the client's trace continued by the
+   server's `server.fetch` span; then `/reset_cache` on a service of its
+   own over a fresh session of `hits` (`server_reset_check`: a reset of
+   the main session would make phase 9 transcode every column again),
+   `cb_filter` equal to pyarrow before and after it; every server
+   stopped in a `finally`, each within its time limit; per query the
+   Flight time beside the in-process warm best of the earlier phases;
+   counts set to 0 just before this phase and read after;
 7. K1's interval form checked bit-exact against its plain version and
    timed (CUDA events, L2 flushed before each timed call) on the exact
    (planes, lo, hi) the main path gave it -- the single-table plans'
@@ -2502,6 +2527,295 @@ def run_dist_path(torch, paths: dict, dspaths: dict, expect: dict,
         k.select_planes = select
 
 
+# -- phase 6j: the disaggregated server ----------------------------------------
+
+#: phase 6j's queries over Flight, from `bench/main.py`'s list (`cb_like`
+#: is left out: its FSST `URL` column is the costliest transcode, and
+#: phase 5 holds its route)
+SERVER_QUERIES = ("cb_filter", "cb_groupby", "tpch_q6", "tpch_q1", "tpch_q3")
+#: phase 6j's partitioned scan: a plain scan of `hits`, one row group per
+#: partition at full size
+SERVER_SCAN = 'SELECT "UserID", "RegionID" FROM hits WHERE "AdvEngineID" <> 0'
+SERVER_PARTITIONS = 4
+
+
+def _engine_counts():
+    """The engine's route counters and the kernels' launch counts."""
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    from liquid_tpu_torch.ops import grouphist_cuda as k2
+    from liquid_tpu_torch.sql import exec as texec
+    from liquid_tpu_torch.sql import fused_agg
+    return {**{f"fused.{k}": v for k, v in fused_agg.STATS.items()
+               if isinstance(v, int)},
+            **{f"exec.{k}": v for k, v in texec.STATS.items()},
+            **k1.LAUNCHES, **k2.LAUNCHES}
+
+
+def _counts_since(before: dict) -> dict:
+    """What moved since `before` (counters that stayed are left out)."""
+    return {k: v - before[k] for k, v in _engine_counts().items()
+            if v != before[k]}
+
+
+def _http_json(addr, path: str):
+    import urllib.request
+    with urllib.request.urlopen(f"http://{addr[0]}:{addr[1]}{path}",
+                                timeout=120) as r:
+        return json.loads(r.read())
+
+
+def run_server_path(torch, ctx, paths: dict, expect: dict,
+                    warm_best: dict, device="cuda") -> dict:
+    """Phase 6j (module doc): the Flight service and the admin server over
+    the session `ctx`, whose cache must lie on `device`; `warm_best` holds
+    each query's in-process warm best (ms) from the earlier phases ->
+    per-query report."""
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    from liquid_tpu_torch.bench import main as bench
+    from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.devtools import trace_viz
+    from liquid_tpu_torch.server import (
+        AdminServer, LiquidCacheClientBuilder, LiquidCacheService,
+    )
+    from liquid_tpu_torch.server import flight
+    from liquid_tpu_torch.utils.tracing import TRACER
+    sqls = {q[0]: q[3] for q in bench.queries(0, 0)}
+    srv = LiquidCacheService(ctx.cache, host="127.0.0.1", port=0)
+    srv.inner.ctx = ctx  # as `bench/clients.serve` installs its session
+    want_type = torch.device(device).type
+    if srv.inner.cache.device.type != want_type \
+            or ctx.device.type != want_type:
+        raise AssertionError(f"6j: the server's cache is on "
+                             f"{srv.inner.cache.device}")
+    admin = AdminServer(srv.inner, host="127.0.0.1", port=0)
+    addr, aaddr = srv.start(), admin.start()
+    clients = []
+
+    def client(partitions=1):
+        b = LiquidCacheClientBuilder(*addr).with_partitions(partitions)
+        for name, path in paths.items():
+            b = b.with_parquet_table(name, path)
+        clients.append(b.build())
+        return clients[-1]
+
+    report = {}
+    try:
+        one = client()
+        for q in SERVER_QUERIES:
+            sql = sqls[q]
+            for _ in range(2):  # the second is warm whatever ran before
+                before = _engine_counts()
+                ctx.sql(sql).to_arrow()
+                torch.cuda.synchronize()
+                local = _counts_since(before)
+            if local.get("cmp_const_many", 0) != K1_PER_RUN[q]:
+                raise AssertionError(f"6j {q}: in-process K1 {local}, "
+                                     f"expected {K1_PER_RUN[q]}")
+            fetches = []
+            for _ in range(2):
+                before = _engine_counts()
+                t0 = time.perf_counter()
+                out = one.sql(sql)
+                torch.cuda.synchronize()
+                fetches.append(((time.perf_counter() - t0) * 1e3,
+                                _counts_since(before), out,
+                                one.last_metrics))
+            (first_ms, first, out1, m1), (again_ms, again, out2, _m2) = \
+                fetches
+            for what, got in (("first", out1), ("repeated", out2)):
+                if not oracle.same_table(got, expect[q]):
+                    raise AssertionError(f"6j {q} ({what} fetch): "
+                                         f"{got.to_pylist()[:2]} != pyarrow")
+            if first != local:
+                raise AssertionError(f"6j {q}: the first fetch counted "
+                                     f"{first}, in process {local}")
+            if again:
+                raise AssertionError(f"6j {q}: a repeated fetch ran the "
+                                     f"engine: {again}")
+            report[q] = dict(
+                flight_ms=first_ms, repeated_fetch_ms=again_ms,
+                in_process_warm_best_ms=warm_best[q],
+                server_cost_ms=first_ms - warm_best[q],
+                time_to_first_batch_ms=m1.time_to_first_batch_ms,
+                rows=m1.rows, batches=m1.batches,
+                k1_launches=first.get("cmp_const_many", 0),
+                k2_launches=first.get("group_accumulate", 0),
+                routes={k: v for k, v in first.items()
+                        if k.startswith(("fused.", "exec."))})
+            log(f"[server] {q}: {json.dumps(report[q])}")
+
+        # the partitioned scan, twice; the second under the cache trace
+        base = ctx._tables["hits"]
+        if flight._partitionable_scan(SERVER_SCAN, ctx._tables) != "hits":
+            raise AssertionError("6j: the scan is not partitionable")
+        cols = ["UserID", "RegionID"]
+        want = pq.read_table(paths["hits"], columns=cols + ["AdvEngineID"])
+        want = want.filter(pc.not_equal(want["AdvEngineID"], 0)).select(
+            cols).sort_by([(c, "ascending") for c in cols])
+        if want.num_rows != expect["cb_filter"][0][0].as_py():
+            raise AssertionError("6j: pyarrow's scan != cb_filter's count")
+        split = [srv.inner._partition_rgs(base, p, SERVER_PARTITIONS)
+                 for p in range(SERVER_PARTITIONS)]
+        if sorted(rg for rgs in split for rg in rgs) != list(
+                range(base.num_row_groups)):
+            raise AssertionError(f"6j: partitions {split}")
+        executed = []
+        slice_of = srv.inner._execute_slice
+
+        def watched(sql, name, tbl, rgs):
+            executed.append(list(rgs))
+            return slice_of(sql, name, tbl, rgs)
+
+        srv.inner._execute_slice = watched
+        four = client(SERVER_PARTITIONS)
+        try:
+            for run in ("first", "second"):
+                if run == "second":
+                    _http_json(aaddr, "/start_trace")
+                executed.clear()
+                before = _engine_counts()
+                t0 = time.perf_counter()
+                out = four.sql(SERVER_SCAN)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                moved = _counts_since(before)
+                m = four.last_metrics
+                if sorted(executed) != sorted(split):
+                    raise AssertionError(f"6j scan: executed {executed}, "
+                                         f"partitions {split}")
+                got = out.select(cols)
+                types = [str(f.type) for f in got.schema]
+                got = got.cast(want.schema).sort_by(
+                    [(c, "ascending") for c in cols])
+                if not got.equals(want):
+                    raise AssertionError(f"6j scan ({run} run): "
+                                         f"{got.num_rows} rows != pyarrow's "
+                                         f"{want.num_rows}")
+                if moved.get("cmp_const_many", 0) <= 0:
+                    raise AssertionError(f"6j scan ({run} run) did not "
+                                         f"launch K1: {moved}")
+                report[f"scan_{run}"] = dict(
+                    flight_ms=ms,
+                    time_to_first_batch_ms=m.time_to_first_batch_ms,
+                    total_stream_ms=m.total_stream_ms, rows=m.rows,
+                    batches=m.batches, types=types,
+                    partitions=split, k1_launches=moved["cmp_const_many"],
+                    routes={k: v for k, v in moved.items()
+                            if k.startswith(("fused.", "exec."))})
+                log(f"[server] scan ({run} run): "
+                    f"{json.dumps(report[f'scan_{run}'])}")
+        finally:
+            srv.inner._execute_slice = slice_of
+
+        # the admin routes
+        stats = _http_json(aaddr, "/cache_stats")
+        info = _http_json(aaddr, "/cache_info")
+        plans = _http_json(aaddr, "/execution_plans")
+        if stats["entries"] <= 0 or info["memory_usage_bytes"] <= 0:
+            raise AssertionError(f"6j: admin {stats} {info}")
+        asked = {sqls[q] for q in SERVER_QUERIES} | {SERVER_SCAN}
+        if {p["sql"] for p in plans.values()} != asked \
+                or not all(p["executed"] for p in plans.values()):
+            raise AssertionError(f"6j: execution plans {plans}")
+        for h in plans:
+            met = _http_json(aaddr, f"/execution_metrics?handle={h}")
+            if set(met) != {"pushdown_eval_time", "cache_memory_usage",
+                            "liquid_cache_usage"} \
+                    or met["cache_memory_usage"] <= 0:
+                raise AssertionError(f"6j: execution metrics {met}")
+        trace_path = os.path.join(tempfile.gettempdir(),
+                                  "liquid_tpu_torch_6j_trace.parquet")
+        flushed = _http_json(aaddr, f"/stop_trace?path={trace_path}")
+        records = trace_viz.load_trace(trace_path)
+        html = trace_viz.render_html(records, title=trace_path)
+        if flushed["flushed"] <= 0 or len(records) != flushed["flushed"] \
+                or f"{len(records)} events" not in html:
+            raise AssertionError(f"6j: trace {flushed}, {len(records)} "
+                                 f"records rendered")
+        report["admin"] = dict(
+            entries=stats["entries"], memory_usage_bytes=info[
+                "memory_usage_bytes"], plans=len(plans),
+            trace_records=len(records), trace_html_bytes=len(html),
+            trace_ops=sorted({r[1] for r in records}))
+
+        # the client's trace continued by the server's span
+        TRACER.reset()
+        TRACER.enable()
+        try:
+            one.sql(sqls["tpch_q6"])
+        finally:
+            TRACER.disable()
+        spans = TRACER.spans()
+        TRACER.reset()
+        csql = [s for s in spans if s.name == "client.sql"]
+        fetch = [s for s in spans if s.name == "server.fetch"]
+        if len(csql) != 1 or len(fetch) != 1 \
+                or fetch[0].trace_id != csql[0].trace_id \
+                or fetch[0].parent_id != csql[0].span_id:
+            raise AssertionError(f"6j: the trace did not propagate: "
+                                 f"{[(s.name, s.trace_id, s.parent_id) for s in spans]}")
+
+        log(f"[server] admin {json.dumps(report['admin'])}")
+    finally:
+        for c in clients:
+            c.close()
+        try:
+            admin.stop()
+        finally:
+            srv.stop()
+    report["after_reset"] = server_reset_check(torch, paths["hits"],
+                                               sqls["cb_filter"],
+                                               expect["cb_filter"], device)
+    log(f"[server] after /reset_cache {json.dumps(report['after_reset'])}")
+    return report
+
+
+def server_reset_check(torch, hits: str, sql: str, want, device) -> dict:
+    """Phase 6j's `/reset_cache`: on a service and admin server of their
+    own over a fresh session of `hits` (a reset of the main session's
+    cache would make phase 9 transcode every column again): `sql`
+    answered, the cache emptied, `sql` answered again from the file by a
+    new client, both equal to `want` -> timings."""
+    from liquid_tpu_torch import LiquidCacheLocalBuilder
+    from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.server import (
+        AdminServer, LiquidCacheClientBuilder, LiquidCacheService,
+    )
+    ctx, cache = LiquidCacheLocalBuilder(device=device).build()
+    srv = LiquidCacheService(cache, host="127.0.0.1", port=0)
+    srv.inner.ctx = ctx
+    admin = AdminServer(srv.inner, host="127.0.0.1", port=0)
+    addr, aaddr = srv.start(), admin.start()
+    out, clients = {}, []
+    try:
+        for when in ("before", "after"):
+            clients.append(LiquidCacheClientBuilder(*addr)
+                           .with_parquet_table("hits", hits).build())
+            t0 = time.perf_counter()
+            got = clients[-1].sql(sql)
+            out[f"{when}_ms"] = (time.perf_counter() - t0) * 1e3
+            if not oracle.same_table(got, want):
+                raise AssertionError(f"6j: {got.to_pylist()} != pyarrow "
+                                     f"{when} /reset_cache")
+            if when == "before":
+                out["entries_before"] = _http_json(
+                    aaddr, "/cache_stats")["entries"]
+                _http_json(aaddr, "/reset_cache")
+                if _http_json(aaddr, "/cache_stats")["entries"] != 0 \
+                        or srv.inner.plans:
+                    raise AssertionError("6j: /reset_cache left entries "
+                                         "or plans")
+    finally:
+        for c in clients:
+            c.close()
+        try:
+            admin.stop()
+        finally:
+            srv.stop()
+    return out
+
+
 def time_k1_narrow(torch, inputs: list) -> dict:
     """Phase 7, the pressure phase's inputs: every (planes, cs) phase 6f
     gave K1's single form checked bit-exact against `cmp_const_many_ref`
@@ -2877,9 +3191,14 @@ def main(argv=None) -> int:
     card = card_line()
     import numpy
     import pyarrow
+    try:  # the server's transport (phase 6j)
+        import pyarrow.flight  # noqa: F401
+    except ImportError as e:
+        raise AssertionError(f"pyarrow {pyarrow.__version__} has no "
+                             f"pyarrow.flight: {e}") from e
     log(f"[device] {kind} x{count}; torch {torch.__version__} "
         f"cuda {torch.version.cuda} numpy {numpy.__version__} pyarrow "
-        f"{pyarrow.__version__}; nvidia-smi: {card}")
+        f"{pyarrow.__version__} (with pyarrow.flight); nvidia-smi: {card}")
     clock("1")
 
     # 2. build the four kernel sources (one nvcc each) and the native
@@ -3076,6 +3395,21 @@ def main(argv=None) -> int:
     if dist_launches["cmp_const_planes"] <= 0:
         raise AssertionError(f"phase 6i did not launch K4: {dist_launches}")
     clock("6i")
+    # 6j. the disaggregated path over the session of phases 5-6b, counts
+    #     reset just before and read just after
+    _reset(counters)
+    t0 = time.perf_counter()
+    server_report = run_server_path(torch, ctx, paths, expect, {
+        q: r["warm_best_ms"] for q, r in {**report, **greport,
+                                          **sreport}.items()})
+    server_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
+    log(f"[server] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(server_launches)}")
+    if server_launches["cmp_const_many"] <= 0 \
+            or server_launches["group_accumulate"] <= 0:
+        raise AssertionError(f"phase 6j did not launch K1 and K2: "
+                             f"{server_launches}")
+    clock("6j")
 
     # 7. K1's interval form checked and timed on the main path's own
     #    inputs, the star and multi-table phases' included
@@ -3148,7 +3482,7 @@ def main(argv=None) -> int:
               "multi": multi_launches, "classic": classic_launches,
               "pressure": pressure_launches, "storage": storage_launches,
               "tpcds": tpcds_launches, "dist": dist_launches,
-              "harness": harness_launches,
+              "server": server_launches, "harness": harness_launches,
               "harness_operator_timing": op_launches}
 
     def launches(name):
@@ -3156,7 +3490,7 @@ def main(argv=None) -> int:
         return sum(phases[p][name]
                    for p in ("scalar", "grouped", "star", "slice", "multi",
                              "classic", "pressure", "storage", "tpcds",
-                             "dist", "harness"))
+                             "dist", "server", "harness"))
 
     def by_phase(name):
         return {p: d.get(name, 0) for p, d in phases.items()}
@@ -3244,7 +3578,7 @@ def main(argv=None) -> int:
                "pressure_cap": cap, "pressure_working_set": w_bytes,
                "decimal": decimal_report, "pruning": pruning_report,
                "tpcds": tpcds_report, "dist": dist_report,
-               "dist_summary": dist_summary,
+               "dist_summary": dist_summary, "server": server_report,
                "json": {m: json_report[m]["summary"]
                         for m in ("uncapped", "capped")}}
     clock("10")

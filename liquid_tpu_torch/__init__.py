@@ -21,9 +21,14 @@ Layer map (mirrors `liquid_tpu`):
              policies, the disk block store
   io/      - parquet tables: row-group stats and zone-map pruning
   sql/     - SQL frontend and the fused scalar and grouped device paths
+  parallel/ - multi-device execution on a mesh of shards
+  server/  - the disaggregated cache server (Arrow Flight), its client
+             and admin HTTP server
   bench/   - the benchmark entry point (`python -m
-             liquid_tpu_torch.bench.main`), its pyarrow oracle, and the
-             data generators
+             liquid_tpu_torch.bench.main`), its pyarrow oracle, the data
+             generators, manifests, the in-process runner and the
+             server-mode clients (`python -m liquid_tpu_torch.bench.clients`)
+  devtools/ - the cache-trace viewer
   _native/ - ctypes binding of the native FSST codec and block store
              (built with g++)
 """

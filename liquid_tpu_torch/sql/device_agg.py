@@ -287,7 +287,7 @@ class DeviceGroupedAggregator:
 
     COMPACT_ROWS = 1 << 22
 
-    def __init__(self, key_names: List[str], slots, device="cpu"):
+    def __init__(self, key_names: List[str], slots, device):
         self.key_names = key_names
         self.slots = slots
         self.device = torch.device(device)
@@ -523,7 +523,7 @@ class DeviceScalarAggregator:
     """Drop-in for `physical.ScalarAggregator`: per-chunk device
     reductions merged on the device, fetched once at finalize."""
 
-    def __init__(self, slots, device="cpu"):
+    def __init__(self, slots, device):
         self.slots = slots
         self.device = torch.device(device)
         self._rslots: Optional[List[_RSlot]] = None
@@ -613,7 +613,7 @@ class HybridGroupedAggregator:
     else the pyarrow `physical.GroupedAggregator`; decided on the first
     update (types are stable across one query's chunks)."""
 
-    def __init__(self, key_names: List[str], slots, device="cpu"):
+    def __init__(self, key_names: List[str], slots, device):
         self.key_names = key_names
         self.slots = slots
         self.device = device
@@ -645,7 +645,7 @@ class HybridGroupedAggregator:
 
 
 class HybridScalarAggregator:
-    def __init__(self, slots, device="cpu"):
+    def __init__(self, slots, device):
         self.slots = slots
         self.device = device
         self._impl = None

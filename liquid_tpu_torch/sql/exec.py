@@ -95,7 +95,7 @@ def _extend(result: pa.Table, internal: pa.Table) -> pa.Table:
 
 
 class QueryExecutor:
-    def __init__(self, catalog: Dict[str, object], device="cpu"):
+    def __init__(self, catalog: Dict[str, object], device):
         self.catalog = catalog       # name -> ParquetTable
         self.device = device         # where the engine's tensors live
         self.views: Dict[str, object] = {}

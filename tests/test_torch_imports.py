@@ -55,7 +55,10 @@ def test_importing_every_module_loads_no_jax():
                  "arrays.hybrid", "utils.dates", "arrays.decimal",
                  "arrays.variant", "io.bloom", "io.pageindex",
                  "common.object_store", "parallel.dist",
-                 "parallel.session", "parallel.join"):
+                 "parallel.session", "parallel.join", "utils.tracing",
+                 "common.rpc", "server", "server.flight", "server.client",
+                 "server.admin", "bench.clients", "bench.manifest",
+                 "bench.tracepoints", "devtools.trace_viz"):
         assert f"liquid_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -81,6 +84,23 @@ def test_default_device_without_cuda_raises(monkeypatch):
         LiquidCacheLocalBuilder(device="cuda").build()
     ctx, cache = LiquidCacheLocalBuilder(device="cpu").build()
     assert cache.device.type == "cpu" and ctx.device.type == "cpu"
+
+
+def test_executor_and_aggregators_need_a_device():
+    """Below the entry points nothing defaults to the CPU: the executor
+    and the classic aggregators are told their device or fail."""
+    from liquid_tpu_torch.sql import device_agg
+    from liquid_tpu_torch.sql.exec import QueryExecutor
+    with pytest.raises(TypeError, match="device"):
+        QueryExecutor({})
+    for cls, args in ((device_agg.DeviceGroupedAggregator, (["k"], [])),
+                      (device_agg.DeviceScalarAggregator, ([],)),
+                      (device_agg.HybridGroupedAggregator, (["k"], [])),
+                      (device_agg.HybridScalarAggregator, ([],))):
+        with pytest.raises(TypeError, match="device"):
+            cls(*args)
+        assert torch.device(cls(*args, device="cpu").device).type == "cpu"
+    assert QueryExecutor({}, "cpu").device == "cpu"
 
 
 def test_disk_and_squeeze_options_raise(tmp_path):

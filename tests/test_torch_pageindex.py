@@ -60,7 +60,7 @@ def _session(side, path, store=None):
              .build())
     open_file = (lambda: StoreFile(store, "gap.parquet")) if store else None
     table = ParquetTable("gap", path, cache, 0, open_file=open_file)
-    return QueryExecutor({"gap": table}), table
+    return QueryExecutor({"gap": table}, device="cpu"), table
 
 
 def test_page_zones_equal_the_reference(gap_file):
