@@ -37,7 +37,7 @@ Phases (any failure raises and the script exits non-zero):
    launches equal to `select_launches` (`check_select`);
 5. the scalar main path: 4,000,000 synthesized ClickBench `hits` rows and
    TPC-H SF1 `lineitem` as parquet (every data file of the run, phases
-   6g's and 6h's included, written by `write_data` in four worker
+   6g's, 6h's and 6k's included, written by `write_data` in five worker
    processes), a
    `LiquidCacheLocalBuilder` session on the card, queries `cb_filter`,
    `cb_like` (a string LIKE: verdicts over FSST dictionaries, gathered
@@ -140,7 +140,9 @@ Phases (any failure raises and the script exits non-zero):
    a fresh uncapped session and one capped at `JSON_CAP_FRACTION` of the
    event column's bytes; answers equal to a `json` + `Counter` oracle;
    in the capped session `memory_used <= cap`, squeezes and reads
-   served from shredded paths in the warm runs;
+   served from shredded paths in the warm runs (the uncapped session
+   has no unprofiled warm run, `JSON_WARM_RUNS`: its profiled run's
+   answer is checked, its warm best and idle share are None);
    c. ClickBench q19 over a copy of the hits rows with bloom filters on
    UserID, read through `StoreFile(ByteCache(LocalStore(dir)))`
    (`run_pruning_path`): no row, as pyarrow; the first run's
@@ -212,6 +214,31 @@ Phases (any failure raises and the script exits non-zero):
    stopped in a `finally`, each within its time limit; per query the
    Flight time beside the in-process warm best of the earlier phases;
    counts set to 0 just before this phase and read after;
+   6k. the rest of the harness, counts set to 0 just before this phase
+   and read after (`run_suites_path`):
+   a. the 14 micro benchmarks (`bench/micro.py`) at full size on the
+   card, each result logged, every value finite and >= 0, the FSST and
+   primitive ratios below 1, the eviction benchmark squeezing or writing
+   to disk, `bitpacking`'s unpack equal to `unpack_bitplanes_host` on the
+   same planes, and K1's launches in `filter_pushdown` equal to the
+   count the cache's width buckets predict (`k1_groups` per evaluation);
+   b. the StackOverflow-DBA suite at 20,000 users and 200,000 posts
+   (400,000 comments, 800,000 votes, 60,000 badges; written in phase
+   5's pool) in three sessions on the card: `liquid` and `arrow` at the
+   reference CI's 10 MB cap and `liquid` uncapped, the eight queries a
+   first and a warm run each, every answer equal to pyarrow
+   (`oracle.SO_ORACLES`), memory within the cap after every query and
+   the capped sessions squeezing or spilling, each query's ms and its K1
+   and K2 launches logged (K2 where `_k2_plan` takes a grouped query);
+   c. the reference's schedule workloads (`bench/schedules.py`: budget,
+   concurrent inserts into a cache on the card, eviction advice) under
+   `shuttle.check` at the reference's 60, 12 and 40 schedules, then one
+   recorded insert schedule replayed to the same trace and entries;
+   d. the differential fuzz cases (`bench/fuzz.py`) on the card: string
+   seeds 0-59 and integer seeds 0-39, then new seeds from 1,000,000
+   until `FUZZ_SECONDS` have passed, each mask equal to pyarrow's;
+   e. the six runnable examples of `examples/torch/`, called in-process
+   with `--device cuda`;
 7. K1's interval form checked bit-exact against its plain version and
    timed (CUDA events, L2 flushed before each timed call) on the exact
    (planes, lo, hi) the main path gave it -- the single-table plans'
@@ -1943,31 +1970,34 @@ def storage_jobs(data_dir: str, paths: dict) -> dict:
 
 def write_data(data_dir: str, hits_rows: int, sf: float, events: int,
                tables) -> tuple:
-    """Phases 5, 6g and 6h's files -> (paths, storage paths, TPC-DS
-    paths, oracle answers), written in four worker processes: hits,
-    TPC-H, the events and TPC-DS together, then the storage copies of
-    `storage_jobs` while this process computes the oracle's answers.  Each
-    file is written once."""
+    """Phases 5, 6g, 6h and 6k's files -> (paths, storage paths, TPC-DS
+    paths, StackOverflow paths, oracle answers), written in five worker
+    processes: hits, TPC-H, the events, TPC-DS and StackOverflow
+    together, then the storage copies of `storage_jobs` while this
+    process computes the oracle's answers.  Each file is written once."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     from liquid_tpu_torch.bench import oracle
     from liquid_tpu_torch.bench.hits import prepare_hits
     from liquid_tpu_torch.bench.main import prepare_tpch
     with ProcessPoolExecutor(
-            4, mp_context=multiprocessing.get_context("spawn")) as pool:
+            5, mp_context=multiprocessing.get_context("spawn")) as pool:
         hits = pool.submit(prepare_hits, hits_rows, data_dir)
         tpch = pool.submit(prepare_tpch, data_dir, sf, tables)
         events = pool.submit(write_once, *events_job(data_dir, events))
         tpcds = pool.submit(prepare_tpcds, data_dir, sf)
+        so = pool.submit(prepare_stackoverflow, data_dir, SO_USERS, SO_POSTS)
         paths = {"hits": hits.result(), **tpch.result()}
         copies = {k: pool.submit(write_once, *job) for k, job in
                   storage_jobs(data_dir, paths).items()}
         expect = oracle.answers(paths, list(oracle.ORACLES))
         dspaths = tpcds.result()
         expect.update(oracle.answers(dspaths, list(oracle.TPCDS_ORACLES)))
+        sopaths = so.result()
+        expect.update(oracle.answers(sopaths, list(oracle.SO_ORACLES)))
         spaths = {k: f.result() for k, f in copies.items()}
         spaths["events"] = events.result()
-    return paths, spaths, dspaths, expect
+    return paths, spaths, dspaths, sopaths, expect
 
 
 def _query_runs(torch, ctx, sql, warm_runs=3, after=None):
@@ -2122,20 +2152,23 @@ def run_decimal_path(torch, fctx, dpaths: dict):
 
 
 #: JSONBench's unprofiled warm runs per query, by session: a run parses
-#: every JSON block it does not read shredded (~4 s per query at 1M
-#: events on the host), so the phase keeps to the time limit
-JSON_WARM_RUNS = {"uncapped": 1, "capped": 1}
+#: every JSON block it does not read shredded (4-10 s per query at 1M
+#: events on the host), so the phase keeps to the time limit.  The
+#: uncapped session has none, which gives phase 6k its time: its warm
+#: answer is the profiled run's, held to the oracle, and its warm best and
+#: idle share are not measured (None)
+JSON_WARM_RUNS = {"uncapped": 0, "capped": 1}
 
 
 def run_json_path(torch, path: str):
     """Phase 6g-b: the five JSONBench queries over the events in two
     fresh sessions: uncapped, and capped at `JSON_CAP_FRACTION` of the
     event column's arrow bytes.  Each query: a first run, the warm runs
-    of `JSON_WARM_RUNS` (its warm best) and one profiled warm run
-    (reported apart).  Every answer of the unprofiled runs equals
-    the `json` + `Counter` oracle; in the capped session `memory_used <=
-    cap` after every run, variant blocks are squeezed and the warm runs
-    read shredded paths with no IO (`squeeze_io_saved`)."""
+    of `JSON_WARM_RUNS` (its warm best and idle share; None without
+    one) and one profiled warm run.  The first, last and profiled runs'
+    answers equal the `json` + `Counter` oracle; in the capped session
+    `memory_used <= cap` after every run, variant blocks are squeezed and
+    the warm runs read shredded paths with no IO (`squeeze_io_saved`)."""
     import tempfile
     import pyarrow.parquet as pq
     from liquid_tpu_torch import LiquidCacheLocalBuilder
@@ -2167,20 +2200,25 @@ def run_json_path(torch, path: str):
 
                 outs, first_s, warm_ms, k1_runs = _query_runs(
                     torch, ctx, sql, JSON_WARM_RUNS[mode], after=after)
-                for what, got in zip(("first", "last"), outs):
+                bd = device_breakdown(torch, ctx, sql, 1.0, settle=False,
+                                      answer=True)
+                after(None)
+                runs = (("first", outs[0]),) + (
+                    (("last", outs[1]),) if warm_ms else ()) + (
+                    ("profiled", bd.pop("answer")),)
+                for what, got in runs:
                     if not json_bench.same_rows(got, want[i], i in (0, 1)):
                         raise AssertionError(
                             f"6g-b {mode} q{i} ({what} run): port "
                             f"{got.to_pylist()[:3]} != oracle {want[i][:3]}")
-                bd = device_breakdown(torch, ctx, sql, 1.0, settle=False)
-                after(None)
+                best = min(warm_ms) if warm_ms else None
                 st = cache.stats()
-                row = dict(first_run_s=first_s, warm_best_ms=min(warm_ms),
+                row = dict(first_run_s=first_s, warm_best_ms=best,
                            warm_ms=warm_ms,
                            profiled_wall_ms=bd["profiled_wall_ms"],
                            device_busy_ms=bd["device_busy_ms"],
-                           idle_share=(1 - bd["device_busy_ms"]
-                                       / min(warm_ms)),
+                           idle_share=(None if best is None else
+                                       1 - bd["device_busy_ms"] / best),
                            device_ops=bd["device_ops"], k1_per_run=k1_runs,
                            warm_squeeze_io_saved=saved[-1] - saved[0],
                            stats={k: st.get(k, 0) for k in _COUNTERS},
@@ -2816,6 +2854,234 @@ def server_reset_check(torch, hits: str, sql: str, want, device) -> dict:
     return out
 
 
+# -- phase 6k: the rest of the harness ----------------------------------------
+
+#: phase 6k-b's StackOverflow size: ten times the generator's default, so
+#: a posts column spans ~25 blocks of 8,192 rows and the 10 MB cap must
+#: squeeze and spill
+SO_USERS, SO_POSTS = 20_000, 200_000
+#: the reference CI's memory cap for the StackOverflow-DBA suite
+SO_CAP = 10 << 20
+#: phase 6k-b's sessions: (label, mode, cap in bytes or None)
+SO_SESSIONS = (("liquid_10mb", "liquid", SO_CAP),
+               ("arrow_10mb", "arrow", SO_CAP),
+               ("liquid_uncapped", "liquid", None))
+#: phase 6k-d ends its fuzz seeds this many seconds after it started
+FUZZ_SECONDS = 15.0
+#: phase 6k-e: the runnable examples (the server serves until shut down)
+EXAMPLES = ("example_local", "example_inprocess_read",
+            "example_inprocess_insertion",
+            "example_inprocess_cache_eviction", "example_client",
+            "example_projection_pushdown")
+
+
+def prepare_stackoverflow(data_dir: str, users: int, posts: int) -> dict:
+    """Phase 6k-b's five tables, written once into a directory of their
+    own -> {table: path}."""
+    import shutil
+    from liquid_tpu_torch.bench import stackoverflow_data as so
+    out = os.path.join(data_dir, f"so_{users}_{posts}")
+    paths = {n: os.path.join(out, f"{n}.parquet") for n in
+             ("users", "posts", "comments", "votes", "badges")}
+    if not all(os.path.exists(p) for p in paths.values()):
+        tmp = out + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        so.write_parquet(so.generate(users, posts), tmp)
+        shutil.rmtree(out, ignore_errors=True)
+        os.replace(tmp, out)
+    return paths
+
+
+def _finite_fields(r: dict) -> bool:
+    import math
+    nums = [v for v in r.values() if isinstance(v, (int, float))
+            and not isinstance(v, bool)]
+    nums += [v for v in r.get("per_point", [])]
+    return all(math.isfinite(v) and v >= 0 for v in nums)
+
+
+def run_micro_path(torch, dev) -> dict:
+    """Phase 6k-a -> {name: result}."""
+    import numpy as np
+    from liquid_tpu_torch.arrays.base import Predicate
+    from liquid_tpu_torch.bench import micro
+    from liquid_tpu_torch.device import words_to_numpy
+    from liquid_tpu_torch.ops import bitpack as bp
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    out = {}
+    for name, fn in micro.REGISTRY.items():
+        before = k1.LAUNCHES["cmp_const_many"]
+        t0 = time.perf_counter()
+        r = fn(False, dev)
+        r["k1_launches"] = k1.LAUNCHES["cmp_const_many"] - before
+        r["phase_s"] = time.perf_counter() - t0
+        log(f"[micro] {json.dumps(r)}")
+        if not _finite_fields(r):
+            raise AssertionError(f"phase 6k-a: {name} reported a value "
+                                 f"that is not finite and >= 0: {r}")
+        out[name] = r
+    for name in ("fsst_view", "primitive_encoding"):
+        if not out[name]["ratio"] < 1:
+            raise AssertionError(f"phase 6k-a: {name} does not compress: "
+                                 f"{out[name]}")
+    ev = out["eviction"]
+    if ev["squeezes"] + ev["disk_evictions"] <= 0:
+        raise AssertionError(f"phase 6k-a: no squeeze and no disk write "
+                             f"under pressure: {ev}")
+    planes = micro.bitpacking_input(False, dev)
+    got = bp.unpack_bitplanes(planes).cpu().numpy().view(np.uint64)
+    if not np.array_equal(got, bp.unpack_bitplanes_host(
+            words_to_numpy(planes))):
+        raise AssertionError("phase 6k-a: bitpacking's unpack on the card "
+                             "differs from unpack_bitplanes_host")
+    cache, ids = micro.filter_pushdown_cache(False, dev)
+    fp = out["filter_pushdown"]
+    want = fp["evals"] * k1_groups(cache, ids, Predicate(*micro.FILTER_PRED))
+    if want <= 0 or fp["k1_launches"] != want:
+        raise AssertionError(f"phase 6k-a: filter_pushdown launched K1 "
+                             f"{fp['k1_launches']} times, its buckets "
+                             f"predict {want}")
+    return out
+
+
+def run_stackoverflow_path(torch, sopaths: dict, expect: dict,
+                           cache_dir: str, dev) -> dict:
+    """Phase 6k-b -> {session: {query: row, "stats": cache stats}}."""
+    from liquid_tpu_torch.bench import oracle
+    from liquid_tpu_torch.bench import stackoverflow_data as so
+    from liquid_tpu_torch.bench.runner import make_session
+    from liquid_tpu_torch.ops import bitpack_cuda as k1
+    from liquid_tpu_torch.ops import grouphist_cuda as k2
+    report = {}
+    for label, mode, cap in SO_SESSIONS:
+        ctx, cache = make_session(mode, cap or 1 << 40,
+                                  os.path.join(cache_dir, f"so_{label}"),
+                                  dev)
+        if cache.device != dev:
+            raise AssertionError(f"phase 6k-b: {label} on {cache.device}")
+        for name, path in sopaths.items():
+            ctx.register_parquet(name, path)
+        rows = {}
+        for qi, sql in enumerate(so.QUERIES):
+            runs = []
+            for _run in range(2):
+                l1 = k1.LAUNCHES["cmp_const_many"]
+                l2 = k2.LAUNCHES["group_accumulate"]
+                t0 = time.perf_counter()
+                out = ctx.sql(sql).to_arrow()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if not oracle.same_table(out, expect[f"so_q{qi}"]):
+                    raise AssertionError(f"phase 6k-b: {label} q{qi} != "
+                                         f"pyarrow: {out.slice(0, 5)}")
+                used = cache.stats()["memory_used"]
+                if cap is not None and used > cap:
+                    raise AssertionError(f"phase 6k-b: {label} q{qi} holds "
+                                         f"{used} bytes over its cap {cap}")
+                runs.append({"ms": ms,
+                             "k1": k1.LAUNCHES["cmp_const_many"] - l1,
+                             "k2": k2.LAUNCHES["group_accumulate"] - l2})
+            rows[f"so_q{qi}"] = {"first_ms": runs[0]["ms"],
+                                 "warm_ms": runs[1]["ms"],
+                                 "k1": [r["k1"] for r in runs],
+                                 "k2": [r["k2"] for r in runs]}
+            log(f"[so] {label} q{qi}: {json.dumps(rows[f'so_q{qi}'])}")
+        st = cache.stats()
+        stats = {k: st.get(k, 0) for k in _COUNTERS}
+        if cap is not None and stats["squeezes"] + stats["disk_writes"] <= 0:
+            raise AssertionError(f"phase 6k-b: {label} neither squeezed nor "
+                                 f"spilled under {cap} bytes: {stats}")
+        log(f"[so] {label}: {json.dumps(stats)} {json.dumps(st['by_state'])}")
+        report[label] = {**rows, "stats": stats, "by_state": st["by_state"]}
+    return report
+
+
+def run_schedule_path(torch, tmp_dir: str, dev) -> dict:
+    """Phase 6k-c -> counts of schedules explored and the replay's."""
+    from liquid_tpu_torch.bench import schedules
+    from liquid_tpu_torch.utils import shuttle
+    n = schedules.ITERATIONS
+    budget = schedules.budget_workload()
+    shuttle.check(budget, iterations=n["budget"])
+    if budget.budget.memory_used != 0:
+        raise AssertionError(f"phase 6k-c: the budget nets to "
+                             f"{budget.budget.memory_used}")
+    inserts = schedules.insert_workload(dev, tmp_dir)
+    shuttle.check(inserts, iterations=n["insert"])
+    if inserts.cache.device != dev:
+        raise AssertionError(f"phase 6k-c: cache on {inserts.cache.device}")
+    schedules.check_inserts(inserts.cache)
+    shuttle.check(schedules.advice_workload(), iterations=n["advice"])
+    trace = shuttle.Scheduler(seed=n["insert"]).run_workload(inserts)
+    states = schedules.check_inserts(inserts.cache)
+    again = shuttle.replay(inserts, trace)
+    if again != trace or schedules.check_inserts(inserts.cache) != states:
+        raise AssertionError(f"phase 6k-c: replay diverged: {trace} -> "
+                             f"{again}")
+    return {**n, "replay_steps": len(trace), "entries": states}
+
+
+def run_fuzz_path(torch, dev, seconds: float) -> dict:
+    """Phase 6k-d -> cases checked; a divergence raises with its seed."""
+    from liquid_tpu_torch.bench import fuzz
+    t0 = time.perf_counter()
+    for seed in range(60):
+        fuzz.check_case(seed, dev)
+    for seed in range(40):
+        fuzz.check_primitive_case(seed, dev)
+    fixed_s = time.perf_counter() - t0
+    seed = 1_000_000
+    while time.perf_counter() - t0 < seconds:
+        fuzz.check_case(seed, dev)
+        fuzz.check_primitive_case(seed, dev)
+        seed += 1
+    return {"fixed_cases": 100, "fixed_s": fixed_s,
+            "new_seeds": seed - 1_000_000,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_examples_path(torch, dev) -> dict:
+    """Phase 6k-e -> seconds per example."""
+    import importlib.util
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch")
+    out = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"torch_{name}", os.path.join(here, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        mod.main(["--device", dev.type])
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+    return out
+
+
+def run_suites_path(torch, sopaths: dict, expect: dict, tmp_dir: str,
+                    device="cuda:0") -> dict:
+    """Phase 6k, its parts a-e in order on `device` -> {part: report,
+    "s": seconds}."""
+    dev = torch.device(device)
+    os.makedirs(tmp_dir, exist_ok=True)
+    report, secs = {}, {}
+    for part, run in (
+            ("micro", lambda: run_micro_path(torch, dev)),
+            ("stackoverflow", lambda: run_stackoverflow_path(
+                torch, sopaths, expect, tmp_dir, dev)),
+            ("schedules", lambda: run_schedule_path(torch, tmp_dir, dev)),
+            ("fuzz", lambda: run_fuzz_path(torch, dev, FUZZ_SECONDS)),
+            ("examples", lambda: run_examples_path(torch, dev))):
+        t0 = time.perf_counter()
+        report[part] = run()
+        secs[part] = time.perf_counter() - t0
+        if part in ("schedules", "fuzz", "examples"):
+            log(f"[suites] {part}: {json.dumps(report[part], default=str)}")
+        log(f"[suites] {part} {secs[part]:.1f} s")
+    report["s"] = secs
+    return report
+
+
 def time_k1_narrow(torch, inputs: list) -> dict:
     """Phase 7, the pressure phase's inputs: every (planes, cs) phase 6f
     gave K1's single form checked bit-exact against `cmp_const_many_ref`
@@ -3011,7 +3277,7 @@ def time_k2(torch, inputs: dict) -> dict:
 
 
 def device_breakdown(torch, ctx, sql: str, warm_best_ms: float,
-                     settle: bool = True) -> dict:
+                     settle: bool = True, answer: bool = False) -> dict:
     """Phase 9: one warm run of `sql` under torch.profiler -> device-busy
     ms (union of kernel and copy intervals), the idle share of the
     unprofiled best warm time, the device operation count and the
@@ -3020,7 +3286,9 @@ def device_breakdown(torch, ctx, sql: str, warm_best_ms: float,
     One unprofiled run first: a cache insert since the query's own warm
     runs (a later phase transcoding its columns) makes its next run plan
     and upload again; `settle=False` skips it (phase 6f calls this right
-    after the query's warm runs).  The device events are read from the
+    after the query's warm runs); `answer=True` returns the profiled
+    run's answer under "answer", for its caller to check.  The device
+    events are read from the
     profiler's raw kineto list: `prof.events()` builds the whole CPU
     event tree in Python, seconds for a query of thousands of
     operations."""
@@ -3032,7 +3300,7 @@ def device_breakdown(torch, ctx, sql: str, warm_best_ms: float,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_statements(ctx, sql)
+        out = run_statements(ctx, sql)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
@@ -3052,6 +3320,7 @@ def device_breakdown(torch, ctx, sql: str, warm_best_ms: float,
     cats = sorted(((n, v) for n, v in by_name.items() if "Cat" in n),
                   key=lambda kv: -kv[1][0])
     return dict(
+        **({"answer": out} if answer else {}),
         ms_by_name={n: us / 1e3 for n, (us, _c) in by_name.items()},
         profiled_wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
         idle_share=(1 - busy_us / 1e3 / warm_best_ms) if dev else None,
@@ -3247,10 +3516,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     # `part` for q14 and `partsupp` for phase 6d beside the bench entry
     # point's tables; phase 6g's files written beside them
-    paths, spaths, dspaths, expect = write_data(
+    paths, spaths, dspaths, sopaths, expect = write_data(
         args.data_dir, args.hits_rows, args.sf, args.events,
         TPCH_TABLES + ("part", "partsupp"))
-    log(f"[data] {paths} {spaths} {dspaths} "
+    log(f"[data] {paths} {spaths} {dspaths} {sopaths} "
         f"({time.perf_counter() - t0:.1f} s)")
     counters = (k1.LAUNCHES, k2.LAUNCHES)
     _reset(counters)
@@ -3410,6 +3679,20 @@ def main(argv=None) -> int:
         raise AssertionError(f"phase 6j did not launch K1 and K2: "
                              f"{server_launches}")
     clock("6j")
+    # 6k. the rest of the harness: micro benchmarks, StackOverflow,
+    #     schedules, fuzz cases, examples; counts reset just before and
+    #     read just after
+    _reset(counters)
+    t0 = time.perf_counter()
+    suites_report = run_suites_path(torch, sopaths, expect, os.path.join(
+        args.data_dir, "suites"))
+    suites_launches = {**k1.LAUNCHES, **k2.LAUNCHES}
+    log(f"[suites] phase {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(suites_launches)}")
+    if suites_launches["cmp_const_many"] <= 0:
+        raise AssertionError(f"phase 6k did not launch K1: "
+                             f"{suites_launches}")
+    clock("6k")
 
     # 7. K1's interval form checked and timed on the main path's own
     #    inputs, the star and multi-table phases' included
@@ -3482,7 +3765,8 @@ def main(argv=None) -> int:
               "multi": multi_launches, "classic": classic_launches,
               "pressure": pressure_launches, "storage": storage_launches,
               "tpcds": tpcds_launches, "dist": dist_launches,
-              "server": server_launches, "harness": harness_launches,
+              "server": server_launches, "suites": suites_launches,
+              "harness": harness_launches,
               "harness_operator_timing": op_launches}
 
     def launches(name):
@@ -3490,7 +3774,7 @@ def main(argv=None) -> int:
         return sum(phases[p][name]
                    for p in ("scalar", "grouped", "star", "slice", "multi",
                              "classic", "pressure", "storage", "tpcds",
-                             "dist", "server", "harness"))
+                             "dist", "server", "suites", "harness"))
 
     def by_phase(name):
         return {p: d.get(name, 0) for p, d in phases.items()}
@@ -3579,6 +3863,7 @@ def main(argv=None) -> int:
                "decimal": decimal_report, "pruning": pruning_report,
                "tpcds": tpcds_report, "dist": dist_report,
                "dist_summary": dist_summary, "server": server_report,
+               "suites": suites_report,
                "json": {m: json_report[m]["summary"]
                         for m in ("uncapped", "capped")}}
     clock("10")

@@ -1216,6 +1216,94 @@ TPCDS_QUERIES = (98, 27, 86, 51)
 TPCDS_ORACLES = {"ds_q98": _ds_q98, "ds_q27": _ds_q27, "ds_q86": _ds_q86,
                  "ds_q51": _ds_q51}
 
+# -- the StackOverflow-DBA suite (`bench/stackoverflow_data.QUERIES`) -------
+
+def _so_count(mask) -> List[pa.Array]:
+    return [pa.array([pc.sum(pc.cast(mask, pa.int64())).as_py() or 0],
+                     pa.int64())]
+
+
+def _so_q0(paths) -> List[pa.Array]:
+    """Answers' owners by display name: count and score sum, score
+    descending then name, LIMIT 20 (keys unique by name)."""
+    posts = _read(paths, "posts", ["p_id", "p_post_type", "p_owner_user_id",
+                                   "p_score"])
+    posts = posts.filter(pc.equal(posts["p_post_type"], 2))
+    j = _join(posts, _read(paths, "users", ["u_id", "u_display_name"]),
+              "p_owner_user_id", "u_id")
+    g = j.group_by("u_display_name").aggregate([
+        ("p_id", "count", _EVERY), ("p_score", "sum")])
+    g = g.sort_by([("p_score_sum", "descending"),
+                   ("u_display_name", "ascending")]).slice(0, 20)
+    return [g["u_display_name"], g["p_id_count"], g["p_score_sum"]]
+
+
+def _so_q1(paths) -> List[pa.Array]:
+    t = _read(paths, "posts", ["p_tags", "p_score"])
+    return _so_count(pc.and_(pc.match_substring(t["p_tags"], "postgresql"),
+                             pc.greater(t["p_score"], 2)))
+
+
+def _so_q2(paths) -> List[pa.Array]:
+    """Questions no post names as its parent."""
+    t = _read(paths, "posts", ["p_id", "p_post_type", "p_parent_id"])
+    answered = pc.is_in(t["p_id"], value_set=pc.unique(t["p_parent_id"]))
+    return _so_count(pc.and_(pc.equal(t["p_post_type"], 1),
+                             pc.invert(answered)))
+
+
+def _so_q3(paths) -> List[pa.Array]:
+    """Posts of either type scoring above 20, score descending then id,
+    LIMIT 50 (ids are unique)."""
+    t = _read(paths, "posts", ["p_id", "p_post_type", "p_score"])
+    t = t.filter(pc.and_(pc.is_in(t["p_post_type"], value_set=pa.array(
+        [1, 2], pa.int64())), pc.greater(t["p_score"], 20)))
+    t = t.sort_by([("p_score", "descending"), ("p_id", "ascending")])
+    t = t.slice(0, 50)
+    return [t["p_id"], t["p_score"]]
+
+
+def _so_q4(paths) -> List[pa.Array]:
+    """Comments by their author's reputation in thousands (integer
+    division; reputations are positive)."""
+    j = _join(_read(paths, "comments", ["c_user_id"]),
+              _read(paths, "users", ["u_id", "u_reputation"]),
+              "c_user_id", "u_id")
+    j = j.append_column("rep_k", pc.divide(j["u_reputation"], 1000))
+    g = j.group_by("rep_k").aggregate([([], "count_all")]).sort_by("rep_k")
+    return [g["rep_k"], g["count_all"]]
+
+
+def _so_q5(paths) -> List[pa.Array]:
+    t = _read(paths, "votes", ["v_vote_type"])
+    g = t.group_by("v_vote_type").aggregate([([], "count_all")])
+    g = g.sort_by("v_vote_type")
+    return [g["v_vote_type"], g["count_all"]]
+
+
+def _so_q6(paths) -> List[pa.Array]:
+    """Badges of users above 1,000 reputation by name: count descending
+    then name, LIMIT 10 (keys unique by name)."""
+    users = _read(paths, "users", ["u_id", "u_reputation"])
+    users = users.filter(pc.greater(users["u_reputation"], 1000))
+    j = _join(_read(paths, "badges", ["b_user_id", "b_name"]), users,
+              "b_user_id", "u_id")
+    g = j.group_by("b_name").aggregate([([], "count_all")])
+    g = g.sort_by([("count_all", "descending"),
+                   ("b_name", "ascending")]).slice(0, 10)
+    return [g["b_name"], g["count_all"]]
+
+
+def _so_q7(paths) -> List[pa.Array]:
+    t = _read(paths, "posts", ["p_title"])
+    return _so_count(pc.or_(pc.match_substring(t["p_title"], "deadlock"),
+                            pc.match_substring(t["p_title"], "timeout")))
+
+
+#: `stackoverflow_data.QUERIES[i]` -> its oracle, as "so_q{i}"
+SO_ORACLES = {f"so_q{i}": fn for i, fn in enumerate(
+    (_so_q0, _so_q1, _so_q2, _so_q3, _so_q4, _so_q5, _so_q6, _so_q7))}
+
 #: answers cut by a LIMIT that may split rows tied on the ORDER BY keys:
 #: (positions of the order-key columns, OFFSET, LIMIT); their oracles
 #: return every row in order
@@ -1247,7 +1335,8 @@ CUTS: Dict[str, Tuple[Tuple[int, ...], int, int]] = {
 def answers(paths: Dict[str, str], names: Iterable[str]
             ) -> Dict[str, List[pa.Array]]:
     """{query name: its columns} for the named queries."""
-    return {n: {**ORACLES, **TPCDS_ORACLES}[n](paths) for n in names}
+    return {n: {**ORACLES, **TPCDS_ORACLES, **SO_ORACLES}[n](paths)
+            for n in names}
 
 
 def _cell_key(v):

@@ -17,10 +17,12 @@ the reference package.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.parquet as pq
 
 EPOCH_1992 = np.datetime64("1992-01-01")
 DATE_LO = np.datetime64("1992-01-01")
@@ -263,6 +265,19 @@ def generate(sf: float = 0.01, seed: int = 19920101) -> Dict[str, pa.Table]:
 SPEC_DECIMALS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
                  "p_retailprice", "ps_supplycost", "o_totalprice",
                  "s_acctbal", "c_acctbal")
+
+
+def write_parquet(tables: Dict[str, pa.Table], out_dir: str
+                  ) -> Dict[str, str]:
+    """Each table to `out_dir/<name>.parquet` in row groups of 65,536
+    rows -> {name: path}."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {}
+    for name, t in tables.items():
+        p = os.path.join(out_dir, f"{name}.parquet")
+        pq.write_table(t, p, row_group_size=1 << 16)
+        paths[name] = p
+    return paths
 
 
 def with_spec_decimals(t: pa.Table, columns=SPEC_DECIMALS) -> pa.Table:

@@ -41,6 +41,12 @@ def pack_id(file_id: int, rg: int, col: int, batch: int) -> int:
     return (file_id << 48) | (rg << 32) | (col << 16) | batch
 
 
+def unpack_id(eid: int) -> Tuple[int, int, int, int]:
+    """(file, row group, column, batch) of a packed entry id."""
+    return ((eid >> 48) & 0xFFFF, (eid >> 32) & 0xFFFF, (eid >> 16) & 0xFFFF,
+            eid & 0xFFFF)
+
+
 _EPOCH = datetime.date(1970, 1, 1)
 
 

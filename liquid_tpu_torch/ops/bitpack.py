@@ -12,14 +12,16 @@ Device words are int32 tensors with the reference's uint32 bits;
 constants are u64 values carried as int64 bit images.  The batched
 compare with per-block constants runs the hand-written CUDA kernel
 (`bitpack_cuda.cmp_const_many`) on the card; a single block's compare
-is the same kernel at B = 1.
+is the same kernel at B = 1.  `in_range` is K1's interval form over a
+column's blocks.  `pack_bitplanes` / `unpack_bitplanes` are the tensor
+twins of the host functions, on the tensor's device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from liquid_tpu_torch.device import WORD_BITS, wrap_i64
+from liquid_tpu_torch.device import WORD_BITS, to_i32_bits, wrap_i64
 from liquid_tpu_torch.ops import bitpack_cuda
 
 #: Physical plane-count buckets (identical to the reference's).
@@ -79,6 +81,30 @@ def unpack_bitplanes_host(planes) -> np.ndarray:
 _BYTE_WEIGHTS = np.uint8(1) << np.arange(8, dtype=np.uint8)
 
 
+def pack_bitplanes(values: torch.Tensor, width: int) -> torch.Tensor:
+    """Unsigned values[N] (N % 32 == 0; an int64 tensor holds u64 bit
+    images; bits at or above `width` zero) -> int32[bucket(width), N/32]
+    on the values' device, the layout of `pack_bitplanes_host` bit for
+    bit (reference `:69-80`)."""
+    n = values.shape[0]
+    assert n % WORD_BITS == 0, n
+    bucket = bucket_for(width)
+    v = values.to(torch.int64).reshape(n // WORD_BITS, WORD_BITS)
+    lane = torch.arange(WORD_BITS, dtype=torch.int64, device=values.device)
+    planes = [((v >> b) & 1) << lane for b in range(bucket)]
+    if not planes:
+        return torch.zeros((0, n // WORD_BITS), dtype=torch.int32,
+                           device=values.device)
+    return to_i32_bits(torch.stack(planes).sum(-1))
+
+
+def unpack_bitplanes(planes: torch.Tensor, out_dtype=torch.int64
+                     ) -> torch.Tensor:
+    """int32[bucket, W] -> out_dtype[W*32] values (int64: the u64 bit
+    images) on the planes' device (reference `:128-140`)."""
+    return unpack_bitplanes_many(planes[None])[0].to(out_dtype)
+
+
 def unpack_bitplanes_many(planes_stack: torch.Tensor) -> torch.Tensor:
     """int32[B, w, W] -> int64[B, W*32] offsets (the int64 bit image of
     the reference's u64 values).  Accumulates plane by plane: the
@@ -104,6 +130,24 @@ def cmp_const(planes: torch.Tensor, c: int):
     cs = torch.tensor([wrap_i64(c)], dtype=torch.int64, device=planes.device)
     lt, eq = bitpack_cuda.cmp_const_many(planes[None], cs)
     return lt[0], eq[0]
+
+
+def in_range(planes: torch.Tensor, lo_hi) -> torch.Tensor:
+    """Packed int32[W] mask of lo <= value <= hi for one column's planes
+    int32[w, W] (unsigned lo, hi in [0, 2^64)): K1's interval form, one
+    launch over the column's 256-word blocks, the last one zero-padded
+    (reference `:205-211`)."""
+    width, n_words = planes.shape
+    nb = max(1, -(-n_words // bitpack_cuda.BLOCK_WORDS))
+    flat = torch.zeros((width, nb * bitpack_cuda.BLOCK_WORDS),
+                       dtype=torch.int32, device=planes.device)
+    flat[:, :n_words] = planes
+    stack = flat.reshape(width, nb, bitpack_cuda.BLOCK_WORDS).transpose(
+        0, 1).contiguous()
+    lo, hi = (torch.full((nb,), wrap_i64(int(c)), dtype=torch.int64,
+                         device=planes.device) for c in lo_hi)
+    return bitpack_cuda.in_interval_many(stack, lo, hi).reshape(-1)[
+        :n_words]
 
 
 def combine_op(lt: torch.Tensor, eq: torch.Tensor, op: str) -> torch.Tensor:

@@ -5,6 +5,10 @@ bit r%32, LSB first).  Device words are int32 tensors holding the
 reference's uint32 bits (see `liquid_tpu_torch.device`); host twins stay
 numpy uint32, bit-identical to the reference's.  Boolean algebra,
 including Kleene AND/OR with null tracking, runs on the packed words.
+`and_then` composes a selection with a mask over its selected rows and
+`compact_indices` turns a selection into gather indices, both by a
+prefix sum of the selection bits (reference `:219-260`).  Constructors
+(`tail_mask`, `all_set`, `none_set`) take the device explicitly.
 """
 from __future__ import annotations
 
@@ -76,6 +80,75 @@ def all_set_host(n_rows: int, length=None) -> np.ndarray:
         host[full_words] = (1 << rem) - 1
     host.setflags(write=False)
     return host
+
+
+def tail_mask(length, n_rows: int, *, device) -> torch.Tensor:
+    """int32[num_words(n_rows)] with the first `length` bits set; `length`
+    is an int or a 0-d integer tensor (reference `:69-80`)."""
+    base = torch.arange(num_words(n_rows), dtype=torch.int64,
+                        device=device) * WORD_BITS
+    k = (torch.as_tensor(length, device=device).to(torch.int64) - base
+         ).clamp(0, WORD_BITS)
+    return to_i32_bits((torch.ones_like(k) << k) - 1)
+
+
+def all_set(n_rows: int, length=None, *, device) -> torch.Tensor:
+    """Selection of the first `length` rows (all `n_rows` by default)."""
+    return tail_mask(n_rows if length is None else length, n_rows,
+                     device=device)
+
+
+def none_set(n_rows: int, *, device) -> torch.Tensor:
+    return torch.zeros(num_words(n_rows), dtype=torch.int32, device=device)
+
+
+def unpack_many(stacked: torch.Tensor) -> torch.Tensor:
+    """int32[B, W] packed selections -> bool[B, W*32]."""
+    return unpack_bits(stacked)
+
+
+def and_(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a & b
+
+
+def or_(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a | b
+
+
+def not_(a: torch.Tensor) -> torch.Tensor:
+    return ~a
+
+
+def and_then(selection: torch.Tensor, filtered: torch.Tensor
+             ) -> torch.Tensor:
+    """`selection` (int32[W] over N rows, k set) with the rows cleared
+    that `filtered` rejects: `filtered`'s first k bits belong, in order,
+    to the selected rows.  A row's rank is the exclusive prefix sum of the
+    selection bits, and it survives iff selection[r] & filtered[rank[r]]
+    (reference `:219-237`)."""
+    sel = unpack_bits(selection)
+    filt = unpack_bits(filtered)
+    rank = torch.cumsum(sel.to(torch.int32), 0) - 1
+    take = filt[rank.clamp(0, filt.shape[0] - 1)]
+    return pack_bools(sel & take)
+
+
+def compact_indices(selection: torch.Tensor, n_rows: int):
+    """Packed selection -> (int32[n_rows] gather indices, int32 0-d count
+    k): indices[j] is the j-th selected row for j < k; the tail repeats
+    the last selected row (0 when none), so gathers stay in bounds
+    (reference `:240-260`)."""
+    sel = unpack_bits(selection)[:n_rows]
+    dev = selection.device
+    pos = torch.cumsum(sel.to(torch.int32), 0) - 1
+    k = pos[-1] + 1
+    slot = torch.where(sel, pos.to(torch.int64), n_rows)
+    out = torch.zeros(n_rows + 1, dtype=torch.int32, device=dev)
+    out.scatter_(0, slot, torch.arange(n_rows, dtype=torch.int32,
+                                       device=dev))
+    out = out[:n_rows]
+    last = out[(k - 1).clamp(min=0)]
+    return torch.where(torch.arange(n_rows, device=dev) < k, out, last), k
 
 
 def count(words: torch.Tensor) -> torch.Tensor:

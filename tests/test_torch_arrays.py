@@ -7,6 +7,7 @@ and the float decode is the same IEEE multiply on both sides."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 import pyarrow as pa  # noqa: E402

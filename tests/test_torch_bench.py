@@ -9,6 +9,7 @@ builds all three of the reference's modes."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import json  # noqa: E402
 import os  # noqa: E402

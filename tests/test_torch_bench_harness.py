@@ -10,6 +10,7 @@ import os
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import pyarrow.parquet as pq  # noqa: E402
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import pyarrow as pa  # noqa: E402
 import pyarrow.compute as pc  # noqa: E402

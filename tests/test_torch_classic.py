@@ -18,6 +18,7 @@
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -8,6 +8,7 @@ by `chip_smoke.py`."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -32,6 +32,7 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 import pyarrow as pa  # noqa: E402

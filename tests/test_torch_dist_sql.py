@@ -19,6 +19,7 @@ Integers exact; floats rtol 1e-9."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import datetime  # noqa: E402
 import pathlib  # noqa: E402

@@ -13,6 +13,7 @@ keys, counts, integer sums and strings exactly, f64 to rtol 1e-12."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 import pyarrow as pa  # noqa: E402

@@ -20,6 +20,7 @@ SF 0.005 (each package's generator, the same seed).
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 import pyarrow as pa  # noqa: E402

@@ -6,6 +6,7 @@ and the packed masks `_in_interval_many` computes from them.  Bit-exact
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

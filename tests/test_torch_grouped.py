@@ -11,6 +11,7 @@ and integer or scaled-integer sums exactly, f64 results with rtol 1e-12
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 import pyarrow as pa  # noqa: E402

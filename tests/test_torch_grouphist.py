@@ -8,6 +8,7 @@ version on the card by `chip_smoke.py`."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 from functools import partial  # noqa: E402
 

@@ -13,6 +13,7 @@ types equal, floats to rtol 1e-9, everything else exactly."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 import pyarrow as pa  # noqa: E402

@@ -9,6 +9,7 @@ groups are compared row for row as well as as a multiset."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -1,9 +1,13 @@
-"""The PyTorch port stands alone: no module of `liquid_tpu_torch`, and not
-`chip_smoke.py`, imports jax, the JAX package or pandas (the card's
-machine has no pandas), and the port never picks the CPU on its own."""
+"""The PyTorch port stands alone: no module of `liquid_tpu_torch`, not
+`chip_smoke.py`, no example under `examples/torch/` and no
+`fuzz/*_torch.py` imports jax, the JAX package or pandas (the card's
+machine has no pandas), and the port never picks the CPU on its own.
+Every port test file runs torch on one intra-op thread (xdist runs six
+files at once on the CPU; eight threads each thrash)."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import ast  # noqa: E402
 import os  # noqa: E402
@@ -19,7 +23,20 @@ def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _dirs, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    examples = os.path.join(ROOT, "examples", "torch")
+    out += [os.path.join(examples, f) for f in os.listdir(examples)
+            if f.endswith(".py")]
+    fuzz = os.path.join(ROOT, "fuzz")
+    out += [os.path.join(fuzz, f) for f in os.listdir(fuzz)
+            if f.endswith("_torch.py")]
     return sorted(out)
+
+
+def test_sources_include_examples_and_fuzz_loop():
+    rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert os.path.join("fuzz", "fuzz_byteview_torch.py") in rel
+    assert sum(p.startswith(os.path.join("examples", "torch")) for p in rel) \
+        == 7
 
 
 def _forbidden(name: str) -> bool:
@@ -58,7 +75,9 @@ def test_importing_every_module_loads_no_jax():
                  "parallel.session", "parallel.join", "utils.tracing",
                  "common.rpc", "server", "server.flight", "server.client",
                  "server.admin", "bench.clients", "bench.manifest",
-                 "bench.tracepoints", "devtools.trace_viz"):
+                 "bench.tracepoints", "devtools.trace_viz", "bench.micro",
+                 "bench.stackoverflow_data", "bench.fuzz", "utils.shuttle",
+                 "utils.sync"):
         assert f"liquid_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -84,6 +103,37 @@ def test_default_device_without_cuda_raises(monkeypatch):
         LiquidCacheLocalBuilder(device="cuda").build()
     ctx, cache = LiquidCacheLocalBuilder(device="cpu").build()
     assert cache.device.type == "cpu" and ctx.device.type == "cpu"
+
+
+def test_new_entry_points_without_cuda_raise(monkeypatch):
+    from liquid_tpu_torch.bench import micro
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        micro.run_all(tiny=True, names=["boolean_and_then"])
+    assert micro.run_all(tiny=True, names=["boolean_and_then"],
+                         device="cpu")[0]["value"] > 0
+
+
+def test_every_port_test_file_pins_one_thread():
+    """Each `tests/test_torch_*.py` calls `torch.set_num_threads(1)` at
+    module level, right after importing torch."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(f for f in os.listdir(here)
+                   if f.startswith("test_torch_") and f.endswith(".py"))
+    assert len(files) >= 50
+    unpinned = []
+    for f in files:
+        with open(os.path.join(here, f)) as fh:
+            body = ast.parse(fh.read(), f).body
+        calls = [i for i, n in enumerate(body)
+                 if isinstance(n, ast.Expr) and isinstance(n.value, ast.Call)
+                 and ast.unparse(n.value) == "torch.set_num_threads(1)"]
+        imports = [i for i, n in enumerate(body)
+                   if isinstance(n, ast.Assign)
+                   and ast.unparse(n) == "torch = pytest.importorskip('torch')"]
+        if not (calls and imports and calls[0] == imports[0] + 1):
+            unpinned.append(f)
+    assert not unpinned, unpinned
 
 
 def test_executor_and_aggregators_need_a_device():

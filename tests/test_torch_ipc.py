@@ -17,6 +17,7 @@ import shutil
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 import pyarrow as pa  # noqa: E402

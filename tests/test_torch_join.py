@@ -11,6 +11,7 @@ below it, the device's sort and probe at or above it)."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

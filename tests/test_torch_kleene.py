@@ -15,6 +15,7 @@ dtype it accepts round-trips, and any other raises."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 import pyarrow as pa  # noqa: E402

@@ -14,6 +14,7 @@ and disk pipeline must engage without changing any answer.
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import pyarrow as pa  # noqa: E402
 import pyarrow.compute as pc  # noqa: E402

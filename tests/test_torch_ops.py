@@ -4,6 +4,7 @@ bit-exact (tolerance 0): these are integer bit manipulations."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -11,6 +11,7 @@ order, but the test does not rely on it)."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -17,6 +17,7 @@ to 9 significant digits (the packages add in different orders)."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import pathlib  # noqa: E402
 import re  # noqa: E402

@@ -15,6 +15,7 @@ held against the pandas oracle here too."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import pyarrow as pa  # noqa: E402
 

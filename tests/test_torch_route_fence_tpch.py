@@ -11,6 +11,7 @@ the reference's answers here too."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import pyarrow.parquet as pq  # noqa: E402
 

@@ -25,6 +25,7 @@ on the card by `chip_smoke.py` (phase 4b)."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

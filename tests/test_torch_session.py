@@ -9,6 +9,7 @@ port does not support yet raise NotImplementedError."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import os  # noqa: E402
 

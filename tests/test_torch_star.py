@@ -15,6 +15,7 @@ against the reference's."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import datetime  # noqa: E402
 

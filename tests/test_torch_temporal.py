@@ -12,6 +12,7 @@ are also held against Python's own calendar."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import datetime  # noqa: E402
 

@@ -17,6 +17,7 @@ Floats compare to rtol 1e-9, everything else exactly."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import datetime  # noqa: E402
 
