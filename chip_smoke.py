@@ -46,7 +46,12 @@ Phases (any failure raises and the script exits non-zero):
    integers exact, floats rtol 1e-9); the fused scalar route and one K1
    launch per interval predicate (`K1_PER_RUN`) checked through the
    port's counters, which are set to 0 just before this phase and read
-   after;
+   after; then, on the filled cache (`check_members`), `LiquidArray.
+   filter` on the card over every cached block of hits' `AdvEngineID`
+   (primitive) and `URL` (byte-view) under `cb_filter`'s selection and
+   of lineitem's `l_discount` (float: hits has none) under `l_quantity <
+   24`, each column's blocks together equal to pyarrow's `filter`, and
+   `BoolMask.from_bools` on the card equal to its CPU result;
 6. the grouped main path on the same session: `cb_groupby`, `cb_q15`,
    `tpch_q15_revenue`, `tpch_supp_price` and `tpch_q1` (string group
    keys by vocabulary id); answers checked the same way; the grouped
@@ -117,7 +122,10 @@ Phases (any failure raises and the script exits non-zero):
    the first and last run equal to pyarrow, `memory_used <= cap` after
    every run, disk writes in both, and in the default session squeezes,
    an entry seen squeezed and a read from one (`squeeze_io_reads` or
-   `squeeze_io_saved`); K1 launches in the phase; logged per query: warm
+   `squeeze_io_saved`), and the first squeezed float block filtered
+   through the cache's squeeze IO (`SqueezedFloatArray.filter`), equal
+   to pyarrow with one `squeeze_io_reads` counted; K1 launches in the
+   phase; logged per query: warm
    best, first run, busy and idle share, K1 launches per run in both
    forms; per session: `by_state`, the disk and squeeze counters, the
    store file's bytes, `DiskIoGuard`'s read and write bytes and peak
@@ -139,8 +147,9 @@ Phases (any failure raises and the script exits non-zero):
    (`bench/json_bench.py`, seed 8) and its five `variant_get` queries in
    a fresh uncapped session and one capped at `JSON_CAP_FRACTION` of the
    event column's bytes; answers equal to a `json` + `Counter` oracle;
-   in the capped session `memory_used <= cap`, squeezes and reads
-   served from shredded paths in the warm runs (the uncapped session
+   in the capped session `memory_used <= cap`, squeezes, disk writes and
+   at least `JSON_MIN_SHREDDED` reads served from shredded paths in the
+   warm runs (the uncapped session
    has no unprofiled warm run, `JSON_WARM_RUNS`: its profiled run's
    answer is checked, its warm best and idle share are None);
    c. ClickBench q19 over a copy of the hits rows with bloom filters on
@@ -210,7 +219,8 @@ Phases (any failure raises and the script exits non-zero):
    server's `server.fetch` span; then `/reset_cache` on a service of its
    own over a fresh session of `hits` (`server_reset_check`: a reset of
    the main session would make phase 9 transcode every column again),
-   `cb_filter` equal to pyarrow before and after it; every server
+   `cb_filter` equal to pyarrow before and after it from one client,
+   whose stale plan handle costs it exactly one registration; every server
    stopped in a `finally`, each within its time limit; per query the
    Flight time beside the in-process warm best of the earlier phases;
    counts set to 0 just before this phase and read after;
@@ -1214,6 +1224,70 @@ def run_main_path(torch, paths: dict, expect: dict, builder):
     return ctx, report
 
 
+def check_members(torch, ctx, paths: dict, device="cuda") -> dict:
+    """Phase 5's member checks on the card, over the main path's cache:
+    `LiquidArray.filter` on every cached block of hits' `AdvEngineID`
+    (primitive) and `URL` (byte-view) under `cb_filter`'s selection, and
+    of lineitem's `l_discount` (float; hits has no float column) under
+    `l_quantity < 24` (q6's), each selection the cache's encoded
+    evaluation on the card; each column's blocks together equal to
+    pyarrow's `filter` of the file.  `BoolMask.from_bools` of 8,191 rows
+    on the card equal to its CPU result -> per column blocks, rows, ms."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    from liquid_tpu_torch.arrays.base import LiquidArray, Predicate
+    from liquid_tpu_torch.device import words_to_numpy
+    from liquid_tpu_torch.ops import mask as mops
+    report = {}
+    for table, col, pcol, pred, keep in (
+            ("hits", "AdvEngineID", "AdvEngineID", Predicate("ne", 0),
+             lambda c: pc.not_equal(c, 0)),
+            ("hits", "URL", "AdvEngineID", Predicate("ne", 0),
+             lambda c: pc.not_equal(c, 0)),
+            ("lineitem", "l_discount", "l_quantity", Predicate("lt", 24),
+             lambda c: pc.less(c, 24))):
+        pt = ctx._tables[table]
+        cache = pt.cache
+        parts = []
+        t0 = time.perf_counter()
+        for rg in range(pt.num_row_groups):
+            nb = pt.num_batches(rg)
+            masks = cache.eval_predicate_many(
+                [pt.entry_id(rg, pcol, b) for b in range(nb)], pred)
+            for b, m in enumerate(masks):
+                blk = cache._entries[pt.entry_id(rg, col, b)].payload
+                if m is None or m.bits.device.type != ctx.device.type \
+                        or not isinstance(blk, LiquidArray):
+                    raise AssertionError(f"5: {table}.{col} block {rg}/{b} "
+                                         f"has no encoded selection or block")
+                got = blk.filter(m.to_selection())
+                parts.append(got.cast(got.type.value_type)
+                             if pa.types.is_dictionary(got.type) else got)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        t = pq.read_table(paths[table], columns=sorted({col, pcol}))
+        want = t[col].filter(keep(t[pcol])).combine_chunks()
+        got = pa.concat_arrays(parts)
+        if not got.equals(want.cast(got.type)):
+            raise AssertionError(f"5: {table}.{col} filtered on the card "
+                                 f"!= pyarrow ({len(got)} / {len(want)})")
+        report[f"{table}.{col}"] = dict(blocks=len(parts), rows=len(got),
+                                        ms=ms)
+    rng = np.random.default_rng(16)
+    bools = torch.from_numpy(rng.random(8191) < 0.5)
+    valid = torch.from_numpy(rng.random(8191) < 0.9)
+    host = mops.BoolMask.from_bools(bools, valid)
+    card = mops.BoolMask.from_bools(bools.to(device), valid.to(device))
+    if card.bits.device.type != torch.device(device).type or any(
+            not np.array_equal(words_to_numpy(a), words_to_numpy(b))
+            for a, b in ((card.bits, host.bits), (card.valid, host.valid))):
+        raise AssertionError("5: BoolMask.from_bools on the card != CPU")
+    report["from_bools_words"] = int(card.bits.numel())
+    return report
+
+
 def run_grouped_path(torch, ctx, paths: dict, expect: dict):
     """Phase 6: the grouped queries on the session -> (per-query report,
     {query: (slot, cols, m)} as the path last fed K2)."""
@@ -1757,6 +1831,43 @@ def pressure_working_set(ctx, qs) -> int:
                    if (eid >> 48, (eid >> 16) & 0xFFFF) in cols)
 
 
+def squeezed_float_filter(torch, ctx, cache):
+    """`SqueezedFloatArray.filter` on the first squeezed float entry, every
+    third row selected on the card, read through the cache's squeeze IO:
+    equal to pyarrow's filter of the same block of the file, with one
+    `squeeze_io_reads` counted -> its entry and rows, or None while no
+    float entry is squeezed."""
+    import numpy as np
+    import pyarrow.parquet as pq
+    from liquid_tpu_torch.arrays.base import BLOCK_ROWS
+    from liquid_tpu_torch.arrays.float_alp import SqueezedFloatArray
+    from liquid_tpu_torch.cache import core
+    from liquid_tpu_torch.device import words_to_tensor
+    from liquid_tpu_torch.ops import mask as mops
+    with cache._lock:
+        eid = next((i for i, e in cache._entries.items()
+                    if e.state == core.MEMORY_SQUEEZED
+                    and isinstance(e.payload, SqueezedFloatArray)), None)
+        if eid is None:
+            return None
+        payload = cache._entries[eid].payload
+        keep = np.arange(BLOCK_ROWS) % 3 == 0
+        sel = words_to_tensor(mops.pack_bools_host(keep), cache.device)
+        before = cache.observer.stats.get("squeeze_io_reads")
+        got = payload.filter(sel, core._SqueezeIo(cache, eid))
+        reads = cache.observer.stats.get("squeeze_io_reads") - before
+    t = next(t for t in ctx._tables.values() if t.file_id == eid >> 48)
+    rg, col, b = (eid >> 32) & 0xFFFF, (eid >> 16) & 0xFFFF, eid & 0xFFFF
+    block = pq.ParquetFile(t.path).read_row_group(rg, columns=[
+        t.column_names[col]]).column(0).combine_chunks().slice(
+        b * BLOCK_ROWS, BLOCK_ROWS)
+    if not got.equals(block.filter(keep[:len(block)])) or reads != 1:
+        raise AssertionError(f"6f: SqueezedFloatArray.filter of {eid:#x} "
+                             f"!= pyarrow, or {reads} squeeze IO reads")
+    return dict(entry=f"{eid:#x}", column=t.column_names[col],
+                rows=len(got), squeeze_io_reads=reads)
+
+
 def run_pressure_path(torch, paths: dict, expect: dict, cap: int):
     """Phase 6f: the cache under a memory budget -> (report, [(planes, cs,
     label)] of every K1 single-form input the phase gave).  Two fresh
@@ -1767,8 +1878,9 @@ def run_pressure_path(torch, paths: dict, expect: dict, cap: int):
     of the first and the last
     run equals pyarrow; `memory_used <= cap` after every run; disk writes
     in both; in the default session squeezes, an entry seen squeezed and
-    a read from one.  A compare made inside a squeezed array's predicate
-    is labelled narrow."""
+    a read from one, and, once its summary is taken, one
+    `squeezed_float_filter` on the still-open cache.  A compare made
+    inside a squeezed array's predicate is labelled narrow."""
     import tempfile
     import threading
     from liquid_tpu_torch import LiquidCacheLocalBuilder
@@ -1829,7 +1941,7 @@ def run_pressure_path(torch, paths: dict, expect: dict, cap: int):
             torch.cuda.reset_peak_memory_stats()
             with tempfile.TemporaryDirectory() as d, DiskIoGuard() as io:
                 ctx, cache = session(mode, d)
-                rows, seen_squeezed = {}, 0
+                rows, seen_squeezed, float_filter = {}, 0, None
                 t_mode = time.perf_counter()
                 for qname, sql in mode_qs:
                     per_run, times = [], []
@@ -1880,6 +1992,10 @@ def run_pressure_path(torch, paths: dict, expect: dict, cap: int):
                         "memory_used", "disk_used", "squeezes", "disk_reads",
                         "disk_writes", "squeeze_io_reads",
                         "squeeze_io_saved", "hydrations", "transcodes")})
+                # after the summary, so that its read counts in no query's
+                # stats and cannot meet the squeezed tier's gate
+                if mode == "default":
+                    float_filter = squeezed_float_filter(torch, ctx, cache)
                 del ctx, cache
             summary.update(io_read_bytes=io.read_bytes,
                            io_write_bytes=io.write_bytes,
@@ -1894,6 +2010,13 @@ def run_pressure_path(torch, paths: dict, expect: dict, cap: int):
                     + summary["squeeze_io_saved"] <= 0):
                 raise AssertionError(f"6f default: the squeezed tier did not "
                                      f"engage: {summary}")
+            if mode == "default":
+                if float_filter is None:
+                    raise AssertionError("6f default: no squeezed float "
+                                         "block to filter")
+                summary["squeezed_float_filter"] = float_filter
+                log(f"[pressure] squeezed float filter "
+                    f"{json.dumps(float_filter)}")
             report[mode] = {"queries": rows, "summary": summary}
     finally:
         k1.cmp_const_many, k1.in_interval_many = single, interval
@@ -1907,10 +2030,14 @@ def run_pressure_path(torch, paths: dict, expect: dict, cap: int):
 #: JSONBench's smallest published size (ClickHouse/JSONBench): 1M events
 STORAGE_EVENTS = 1_000_000
 #: the capped JSONBench session's cap, as a multiple of the event column's
-#: arrow bytes: a block inserted as a slice of its row group is charged
-#: the row group's buffers, so below 1x every block goes straight to disk
-#: and nothing shreds, in the reference's CPU run as in the port
-JSON_CAP_FRACTION = 1.5
+#: arrow bytes.  Each block is charged the bytes its slice of the row group
+#: references, so the column's 123 arrow blocks weigh about the column,
+#: and at 1.25x nothing squeezes; `bench/json_caps.py` on the CPU at 1M
+#: events: 64 squeezes and 134 warm reads served shredded at 0.5x
+JSON_CAP_FRACTION = 0.5
+#: the fewest warm reads the capped session must serve from resident
+#: shredded paths (`squeeze_io_saved`)
+JSON_MIN_SHREDDED = 5
 
 
 def write_once(path: str, write, *args) -> str:
@@ -2233,8 +2360,12 @@ def run_json_path(torch, path: str):
                            **{k: st.get(k, 0) for k in _COUNTERS})
             log(f"[json] {mode} summary: {json.dumps(summary)}")
             del ctx, cache
-        if mode == "capped" and (summary["squeezes"] <= 0 or warm_saved <= 0):
-            raise AssertionError(f"6g-b capped: no shredded read: {summary}")
+        if mode == "capped" and (summary["squeezes"] <= 0
+                                 or summary["disk_writes"] <= 0
+                                 or warm_saved < JSON_MIN_SHREDDED):
+            raise AssertionError(f"6g-b capped: no squeeze, no disk write or "
+                                 f"fewer than {JSON_MIN_SHREDDED} shredded "
+                                 f"reads: {summary}")
         report[mode] = {"queries": rows, "summary": summary}
     return report
 
@@ -2813,8 +2944,10 @@ def server_reset_check(torch, hits: str, sql: str, want, device) -> dict:
     """Phase 6j's `/reset_cache`: on a service and admin server of their
     own over a fresh session of `hits` (a reset of the main session's
     cache would make phase 9 transcode every column again): `sql`
-    answered, the cache emptied, `sql` answered again from the file by a
-    new client, both equal to `want` -> timings."""
+    answered, the cache and plans emptied by the admin route, `sql`
+    answered again from the file by the same client, both equal to
+    `want`; the client's stale handle costs it exactly one registration
+    more -> timings and registrations."""
     from liquid_tpu_torch import LiquidCacheLocalBuilder
     from liquid_tpu_torch.bench import oracle
     from liquid_tpu_torch.server import (
@@ -2825,14 +2958,15 @@ def server_reset_check(torch, hits: str, sql: str, want, device) -> dict:
     srv.inner.ctx = ctx
     admin = AdminServer(srv.inner, host="127.0.0.1", port=0)
     addr, aaddr = srv.start(), admin.start()
-    out, clients = {}, []
+    out = {}
+    client = (LiquidCacheClientBuilder(*addr)
+              .with_parquet_table("hits", hits).build())
     try:
         for when in ("before", "after"):
-            clients.append(LiquidCacheClientBuilder(*addr)
-                           .with_parquet_table("hits", hits).build())
             t0 = time.perf_counter()
-            got = clients[-1].sql(sql)
+            got = client.sql(sql)
             out[f"{when}_ms"] = (time.perf_counter() - t0) * 1e3
+            out[f"registrations_{when}"] = client.registrations
             if not oracle.same_table(got, want):
                 raise AssertionError(f"6j: {got.to_pylist()} != pyarrow "
                                      f"{when} /reset_cache")
@@ -2844,9 +2978,11 @@ def server_reset_check(torch, hits: str, sql: str, want, device) -> dict:
                         or srv.inner.plans:
                     raise AssertionError("6j: /reset_cache left entries "
                                          "or plans")
+        if (out["registrations_before"], out["registrations_after"]) != (1, 2):
+            raise AssertionError(f"6j: the client did not re-register "
+                                 f"exactly once after /reset_cache: {out}")
     finally:
-        for c in clients:
-            c.close()
+        client.close()
         try:
             admin.stop()
         finally:
@@ -3534,6 +3670,8 @@ def main(argv=None) -> int:
     if scalar_launches["cmp_const_many"] <= 0:
         raise AssertionError(f"the scalar path did not launch K1: "
                              f"{scalar_launches}")
+    # after the launches are read: its selections launch K1 too
+    log(f"[members] {json.dumps(check_members(torch, ctx, paths))}")
     clock("5")
 
     # 6. grouped main path, counts reset just before and read just after

@@ -60,6 +60,23 @@ class LiquidArray(abc.ABC):
     def to_device(self, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(values[BLOCK_ROWS], packed validity int32[256] or None)."""
 
+    def filter(self, selection: torch.Tensor) -> pa.Array:
+        """The rows a packed selection (int32 words over BLOCK_ROWS) keeps,
+        as arrow.  The selected row numbers are found on the selection's
+        device, the card for a CUDA tensor; the block decodes on the host
+        and takes them (the reference's default, `:75-83`)."""
+        rows = torch.nonzero(
+            mops.unpack_bits(selection)[: self.length]).flatten()
+        return self.to_arrow().take(
+            pa.array(rows.cpu().numpy(), type=pa.int64()))
+
+    def try_eval_predicate(self, pred: Predicate, device
+                           ) -> Optional[mops.BoolMask]:
+        """A BoolMask of `pred` over all BLOCK_ROWS on `device`, evaluated
+        on the encoded block; None when the encoding cannot (the caller
+        decodes and evaluates).  The caller ANDs its selection."""
+        return None
+
     @abc.abstractmethod
     def to_bytes(self) -> bytes:
         """Liquid IPC bytes (`arrays/ipc.py`)."""

@@ -323,6 +323,10 @@ class SqueezedFloatArray(LiquidSqueezedArray):
     def to_arrow(self, io) -> pa.Array:
         return self._read_full(io).to_arrow()
 
+    def filter(self, selection: torch.Tensor, io) -> pa.Array:
+        """The selected rows of the exact block, read through `io`."""
+        return self._read_full(io).filter(selection)
+
     def _dec1(self, off: int) -> float:
         v = np.float64(off + self.reference_value) * np.float64(
             10.0 ** (-self.exponent))

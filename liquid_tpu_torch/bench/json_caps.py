@@ -2,7 +2,7 @@
 variant tier serves at each cap.
 
     python3 -m liquid_tpu_torch.bench.json_caps --events 200000 \\
-        --fractions 1.5 5 10 20 40 [--device cpu]
+        --fractions 0.5 0.75 1 1.25 1.5 2 3 5 10 20 40 [--device cpu]
 
 The events come from `json_bench.generate` (seed 8), written once into
 `--data-dir` (a temporary directory by default).  For each fraction of
@@ -61,7 +61,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--events", type=int, default=200_000)
     ap.add_argument("--fractions", type=float, nargs="+",
-                    default=[1.5, 5.0, 10.0, 20.0, 40.0])
+                    default=[0.5, 0.75, 1.0, 1.25, 1.5, 2.0, 3.0, 5.0,
+                             10.0, 20.0, 40.0])
     ap.add_argument("--device", default=None,
                     help="cpu to run without a card")
     ap.add_argument("--data-dir", default=None)

@@ -32,6 +32,13 @@ in the decimal's units.  A string column trains one FSST compressor on its
 first block and shares it with the column's later blocks
 (`DefaultCacheMetadata`).  `epoch` moves on every entry mutation, the
 coarse invalidation key of derived caches (fused plans, prep stacks).
+
+An arrow block is charged its buffers' bytes plus 64, as in the
+reference, with one departure on purpose: a block that is a slice of a
+longer array -- every block parquet reads is a slice of its row group's
+column -- is charged the ranges it references (`nbytes`) plus 64.  The
+reference charges each such block its whole row group, so a column of
+many blocks weighs many times its size under a budget.
 """
 from __future__ import annotations
 
@@ -88,7 +95,44 @@ class CacheEntry:
 
 
 def _arrow_memory_bytes(arr: pa.Array) -> int:
+    """Bytes an arrow block is charged: its buffers' sizes plus 64 (the
+    reference's count), but a slice of a longer array, such as a block
+    of a parquet row group's column, is charged the buffer ranges it
+    references (`nbytes`) plus 64, not the row group's buffers."""
+    if _is_slice(arr):
+        return arr.nbytes + 64
     return sum(b.size for b in arr.buffers() if b is not None) + 64
+
+
+def _is_slice(arr: pa.Array) -> bool:
+    """Whether `arr` sees part of its buffers only: it has an offset, its
+    value (or offset) buffer holds more rows than it has, or, for a
+    struct, one of its fields does.  (pyarrow's `nbytes` against
+    `get_total_buffer_size()` cannot decide it: `nbytes` counts n, not
+    n + 1, offsets, so a whole string array reads as a slice.)"""
+    if arr.offset:
+        return True
+    t = arr.type
+    if pa.types.is_struct(t):
+        return any(_is_slice(arr.field(i)) for i in range(t.num_fields))
+    bufs = arr.buffers()
+    if len(bufs) < 2 or bufs[1] is None:
+        return False
+    n = len(arr)
+    if pa.types.is_dictionary(t):
+        t = t.index_type
+    if (pa.types.is_large_string(t) or pa.types.is_large_binary(t)
+            or pa.types.is_large_list(t)):
+        need = (n + 1) * 8
+    elif (pa.types.is_string(t) or pa.types.is_binary(t)
+          or pa.types.is_list(t) or pa.types.is_map(t)):
+        need = (n + 1) * 4
+    else:
+        try:
+            need = (n * t.bit_width + 7) // 8
+        except ValueError:  # not a fixed-width type
+            return False
+    return bufs[1].size > need
 
 
 def _arrow_backed(payload) -> bool:

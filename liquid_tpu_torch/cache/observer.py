@@ -41,6 +41,11 @@ class RuntimeStats:
         with self._lock:
             return dict(self._c)
 
+    def reset(self) -> None:
+        with self._lock:
+            for k in self._c:
+                self._c[k] = 0
+
 
 @dataclass(frozen=True)
 class Event:

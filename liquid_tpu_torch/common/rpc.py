@@ -29,6 +29,10 @@ KIND_ARROW = b"A"
 KIND_ERROR = b"E"
 KIND_END = b"Z"
 
+#: the start of the error a fetch or a metrics call meets on a plan
+#: handle the server does not hold (one registered before a reset)
+UNKNOWN_HANDLE = "unknown plan handle"
+
 
 # -- messages (ref rpc.rs prost structs) ------------------------------------
 

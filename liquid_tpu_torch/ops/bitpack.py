@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from liquid_tpu_torch.device import WORD_BITS, to_i32_bits, wrap_i64
+from liquid_tpu_torch.device import WORD_BITS, srl, to_i32_bits, wrap_i64
 from liquid_tpu_torch.ops import bitpack_cuda
 
 #: Physical plane-count buckets (identical to the reference's).
@@ -60,14 +60,15 @@ def pack_bitplanes_host(values, width: int) -> np.ndarray:
                        bitorder="little").view(np.uint32)
 
 
-def unpack_bitplanes_host(planes) -> np.ndarray:
-    """uint32[bucket, W] -> uint64[W*32]: the planes' bits unpacked, every
-    eight planes summed into one byte of each value."""
+def unpack_bitplanes_host(planes, out_dtype=None) -> np.ndarray:
+    """uint32[bucket, W] -> uint64[W*32] (or `out_dtype`): the planes'
+    bits unpacked, every eight planes summed into one byte of each
+    value."""
     p = np.ascontiguousarray(planes, dtype=np.uint32)
     bucket, w = p.shape
     n = w * WORD_BITS
     if bucket == 0:
-        return np.zeros(n, dtype=np.uint64)
+        return np.zeros(n, dtype=out_dtype or np.uint64)
     nb = (bucket + 7) // 8
     bits = np.zeros((nb * 8, n), dtype=np.uint8)
     bits[:bucket] = np.unpackbits(p.view(np.uint8), axis=1, bitorder="little")
@@ -75,7 +76,8 @@ def unpack_bitplanes_host(planes) -> np.ndarray:
         axis=1, dtype=np.uint8)
     out = np.zeros((n, 8), dtype=np.uint8)
     out[:, :nb] = by.T
-    return out.view("<u8").reshape(n)
+    out = out.view("<u8").reshape(n)
+    return out if out_dtype is None else out.astype(out_dtype)
 
 
 _BYTE_WEIGHTS = np.uint8(1) << np.arange(8, dtype=np.uint8)
@@ -101,14 +103,21 @@ def pack_bitplanes(values: torch.Tensor, width: int) -> torch.Tensor:
 def unpack_bitplanes(planes: torch.Tensor, out_dtype=torch.int64
                      ) -> torch.Tensor:
     """int32[bucket, W] -> out_dtype[W*32] values (int64: the u64 bit
-    images) on the planes' device (reference `:128-140`)."""
-    return unpack_bitplanes_many(planes[None])[0].to(out_dtype)
+    images) on the planes' device (reference `:128-140`); `out_dtype` as
+    in `unpack_bitplanes_many`."""
+    return unpack_bitplanes_many(planes[None], out_dtype)[0]
 
 
-def unpack_bitplanes_many(planes_stack: torch.Tensor) -> torch.Tensor:
-    """int32[B, w, W] -> int64[B, W*32] offsets (the int64 bit image of
-    the reference's u64 values).  Accumulates plane by plane: the
-    reference's [B, w, W, 32] broadcast would need gigabytes at SF1."""
+def unpack_bitplanes_many(planes_stack: torch.Tensor, out_dtype=torch.int64
+                          ) -> torch.Tensor:
+    """int32[B, w, W] -> out_dtype[B, W*32] offsets, by default int64:
+    the bit image of the reference's u64 values.  `out_dtype` is a torch
+    dtype or one of the reference's numpy / JAX dtypes, converted as its
+    `astype` converts them (`_values_as`); tensors here hold no unsigned
+    integer wider than a byte, so uint16 / uint32 / uint64 come back as
+    the bit image of the reference's values in the signed type of their
+    width.  Accumulates plane by plane: the reference's [B, w, W, 32]
+    broadcast would need gigabytes at SF1."""
     bsz, width, w_words = planes_stack.shape
     dev = planes_stack.device
     acc = torch.zeros((bsz, w_words, WORD_BITS), dtype=torch.int64,
@@ -117,7 +126,42 @@ def unpack_bitplanes_many(planes_stack: torch.Tensor) -> torch.Tensor:
     for b in range(width):
         bits = (planes_stack[:, b, :, None] >> shifts) & 1
         acc |= bits.to(torch.int64) << b
-    return acc.reshape(bsz, w_words * WORD_BITS)
+    return _values_as(acc.reshape(bsz, w_words * WORD_BITS), out_dtype)
+
+
+_SIGNED_OF = {8: torch.int8, 16: torch.int16, 32: torch.int32,
+              64: torch.int64}
+_FLOAT_OF = {16: torch.float16, 32: torch.float32, 64: torch.float64}
+
+
+def _values_as(images: torch.Tensor, out_dtype) -> torch.Tensor:
+    """u64 values held as int64 bit images -> `out_dtype` (a torch dtype,
+    or a numpy / JAX dtype), as the reference's `unpack_bitplanes` gives
+    them: an integer is the value's low bits (uint8 exactly, a wider
+    unsigned type as its signed bit image); a bool or float narrower than
+    eight bytes is taken from the value's low 32 bits, since the
+    reference accumulates those in uint32, and a float64 from all 64."""
+    if isinstance(out_dtype, torch.dtype):
+        out_dtype = torch.empty(0, dtype=out_dtype).numpy().dtype
+    dt = np.dtype(out_dtype)
+    bits = dt.itemsize * 8
+    if dt.kind == "b":
+        return (images & 0xFFFFFFFF) != 0
+    if dt.kind in "ui":
+        if bits == 64:
+            return images
+        low = images & ((1 << bits) - 1)
+        if dt == np.uint8:
+            return low.to(torch.uint8)
+        half = 1 << (bits - 1)
+        return ((low ^ half) - half).to(_SIGNED_OF[bits])
+    if dt.kind != "f" or bits not in _FLOAT_OF:
+        raise ValueError(f"unpack to {dt}: not an integer, float or bool")
+    if bits < 64:
+        return (images & 0xFFFFFFFF).to(_FLOAT_OF[bits])
+    # the high word scaled by 2^32 is exact: the sum rounds once
+    return (srl(images, 32).to(torch.float64) * 2.0 ** 32
+            + (images & 0xFFFFFFFF).to(torch.float64))
 
 
 def cmp_const(planes: torch.Tensor, c: int):

@@ -156,9 +156,16 @@ def count(words: torch.Tensor) -> torch.Tensor:
     return popcount32(words).to(torch.int64).sum()
 
 
-def count_many(words: torch.Tensor) -> torch.Tensor:
+def count_many(stacked: torch.Tensor) -> torch.Tensor:
     """Set bits per row of packed masks int32[B, W] -> int64[B]."""
-    return popcount32(words).to(torch.int64).sum(-1)
+    return popcount32(stacked).to(torch.int64).sum(-1)
+
+
+def _pad_words(bools: torch.Tensor) -> torch.Tensor:
+    """bool[N] -> bool[32 * ceil(N / 32)], FALSE past N."""
+    b = bools.to(torch.bool)
+    pad = -b.shape[0] % WORD_BITS
+    return torch.cat([b, b.new_zeros(pad)]) if pad else b
 
 
 def count_host(words: np.ndarray) -> int:
@@ -172,6 +179,17 @@ class BoolMask:
 
     bits: torch.Tensor   # int32[W]
     valid: torch.Tensor  # int32[W]; all-ones => no nulls
+
+    @staticmethod
+    def from_bools(bools: torch.Tensor, valid_bools=None) -> "BoolMask":
+        """Packed from bool[N] truth values and their validity (None: no
+        NULLs), on the tensors' device.  N need not be a multiple of 32:
+        the rows past it pad as FALSE, valid where `valid_bools` is None
+        and NULL otherwise (the reference asks for the padding)."""
+        bits = pack_bools(_pad_words(bools))
+        if valid_bools is None:
+            return BoolMask(bits, torch.full_like(bits, -1))
+        return BoolMask(bits, pack_bools(_pad_words(valid_bools)))
 
     def and_kleene(self, other: "BoolMask") -> "BoolMask":
         # false AND x = false; true AND null = null

@@ -16,6 +16,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 RADIX_BITS = 8
+RADIX = 1 << RADIX_BITS
 
 _SIGNED = {torch.uint8: torch.int8, torch.uint16: torch.int16,
            torch.uint32: torch.int32, torch.uint64: torch.int64}

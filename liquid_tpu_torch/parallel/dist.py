@@ -73,10 +73,16 @@ class Mesh:
         return f"Mesh({[str(d) for d in self.devices]})"
 
 
-def make_mesh(n: Optional[int] = None, devices=None) -> Mesh:
+def make_mesh(n: Optional[int] = None, devices=None,
+              n_devices: Optional[int] = None) -> Mesh:
     """A mesh over `devices` (each resolved as an entry point resolves its
     device: CUDA without a card raises), or over the first `n` visible
-    CUDA devices, every one of them by default."""
+    CUDA devices, every one of them by default.  `n_devices` is the
+    reference's name for `n`."""
+    if n_devices is not None:
+        if n is not None and n != n_devices:
+            raise ValueError(f"n={n} but n_devices={n_devices}")
+        n = n_devices
     if devices is not None:
         devs = [resolve_device(d) for d in devices]
         if n is not None and n != len(devs):

@@ -29,6 +29,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
+import pyarrow.flight as fl
+
+from liquid_tpu_torch.common import rpc
 from liquid_tpu_torch.server.flight import STOP_TIMEOUT_S, _stop_within
 
 
@@ -187,8 +190,14 @@ class AdminServer:
                         self._json({"ok": True,
                                     "trace": [r.__dict__ for r in recs]})
                 elif route == "/execution_metrics":
-                    handle = q.get("handle", [""])[0]
-                    self._json(inner.metrics(handle).__dict__)
+                    try:
+                        m = inner.metrics(q.get("handle", [""])[0])
+                    except fl.FlightServerError as e:
+                        if rpc.UNKNOWN_HANDLE not in str(e):
+                            raise
+                        self._json({"error": str(e)}, 404)
+                    else:
+                        self._json(m.__dict__)
                 elif route == "/execution_plans":
                     self._json({h: {"sql": e["sql"],
                                     "partitions": e["partitions"],

@@ -16,7 +16,12 @@ Where the port departs from the reference on purpose:
   and summed after the join: time to first batch is the earliest
   partition's, from the start of `sql()`;
 - an answer without rows keeps the stream's schema (the reference
-  returns a table without columns).
+  returns a table without columns);
+- a plan handle the server no longer holds (its cache was reset, by this
+  client's `reset_cache` or by another) is answered: `reset_cache`
+  forgets this client's handles, and a fetch that meets the server's
+  `rpc.UNKNOWN_HANDLE` error registers its query again, once, and
+  fetches again; a second failure is raised.
 """
 from __future__ import annotations
 
@@ -35,6 +40,10 @@ from liquid_tpu_torch.utils.tracing import TRACER
 
 #: the registration latch's states (reference `:29`)
 UNREGISTERED, REGISTERING, REGISTERED = 0, 1, 2
+
+
+class StalePlanHandle(RuntimeError):
+    """The server holds no plan under the handle a fetch sent."""
 
 
 class FlightStreamMetrics:
@@ -57,6 +66,9 @@ class LiquidCacheClient:
         self._latch: Dict[str, int] = {}
         self._handles: Dict[str, str] = {}
         self._latch_cv = threading.Condition()
+        #: plans this client has registered with the server, a query
+        #: registered again after a reset included
+        self.registrations = 0
         self.last_metrics: Optional[FlightStreamMetrics] = None
         self._flight = None
         self._conn_lock = threading.Lock()
@@ -113,6 +125,7 @@ class LiquidCacheClient:
             with self._latch_cv:
                 self._handles[sql] = handle
                 self._latch[sql] = REGISTERED
+                self.registrations += 1
                 self._latch_cv.notify_all()
             return handle
         except BaseException:
@@ -139,8 +152,19 @@ class LiquidCacheClient:
                 m.batches += 1
                 m.rows += chunk.data.num_rows
         except (fl.FlightError, pa.ArrowException) as ex:
+            if rpc.UNKNOWN_HANDLE in str(ex):
+                raise StalePlanHandle(f"server error: {ex}") from ex
             raise RuntimeError(f"server error: {ex}") from ex
         return reader.schema, batches, m
+
+    def _forget(self, handles=None) -> None:
+        """Drop the registrations of `handles`, every one by default: their
+        queries register again on their next use."""
+        with self._latch_cv:
+            for sql in [s for s, h in self._handles.items()
+                        if handles is None or h in handles]:
+                del self._handles[sql]
+                self._latch.pop(sql, None)
 
     def sql(self, query: str) -> pa.Table:
         with TRACER.span("client.sql", query=query[:120]):
@@ -148,6 +172,14 @@ class LiquidCacheClient:
 
     def _sql_inner(self, query: str) -> pa.Table:
         handle = self._ensure_registered(query)
+        try:
+            return self._fetch(handle)
+        except StalePlanHandle:
+            self._forget({handle})
+            return self._fetch(self._ensure_registered(query))
+
+    def _fetch(self, handle: str) -> pa.Table:
+        """Every partition of a registered plan, as one table."""
         t0 = time.perf_counter()
         tp = TRACER.current_traceparent()  # on the caller's thread
         results: list = [None] * self.partitions
@@ -167,7 +199,9 @@ class LiquidCacheClient:
             for th in threads:
                 th.join()
             if errors:
-                raise errors[0]
+                raise next((e for e in errors
+                            if not isinstance(e, StalePlanHandle)),
+                           errors[0])
         metrics = FlightStreamMetrics()
         all_batches: List[pa.RecordBatch] = []
         firsts = []
@@ -192,7 +226,10 @@ class LiquidCacheClient:
         return self._call("stats", {})["stats"]
 
     def reset_cache(self) -> None:
+        """Reset the server's cache and plans; this client's handles go
+        with them."""
         self._call("reset", {})
+        self._forget()
 
 
 class LiquidCacheClientBuilder:

@@ -24,7 +24,10 @@ CPU.
   kernel launch counts are plain dicts): partition streams run on their
   own gRPC threads and interleave, but each engine call holds the
   service's engine lock, so one row group or plan executes at a time.
-- A server-side error fails the fetch; the client raises it.
+- A server-side error fails the fetch; the client raises it.  A handle
+  the service does not hold (`reset` clears the plans) fails with a
+  Flight error that names it (`rpc.UNKNOWN_HANDLE`); the client then
+  registers its query again.
 """
 from __future__ import annotations
 
@@ -207,11 +210,19 @@ class LiquidCacheServiceInner:
         with self._engine:
             return QueryExecutor(tables, self.cache.device).execute_sql(sql)
 
+    def _plan(self, handle: str) -> dict:
+        ent = self.plans.get(handle)
+        if ent is None:
+            raise fl.FlightServerError(
+                f"{rpc.UNKNOWN_HANDLE} {handle!r}: the server holds no such "
+                f"plan (reset or never registered); register it again")
+        return ent
+
     def execute_partition_stream(self, handle: str, partition: int):
         """Yield one partition's result in pieces: a partitionable scan one
         table per row group, each executed only when the previous one has
         been taken; any other plan its slice of the whole result."""
-        ent = self.plans[handle]
+        ent = self._plan(handle)
         name = ent.get("scan_table")
         if name is None:
             yield self.execute_partition(handle, partition)
@@ -228,7 +239,7 @@ class LiquidCacheServiceInner:
             ent["runs"] += 1
 
     def execute_partition(self, handle: str, partition: int) -> pa.Table:
-        ent = self.plans[handle]
+        ent = self._plan(handle)
         if ent.get("scan_table") is not None:
             parts = list(self.execute_partition_stream(handle, partition))
             return pa.concat_tables(parts, promote_options="permissive")
@@ -256,7 +267,9 @@ class LiquidCacheServiceInner:
         return len(data)
 
     def metrics(self, handle: str) -> rpc.ExecutionMetricsResponse:
-        ent = self.plans.get(handle)
+        """The plan's pushdown time beside the cache's memory; an empty
+        handle names no plan and reads zero."""
+        ent = self._plan(handle) if handle else None
         st = self.cache.stats()
         return rpc.ExecutionMetricsResponse(
             pushdown_eval_time=ent["eval_ms"] if ent else 0,

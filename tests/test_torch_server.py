@@ -2,7 +2,9 @@
 `tests/test_server.py` (a Flight client and server over localhost, the
 mock object store, the byte cache, the admin routes), against pyarrow,
 plus one aggregate and one partitioned scan answered equal to the JAX
-package's service on the same file.
+package's service on the same file, and one client answering across its
+own and another client's resets (a stale plan handle is a named error
+that the client answers by registering its query again, once).
 
 The server starts once per module on a `device="cpu"` cache; each test
 uses queries of its own, so the tests do not depend on their order.
@@ -21,6 +23,7 @@ torch.set_num_threads(1)
 import numpy as np  # noqa: E402
 import pyarrow as pa  # noqa: E402
 import pyarrow.compute as pc  # noqa: E402
+import pyarrow.flight as fl  # noqa: E402
 import pyarrow.parquet as pq  # noqa: E402
 
 from liquid_tpu_torch.cache.core import LiquidCacheBuilder  # noqa: E402
@@ -32,6 +35,7 @@ from liquid_tpu_torch.server import (  # noqa: E402
     AdminServer, LiquidCacheClientBuilder, LiquidCacheService,
 )
 from liquid_tpu_torch.server import admin as tadmin  # noqa: E402
+from liquid_tpu_torch.server.client import StalePlanHandle  # noqa: E402
 
 TABLE = "mock://b!hits.parquet"
 
@@ -290,6 +294,70 @@ def test_admin_endpoints(served):
     assert out.column("c")[0].as_py() == pc.sum(pc.less(t["val"], 10)).as_py()
     with pytest.raises(urllib.error.HTTPError):
         _http(aaddr, "/nope")
+
+
+@pytest.mark.parametrize("partitions", [1, 3])
+def test_a_client_answers_across_resets(served, partitions):
+    """One client answers the same query before and after its own
+    `reset_cache` and after another client's reset: its reset forgets
+    its handles, and a fetch that meets the server's named error for a
+    stale handle registers the query again, once."""
+    srv, addr, t, *rest = served
+    aaddr = rest[-1]
+    client = _client(addr, partitions)
+    # a partitionable scan (per row group) and an executed-once plan
+    scan = f"SELECT id, val FROM hits WHERE val = {partitions + 40}"
+    agg = ("SELECT name, COUNT(*) AS c FROM hits WHERE val >= "
+           f"{900 + partitions} GROUP BY name ORDER BY name")
+    want = {scan: sorted(t.filter(pc.equal(t["val"], partitions + 40))
+                         ["id"].to_pylist()),
+            agg: t.filter(pc.greater_equal(t["val"], 900 + partitions))
+            .group_by("name").aggregate([("val", "count")])
+            .sort_by("name")["val_count"].to_pylist()}
+
+    def answer(sql):
+        out = client.sql(sql)
+        return sorted(out["id"].to_pylist()) if sql == scan \
+            else out["c"].to_pylist()
+
+    for sql in want:
+        assert answer(sql) == want[sql]
+    assert client.registrations == 2
+    stale = dict(client._handles)
+    client.reset_cache()
+    assert client._handles == {} and srv.inner.plans == {}
+    for sql in want:
+        assert answer(sql) == want[sql]
+    assert client.registrations == 4
+    # another client's reset leaves this one's handles stale
+    _client(addr).reset_cache()
+    for sql in want:
+        assert answer(sql) == want[sql]
+    assert client.registrations == 6
+    with pytest.raises(urllib.error.HTTPError) as ex:
+        _http(aaddr, f"/execution_metrics?handle={stale[agg]}")
+    assert ex.value.code == 404
+    # the service names the handle it does not hold
+    for call in (lambda h: srv.inner.execute_partition(h, 0),
+                 lambda h: next(srv.inner.execute_partition_stream(h, 0)),
+                 srv.inner.metrics):
+        with pytest.raises(fl.FlightServerError,
+                           match=f"{rpc.UNKNOWN_HANDLE} '{stale[scan]}'"):
+            call(stale[scan])
+
+
+def test_a_second_stale_handle_is_raised(served, monkeypatch):
+    """A fetch re-registers its query once; if the server still holds no
+    plan under the new handle, the client raises."""
+    srv, addr, *_ = served
+    client = _client(addr)
+    sql = "SELECT COUNT(*) AS c FROM hits WHERE val = 7"
+    client.sql(sql)
+    client._handles[sql] = "gone"  # a handle the server never held
+    monkeypatch.setattr(srv.inner, "register_plan", lambda *a, **k: None)
+    with pytest.raises(StalePlanHandle, match=rpc.UNKNOWN_HANDLE):
+        client.sql(sql)
+    assert client.registrations == 2
 
 
 def test_execution_plans_mark_a_run_scan_executed(served):

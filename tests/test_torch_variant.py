@@ -419,15 +419,15 @@ def test_jsonbench_uncapped_equals_the_reference_and_the_oracle(jsonbench,
 
 
 def test_jsonbench_capped_shreds_and_answers(jsonbench, tmp_path):
-    """Capped at 1.5x the column's arrow bytes (a block inserted as a
-    slice of its row group is charged the row group's buffers, so a
-    smaller cap sends every block straight to disk), the default policy
-    shreds the variant blocks, the warm runs read shredded paths with no
-    IO, and every answer equals the oracle.  The reference fails there:
-    a scan that reads some blocks as shredded structs and others as JSON
-    text cannot concatenate them."""
+    """Capped at half the column's arrow bytes (each block is charged the
+    bytes of its slice of the row group), the default policy shreds the
+    variant blocks, the warm runs read shredded paths with no IO, and
+    every answer equals the oracle.  The reference fails at 1.5x, where
+    its charge of the whole row group per block lets it shred: a scan
+    that reads some blocks as shredded structs and others as JSON text
+    cannot concatenate them."""
     path, table, want = jsonbench
-    cap = table.column("event").nbytes * 3 // 2
+    cap = table.column("event").nbytes // 2
     ctx, cache = (LiquidCacheLocalBuilder(device="cpu")
                   .with_max_memory_bytes(cap)
                   .with_cache_dir(str(tmp_path / "t")).build())
@@ -440,7 +440,8 @@ def test_jsonbench_capped_shreds_and_answers(jsonbench, tmp_path):
             assert json_bench.same_rows(g, w, i in (0, 1)), i
     assert s["squeezes"] > 0 and s["squeeze_io_saved"] - saved > 0
     assert s["memory_used"] <= cap
-    jctx, _ = (JBuilder().with_max_memory_bytes(cap)
+    jctx, _ = (JBuilder().with_max_memory_bytes(
+        table.column("event").nbytes * 3 // 2)
                .with_cache_dir(str(tmp_path / "j")).build())
     with pytest.raises(pa.ArrowInvalid, match="Schema at index"):
         _run_bench(jctx, path)
@@ -448,12 +449,12 @@ def test_jsonbench_capped_shreds_and_answers(jsonbench, tmp_path):
 
 def test_json_caps_sweep_reports_each_cap(jsonbench, tmp_path):
     """`bench/json_caps.sweep` at 20,000 events (3 blocks): one row per
-    cap, every block in some state, squeezes at 1.5x the column's bytes
+    cap, every block in some state, squeezes at 0.5x the column's bytes
     and none at 40x (exact counts)."""
     from liquid_tpu_torch.bench import json_caps
     path, table, _want = jsonbench
-    rows = list(json_caps.sweep(path, [1.5, 40.0], "cpu", str(tmp_path)))
-    assert [r["fraction"] for r in rows] == [1.5, 40.0]
+    rows = list(json_caps.sweep(path, [0.5, 40.0], "cpu", str(tmp_path)))
+    assert [r["fraction"] for r in rows] == [0.5, 40.0]
     for r in rows:
         assert r["blocks"] == 3 and sum(r["by_state"].values()) == 3
         assert r["column_bytes"] == table.column("event").nbytes
