@@ -1,0 +1,13 @@
+"""ClickBench q12: counts by non-empty SearchPhrase, top ten."""
+from typing import List
+
+import pyarrow as pa
+
+from cachebench.reference.common import counts
+
+
+CUT = ((1,), 0, 10)
+
+
+def answer(db) -> List[pa.Array]:
+    return counts(db, ["SearchPhrase"], True, 10)

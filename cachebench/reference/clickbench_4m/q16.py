@@ -1,0 +1,13 @@
+"""ClickBench q16: counts by UserID and SearchPhrase, top ten."""
+from typing import List
+
+import pyarrow as pa
+
+from cachebench.reference.common import counts
+
+
+CUT = ((2,), 0, 10)
+
+
+def answer(db) -> List[pa.Array]:
+    return counts(db, ["UserID", "SearchPhrase"], False, 10)
