@@ -64,7 +64,7 @@ from liquid_tpu_torch.cache.store import BlockStore
 from liquid_tpu_torch.device import resolve_device
 from liquid_tpu_torch.ops import mask as mops
 from liquid_tpu_torch.utils import sync as _sync
-from liquid_tpu_torch.utils.tracing import TRACER
+from liquid_tpu_torch.utils.tracing import TRACER, to_host
 
 # entry states (the reference's names)
 MEMORY_ARROW = "memory_arrow"
@@ -464,7 +464,7 @@ class LiquidCache:
         if arr is None:
             return None
         if selection is not None:
-            sel = mops.unpack_bits(selection).cpu().numpy()[: len(arr)]
+            sel = to_host(mops.unpack_bits(selection)).numpy()[: len(arr)]
             arr = arr.take(pa.array(np.flatnonzero(sel), type=pa.int64()))
         return arr
 
@@ -731,7 +731,7 @@ class LiquidCache:
             stack = words_to_tensor(np.stack([p.planes_np
                                               for _, p in items]),
                                     self.device)
-            offs = bp.unpack_bitplanes_many(stack).cpu().numpy()
+            offs = to_host(bp.unpack_bitplanes_many(stack)).numpy()
             for j, (i, p) in enumerate(items):
                 results[i] = p.decode_from_offsets(offs[j])
         for i, eid in slow:

@@ -18,6 +18,7 @@ import torch
 from liquid_tpu_torch.ops import bitpack as bp
 from liquid_tpu_torch.ops import floatbits
 from liquid_tpu_torch.ops.mask import pack_bools
+from liquid_tpu_torch.utils.tracing import to_host
 
 #: below this raw-byte estimate the plain per-column fetch is used
 MIN_PACK_BYTES = 1 << 21
@@ -102,10 +103,10 @@ def fetch_columns(cols: Sequence[torch.Tensor], g: int) -> List[np.ndarray]:
     STATS["raw_bytes"] += raw_bytes
     if raw_bytes < MIN_PACK_BYTES or w2 % 32 or g <= 0:
         STATS["wire_bytes"] += raw_bytes
-        return [c.cpu().numpy() for c in cols]
+        return [to_host(c).numpy() for c in cols]
     imgs, tags = zip(*[_as_i64_image(c) for c in cols])
     mat = torch.stack(imgs)
-    hdr = _minmax(mat, g).cpu().numpy()
+    hdr = to_host(_minmax(mat, g)).numpy()
     mins = hdr[:, 0]
     widths = []
     for i in range(len(cols)):
@@ -115,9 +116,10 @@ def fetch_columns(cols: Sequence[torch.Tensor], g: int) -> List[np.ndarray]:
             continue
         widths.append(bp.bucket_for(bp.bit_width_for(span)))
     raw_ix = [i for i, w in enumerate(widths) if w >= RAW_WIDTH]
-    packed = _pack_planes(mat, widths, torch.from_numpy(mins).to(mat.device),
-                          g).cpu().numpy().view(np.uint32)
-    raws = mat[raw_ix].cpu().numpy() if raw_ix \
+    packed = to_host(_pack_planes(
+        mat, widths, torch.from_numpy(mins).to(mat.device),
+        g)).numpy().view(np.uint32)
+    raws = to_host(mat[raw_ix]).numpy() if raw_ix \
         else np.zeros((0, w2), np.int64)
     STATS["packed_fetches"] += 1
     STATS["wire_bytes"] += hdr.nbytes + packed.nbytes + raws.nbytes

@@ -29,6 +29,7 @@ import torch
 
 from liquid_tpu_torch.ops import groupby as gops
 from liquid_tpu_torch.ops import hashagg as hops
+from liquid_tpu_torch.utils.tracing import TRACER, to_device, to_host
 
 #: aggregate kinds the device path implements
 DEVICE_KINDS = frozenset(
@@ -211,11 +212,11 @@ def _to_dev(a: np.ndarray, device) -> torch.Tensor:
     wrap alike)."""
     if a.dtype == np.uint64:
         a = a.view(np.int64)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return to_device(torch.from_numpy(np.ascontiguousarray(a)), device)
 
 
 def _from_dev(t: torch.Tensor, dtype) -> np.ndarray:
-    a = t.cpu().numpy()
+    a = to_host(t).numpy()
     return a.view(np.uint64) if np.dtype(dtype) == np.uint64 else a
 
 
@@ -364,6 +365,7 @@ class DeviceGroupedAggregator:
             counts = [np.concatenate([a, b]) for a, b in zip(counts, pcnt)]
         return kcodes, knulls, vals, vnulls, counts
 
+    @TRACER.trace("agg.reduce")
     def _reduce(self):
         """One grouped reduction over everything buffered -> (g, ukeys,
         uknulls, outs, vcounts) as numpy, sliced to the g groups."""
@@ -404,29 +406,29 @@ class DeviceGroupedAggregator:
                     hops.hash_group_reduce_packed(
                         dcodes, dknulls, dvalid, dvals, dvnulls, kinds,
                         n_slots, salt)
-                mat = mat_d.cpu().numpy()
+                mat = to_host(mat_d).numpy()
                 if mat[0, 0]:
                     g = int(mat[0, 1])
                     if g <= mat.shape[1]:
                         return self._unpack_hash(mat, nk, nv)
                     # more groups than the packed width: fetch them all
-                    return (g, [u[:g].cpu().numpy() for u in ukeys],
-                            [u[:g].cpu().numpy() for u in uknulls],
+                    return (g, [to_host(u[:g]).numpy() for u in ukeys],
+                            [to_host(u[:g]).numpy() for u in uknulls],
                             [_from_dev(o[:g], r.dtype)
                              for o, r in zip(outs[:nr], self._rslots)],
-                            [o[:g].cpu().numpy() for o in outs[nr:]])
+                            [to_host(o[:g]).numpy() for o in outs[nr:]])
                 if n_slots == hops.MAX_SLOTS:
                     break
             self._hash_dirty = True
             STATS["hash_agg_fallbacks"] += 1
         ng, ukeys, uknulls, outs, _vc = gops.group_reduce(
             dcodes, dknulls, dvalid, dvals, dvnulls, kinds)
-        g = int(ng)
-        return (g, [u[:g].cpu().numpy() for u in ukeys],
-                [u[:g].cpu().numpy() for u in uknulls],
+        g = int(to_host(ng))
+        return (g, [to_host(u[:g]).numpy() for u in ukeys],
+                [to_host(u[:g]).numpy() for u in uknulls],
                 [_from_dev(o[:g], r.dtype)
                  for o, r in zip(outs[:nr], self._rslots)],
-                [o[:g].cpu().numpy() for o in outs[nr:]])
+                [to_host(o[:g]).numpy() for o in outs[nr:]])
 
     def _unpack_hash(self, mat: np.ndarray, nk: int, nv: int):
         """Parse the packed matrix (row 0 the header, then ukeys, uknulls,
@@ -573,7 +575,8 @@ class DeviceScalarAggregator:
             # one fetch for every slot's value and count
             state = [None if s is None else _from_dev(s, r.dtype)[()]
                      for s, r in zip(self._state, self._rslots)]
-            counts = [0 if c is None else int(c) for c in self._counts]
+            counts = [0 if c is None else int(to_host(c))
+                      for c in self._counts]
         cols = {}
         j = 0
         for s in self.slots:

@@ -33,6 +33,7 @@ import pyarrow.compute as pc
 import torch
 
 from liquid_tpu_torch.sql.device_agg import DeviceUnsupported, KeyCodec
+from liquid_tpu_torch.utils.tracing import to_host
 
 #: joins by route: "device_joins" sort and probe on the engine's device,
 #: "host_joins" in numpy (small), "fallback_joins" go to pyarrow
@@ -129,23 +130,23 @@ def _sort_merge(build: np.ndarray, probe: np.ndarray, kind: str, device):
     skeys, perm = jops.sort_build(torch.from_numpy(build).to(device))
     lo, hi = jops.probe_bounds(skeys, torch.from_numpy(probe).to(device))
     counts_d = hi - lo
-    counts = counts_d.cpu().numpy()
+    counts = to_host(counts_d).numpy()
     total = int(counts.sum())
     if total:
         cap = 1 << max(0, math.ceil(math.log2(total)))
         p_d, bpos_d, valid_d = jops.expand_matches(lo, counts_d, cap)
         # one fetch of the matched pairs, the build rows mapped on the card
-        pairs = torch.stack([p_d.to(torch.int64)[:total],
-                             perm.to(torch.int64)[bpos_d.to(torch.int64)
-                                                  [:total]]]).cpu().numpy()
+        pairs = to_host(torch.stack([
+            p_d.to(torch.int64)[:total],
+            perm.to(torch.int64)[bpos_d.to(torch.int64)[:total]]])).numpy()
         p_idx, b_idx = pairs[0], pairs[1]
     else:
         p_idx = b_idx = np.empty(0, np.int64)
     b_matched = None
     if kind == "full":
-        flags = jops.matched_flags(skeys, lo, hi).cpu().numpy()
+        flags = to_host(jops.matched_flags(skeys, lo, hi)).numpy()
         b_matched = np.zeros(n_b, bool)
-        b_matched[perm.cpu().numpy()] = flags
+        b_matched[to_host(perm).numpy()] = flags
     return p_idx, b_idx, counts, b_matched
 
 

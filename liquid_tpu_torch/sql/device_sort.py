@@ -18,6 +18,8 @@ import numpy as np
 import pyarrow as pa
 import torch
 
+from liquid_tpu_torch.utils.tracing import to_device, to_host
+
 STATS = {"device_sorts": 0, "fallback_sorts": 0, "topk_sorts": 0}
 
 #: below this row count the permutation is computed with numpy lexsort
@@ -114,11 +116,11 @@ def try_sort_indices(arrays: List[pa.Array],
         codes, _ = keys[0]
         # codes are ascending-monotone (desc already folded via ~);
         # top_k returns the LARGEST k, so ask for the reversed key
-        _, idx = top_k_rows(torch.from_numpy(~codes).to(device), int(limit),
-                            descending=True)
+        _, idx = top_k_rows(to_device(torch.from_numpy(~codes), device),
+                            int(limit), descending=True)
         STATS["topk_sorts"] += 1
         STATS["device_sorts"] += 1
-        return idx.cpu().numpy().astype(np.int64)
+        return to_host(idx).numpy().astype(np.int64)
 
     # lexsort: last key is primary; within a key the null flag dominates
     lex = []
@@ -129,7 +131,8 @@ def try_sort_indices(arrays: List[pa.Array],
         perm = np.lexsort(tuple(lex))
     else:
         from liquid_tpu_torch.ops.sort import lexsort
-        perm = lexsort([torch.from_numpy(np.ascontiguousarray(k)).to(device)
-                        for k in lex]).cpu().numpy()
+        perm = to_host(lexsort([
+            to_device(torch.from_numpy(np.ascontiguousarray(k)), device)
+            for k in lex])).numpy()
         STATS["device_sorts"] += 1
     return perm.astype(np.int64)

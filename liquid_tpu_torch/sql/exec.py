@@ -101,6 +101,10 @@ class QueryExecutor:
         self.views: Dict[str, object] = {}
         #: statement-scoped: id(Select) -> (the Select, its value)
         self._scalar_cache: Dict[int, tuple] = {}
+        #: the statement's `sql.execute` span (None while tracing is off)
+        #: and how deep `execute` is nested (1: the outermost query)
+        self._span = None
+        self._depth = 0
 
     # -- statements --------------------------------------------------------
 
@@ -118,7 +122,8 @@ class QueryExecutor:
         return Qualifier(self._base_columns).qualify(q)
 
     def execute_sql(self, sql: str) -> pa.Table:
-        with TRACER.span("sql.execute", sql=sql[:120]):
+        with TRACER.span("sql.execute", sql=sql[:120]) as span:
+            self._span = span
             self._scalar_cache.clear()
             stmt = parse_statement(sql)
             if stmt[0] == "create_view":
@@ -206,9 +211,29 @@ class QueryExecutor:
             out = out.slice(0, u.limit)
         return out
 
+    def _answered(self, route: str, bail_key: Optional[str] = None) -> None:
+        """Name on the statement's `sql.execute` span the route that
+        answered its outermost query (`route`: metadata, distinct, fused,
+        star, select or classic) and, where the fused routes passed it
+        on, why (`bail`: `fused_agg.STATS[bail_key]`)."""
+        if self._span is None or self._depth != 1:
+            return
+        bail = None
+        if bail_key is not None:
+            from liquid_tpu_torch.sql.fused_agg import STATS as FUSED_STATS
+            bail = FUSED_STATS.get(bail_key)
+        self._span.attrs.update(route=route, bail=bail)
+
     # -- queries -----------------------------------------------------------
 
     def execute(self, q) -> pa.Table:
+        self._depth += 1
+        try:
+            return self._execute(q)
+        finally:
+            self._depth -= 1
+
+    def _execute(self, q) -> pa.Table:
         if isinstance(q, ast.SetOp):
             # a nested chain (derived table, CTE or view body), its members
             # qualified by the enclosing pass
@@ -398,11 +423,14 @@ class QueryExecutor:
             with TRACER.span("sql.fused_select"):
                 fsel = try_fused_select(self, table, rq, rew_where)
             if fsel is not None:
+                self._answered("select")
                 return fsel
             STATS["classic_selects"] += 1
+            self._answered("classic", "last_bail")
             out, internal = self._scan_plain(rq, table, star, extras)
         else:
             STATS["classic_selects"] += 1
+            self._answered("classic")
             joined = self._join_source(q)
             batch = Batch.from_table(joined)
             rq = self._rewrite_query(q, scope, q.where)
@@ -552,6 +580,9 @@ class QueryExecutor:
                                      rew_keys, rew_inputs)
         if final is None:
             STATS["classic_aggregates"] += 1
+            self._answered("classic", "last_bail" if table is not None else
+                           "star_last_bail" if isinstance(q.from_, ast.Join)
+                           else None)
             final = self._classic_aggregate(q, table, scope, group,
                                             key_names, slots, rew_keys,
                                             rew_inputs)
@@ -650,6 +681,7 @@ class QueryExecutor:
                 and all(s.kind == "count_star" for s in slots)
                 and not plan.pushdown and not plan.residual):
             # COUNT(*) without a filter: parquet metadata only
+            self._answered("metadata")
             return pa.table({s.name: pa.array([table.num_rows], pa.int64())
                              for s in slots})
         from liquid_tpu_torch.sql import fused_agg
@@ -667,11 +699,15 @@ class QueryExecutor:
                         fused_agg.try_fused_aggregate(
                             table, plan, hints, g2, kn2, s2, rk2, ri2))
                 if final is not None:
+                    self._answered("distinct")
                     return final
         with TRACER.span("sql.fused_aggregate"):
-            return fused_agg.try_fused_aggregate(
+            final = fused_agg.try_fused_aggregate(
                 table, plan, hints, group, key_names, slots, rew_keys,
                 rew_inputs, rq, especs)
+        if final is not None:
+            self._answered("fused")
+        return final
 
     def _fused_star(self, q, scope, group, key_names, slots, rew_keys,
                     rew_inputs) -> Optional[pa.Table]:
@@ -698,6 +734,8 @@ class QueryExecutor:
             if final is None:
                 final = try_fused_star(self, rq, group, key_names, slots,
                                        rew_keys, rew_inputs, where)
+        if final is not None:
+            self._answered("star")
         return final
 
     def _classic_aggregate(self, q, table, scope, group, key_names, slots,
@@ -711,18 +749,20 @@ class QueryExecutor:
         input_types: Dict[str, pa.DataType] = {}
 
         def update_from(batch: Batch):
-            ev = Evaluator(batch, self._scalar_subquery)
-            inputs: Dict[str, pa.Array] = {}
-            for s in slots:
-                if s.input is not None:
-                    arr = ev.arr(rew_inputs[s.name])
-                    inputs[s.name] = arr
-                    input_types.setdefault(s.name, arr.type)
-            if group:
-                agg.update([ev.arr(ge) for ge in rew_keys], inputs,
-                           batch.length)
-            else:
-                agg.update(inputs, batch.length)
+            # the inputs' evaluation, the keys' encoding and the buffering
+            with TRACER.span("agg.update"):
+                ev = Evaluator(batch, self._scalar_subquery)
+                inputs: Dict[str, pa.Array] = {}
+                for s in slots:
+                    if s.input is not None:
+                        arr = ev.arr(rew_inputs[s.name])
+                        inputs[s.name] = arr
+                        input_types.setdefault(s.name, arr.type)
+                if group:
+                    agg.update([ev.arr(ge) for ge in rew_keys], inputs,
+                               batch.length)
+                else:
+                    agg.update(inputs, batch.length)
 
         if table is not None:
             hints = column_hints(q)
@@ -744,29 +784,35 @@ class QueryExecutor:
 
             for block in scan_blocks(table, plan, hints, need,
                                      subquery=self._scalar_subquery):
-                if not need:
-                    if group:  # constant keys: a batch of the right length
-                        update_from(Batch({}, block.num_selected))
-                    else:
-                        plain_rows += block.num_selected
-                    continue
-                buf.append(pa.table({c: block.col(c, hints.get(c))
-                                     for c in need}))
-                buf_rows += block.num_selected
-                if buf_rows >= (1 << 18):
-                    flush()
+                # one span per block: scan_blocks' own work, between the
+                # blocks, stays under the statement's span
+                with TRACER.span("exec.scan"):
+                    if not need:
+                        if group:  # constant keys: a batch of the right length
+                            update_from(Batch({}, block.num_selected))
+                        else:
+                            plain_rows += block.num_selected
+                        continue
+                    buf.append(pa.table({c: block.col(c, hints.get(c))
+                                         for c in need}))
+                    buf_rows += block.num_selected
+                    if buf_rows >= (1 << 18):
+                        flush()
             flush()
             if plain_rows:
-                agg.update({}, plain_rows)
+                with TRACER.span("agg.update"):
+                    agg.update({}, plain_rows)
         else:
             joined = self._join_source(q)
             if joined.num_rows:
                 update_from(Batch.from_table(joined))
             elif not group:
-                agg.update({s.name: pa.array(
-                    [], input_types.get(s.name) or pa.int64())
-                    for s in slots if s.input is not None}, 0)
-        final = agg.finalize() if group else agg.finalize(input_types)
+                with TRACER.span("agg.update"):
+                    agg.update({s.name: pa.array(
+                        [], input_types.get(s.name) or pa.int64())
+                        for s in slots if s.input is not None}, 0)
+        with TRACER.span("agg.finalize"):
+            final = agg.finalize() if group else agg.finalize(input_types)
         if final.num_rows == 0 and table is not None:
             # no update typed the columns: the schema does
             final = _retype_empty(final, group, slots, rew_inputs, table)
@@ -1359,6 +1405,7 @@ class QueryExecutor:
 
     # -- projection --------------------------------------------------------
 
+    @TRACER.trace("exec.project")
     def _project(self, q: ast.Select, group, slots,
                  final: pa.Table) -> pa.Table:
         """The select items, HAVING and ORDER BY / LIMIT over the partial
@@ -1384,6 +1431,7 @@ class QueryExecutor:
             final = final.filter(keep)
         return self._order_limit(q, result, final, mapping)
 
+    @TRACER.trace("exec.order_limit")
     def _order_limit(self, q: ast.Select, result: pa.Table,
                      internal: Optional[pa.Table], mapping) -> pa.Table:
         if q.order_by and result.num_rows:

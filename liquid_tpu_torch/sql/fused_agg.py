@@ -74,6 +74,7 @@ from liquid_tpu_torch.ops import hashagg as hops
 from liquid_tpu_torch.ops import mask as mops
 from liquid_tpu_torch.ops.groupby import scalar_reduce
 from liquid_tpu_torch.sql import ast
+from liquid_tpu_torch.utils.tracing import TRACER, to_device, to_host
 
 _U64MAX = (1 << 64) - 1
 _W = BLOCK_ROWS // 32
@@ -481,8 +482,8 @@ _CMP_FNS = {"==": torch.eq, "!=": torch.ne, "<": torch.lt, "<=": torch.le,
 
 
 def _lit(env, v, dt: str) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float64 if dt == "f64"
-                        else torch.int64, device=env.device)
+    return to_device(torch.tensor(v, dtype=torch.float64 if dt == "f64"
+                                  else torch.int64), env.device)
 
 
 def eval_ir_nulls(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -548,7 +549,7 @@ def _bool3(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
         return _CMP_FNS[op](lv, rv) & ~unk, unk
     if tag == "inints":
         v = env.decode(ir[1], ir[3])
-        want = torch.tensor(ir[2], dtype=v.dtype, device=env.device)
+        want = to_device(torch.tensor(ir[2], dtype=v.dtype), env.device)
         unk = env.nulls(ir[1])
         return torch.isin(v, want) & ~unk, unk
     if tag == "incodes":
@@ -556,7 +557,8 @@ def _bool3(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
         unk = env.nulls(ir[1])
         if not ir[2]:
             return torch.zeros_like(gids, dtype=torch.bool), unk
-        want = torch.tensor(ir[2], dtype=torch.int64, device=env.device)
+        want = to_device(torch.tensor(ir[2], dtype=torch.int64),
+                         env.device)
         return torch.isin(gids, want) & ~unk, unk
     if tag == "unknown":
         return (torch.zeros((), dtype=torch.bool, device=env.device),
@@ -871,7 +873,7 @@ def _string_key_lut(ge: ast.Expr, kinds_view, p: "_Plan", dev):
     if any(v is None for v in vals):
         uniq.append(None)  # keyed by the trailing NULL id
     lut = np.array([idx.get(v, len(idx)) for v in vals], np.int64)
-    aix = _add(p, torch.from_numpy(lut).to(dev))
+    aix = _add(p, to_device(torch.from_numpy(lut), dev))
     return ("lut", c, aix, "i64"), {c}, uniq
 
 
@@ -1683,11 +1685,11 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
                                  and not isinstance(v, bool)) for v in vals):
                 arr = np.array([0 if v is None else int(v) for v in vals],
                                np.int64)
-                return _add(p, torch.from_numpy(arr).to(dev)), "i64"
+                return _add(p, to_device(torch.from_numpy(arr), dev)), "i64"
             if all(v is None or isinstance(v, numbers.Real) for v in vals):
                 arr = np.array([0.0 if v is None else float(v)
                                 for v in vals], np.float64)
-                return _add(p, torch.from_numpy(arr).to(dev)), "f64"
+                return _add(p, to_device(torch.from_numpy(arr), dev)), "f64"
             return None
 
     def dictres(c, op, lit):
@@ -1850,9 +1852,9 @@ def add_exist_probes(p: _Plan, eprobes, dev) -> None:
             if pr.minv is None:
                 raise _Bail("existence probe without its min / max")
             mn, mx = _add(p, pr.minv), _add(p, pr.maxv)
-        p.eprobes.append((sp["col"], _add(p, pr.cnt), _add(p, torch.tensor(
-            pr.lo, dtype=torch.int64, device=dev)), sp["mode"], mn, mx,
-            sp["mmcol"] or ""))
+        p.eprobes.append((sp["col"], _add(p, pr.cnt), _add(p, to_device(
+            torch.tensor(pr.lo, dtype=torch.int64), dev)), sp["mode"], mn,
+            mx, sp["mmcol"] or ""))
 
 
 def _prep_device(pr: _ColPrep) -> torch.device:
@@ -1875,10 +1877,10 @@ def register_col(p: _Plan, c: str, pr: _ColPrep, gids: bool) -> None:
     if pr.kind == "float":
         ix["inv"] = _add(p, pr.inv)
         if pr.patch_rows is not None:
-            ix["patch_rows"] = _add(p, torch.from_numpy(
-                pr.patch_rows).to(dev))
-            ix["patch_vals"] = _add(p, torch.from_numpy(
-                pr.patch_vals).to(dev))
+            ix["patch_rows"] = _add(p, to_device(torch.from_numpy(
+                pr.patch_rows), dev))
+            ix["patch_vals"] = _add(p, to_device(torch.from_numpy(
+                pr.patch_vals), dev))
     if pr.kind == "linear":
         ix["lin"] = _add(p, pr.lin_stack)
     if pr.valid_stack is not None:
@@ -1894,7 +1896,7 @@ def pred_alt(p: _Plan, c: str, pred: Predicate, pr: _ColPrep) -> tuple:
     dev = _prep_device(pr)
 
     def bounds(a):
-        return _add(p, torch.from_numpy(u64_to_i64(a)).to(dev))
+        return _add(p, to_device(torch.from_numpy(u64_to_i64(a)), dev))
 
     if pr.kind == "planes":
         iv = _primitive_interval(pr.payloads, pred)
@@ -1915,7 +1917,7 @@ def pred_alt(p: _Plan, c: str, pred: Predicate, pr: _ColPrep) -> tuple:
     lut = _dict_lut(pr.payloads, pred, pr.dmax)  # dict: verdicts per code
     if lut is None:
         raise _Bail(f"string predicate {pred.op} on {c}")
-    return ("lut", c, _add(p, torch.from_numpy(lut).to(dev)))
+    return ("lut", c, _add(p, to_device(torch.from_numpy(lut), dev)))
 
 
 def _scaled_col_info(p: _Plan, name: str, pr: _ColPrep):
@@ -1950,9 +1952,9 @@ def _scaled_col_info(p: _Plan, name: str, pr: _ColPrep):
         return None  # column not registered in this plan
     if "smult" not in ix:
         dev = pr.planes_stack.device
-        ix["smult"] = _add(p, torch.from_numpy(mult).to(dev))
+        ix["smult"] = _add(p, to_device(torch.from_numpy(mult), dev))
         if spatch is not None:
-            ix["spatch"] = _add(p, torch.from_numpy(spatch).to(dev))
+            ix["spatch"] = _add(p, to_device(torch.from_numpy(spatch), dev))
     return (e_max, ma)
 
 
@@ -2136,24 +2138,30 @@ def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
     """Run a planned aggregate: the empty-scan shortcut, else the scalar
     program, the direct-address program or the hash ladder, and one
     fetch.  Returns the partial result (key columns + slot columns), or
-    None when the ladder did not converge."""
+    None when the ladder did not converge.  Spans: `fused.issue` around
+    each enqueue of the program, `fused.finish` around the host's result
+    building after its fetch."""
     nv = len(p.rslots)
     if empty:
         # every block pruned by stats/zones: typed result, zero data IO
-        if mode == "scalar":
-            STATS["fused_scalar"] += 1
-            return _finalize_scalar(p, slots, np.zeros(nv, np.int64),
-                                    np.zeros(nv, np.int64))
-        STATS["fused_grouped"] += 1
-        nk = len(p.keys)
-        return _build_result(p, slots, 0, [np.zeros(0, np.int64)] * nk,
-                             [np.zeros(0, bool)] * nk,
-                             [np.zeros(0, np.int64)] * nv,
-                             [np.zeros(0, np.int64)] * nv)
+        with TRACER.span("fused.finish"):
+            if mode == "scalar":
+                STATS["fused_scalar"] += 1
+                return _finalize_scalar(p, slots, np.zeros(nv, np.int64),
+                                        np.zeros(nv, np.int64))
+            STATS["fused_grouped"] += 1
+            nk = len(p.keys)
+            return _build_result(p, slots, 0, [np.zeros(0, np.int64)] * nk,
+                                 [np.zeros(0, bool)] * nk,
+                                 [np.zeros(0, np.int64)] * nv,
+                                 [np.zeros(0, np.int64)] * nv)
     if mode == "scalar":
         STATS["fused_scalar"] += 1
-        packed = _fused_core(p).cpu().numpy()
-        return _finalize_scalar(p, slots, packed[:nv], packed[nv:])
+        with TRACER.span("fused.issue"):
+            out = _fused_core(p)
+        packed = to_host(out).numpy()
+        with TRACER.span("fused.finish"):
+            return _finalize_scalar(p, slots, packed[:nv], packed[nv:])
 
     STATS["fused_grouped"] += 1
     n_rows = int(p.arrays[p.rv_ix].shape[0]) * BLOCK_ROWS
@@ -2166,18 +2174,23 @@ def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
         cap = min(1 << 27, (3 << 30) // (8 * ncols))
         if 0 < m <= cap:
             grouped = ("direct", tuple(span for _, span in domains),
-                       torch.tensor([lo for lo, _ in domains],
-                                    dtype=torch.int64,
-                                    device=p.arrays[p.rv_ix].device),
+                       to_device(torch.tensor([lo for lo, _ in domains],
+                                              dtype=torch.int64),
+                                 p.arrays[p.rv_ix].device),
                        _k2_plan(p, m, n_rows), p.having or ())
             tkspec = _mk_topk_spec(topk, m)
-            out = _fused_core(p, grouped, tkspec)
+            with TRACER.span("fused.issue"):
+                out = _fused_core(p, grouped, tkspec)
             if tkspec:
-                r = _finish_topk(p, slots, topk, out[3].cpu().numpy())
+                mini = to_host(out[3]).numpy()
+                with TRACER.span("fused.finish"):
+                    r = _finish_topk(p, slots, topk, mini)
                 if r is not None:
                     return r
-                out = _fused_core(p, grouped)  # boundary tie: full fetch
-            return _fetch_result(p, slots, out)
+                with TRACER.span("fused.issue"):  # boundary tie: full fetch
+                    out = _fused_core(p, grouped)
+            with TRACER.span("fused.finish"):
+                return _fetch_result(p, slots, out)
 
     hint_key = ("stage", tuple(_red_keys(p)))
     if not hasattr(table, "_fused_stage_hint"):
@@ -2198,19 +2211,24 @@ def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
         rounds = 1 if bound * bound <= n_slots else 3
         grouped = ("hash", n_slots, salt, rounds)
         tkspec = _mk_topk_spec(topk, rounds * n_slots)
-        out = _fused_core(p, grouped, tkspec)
+        with TRACER.span("fused.issue"):
+            out = _fused_core(p, grouped, tkspec)
         # with top-k only the clean flag is fetched first
-        mat = None if tkspec else out[0].cpu().numpy()
-        if not (bool(out[1]) if tkspec else mat[0, 0]):
+        mat = None if tkspec else to_host(out[0]).numpy()
+        if not (bool(to_host(out[1])) if tkspec else mat[0, 0]):
             STATS["fused_retries"] += 1
             continue
         stage_hint[hint_key] = si
         if tkspec:
-            r = _finish_topk(p, slots, topk, out[3].cpu().numpy())
+            mini = to_host(out[3]).numpy()
+            with TRACER.span("fused.finish"):
+                r = _finish_topk(p, slots, topk, mini)
             if r is not None:
                 return r
-            out = _fused_core(p, grouped)
-        return _fetch_result(p, slots, out, mat)
+            with TRACER.span("fused.issue"):
+                out = _fused_core(p, grouped)
+        with TRACER.span("fused.finish"):
+            return _fetch_result(p, slots, out, mat)
     return None
 
 
@@ -2248,7 +2266,7 @@ def _fetch_result(p: _Plan, slots, out, mat=None) -> pa.Table:
     """The packed matrix (fetched here unless given), or the slot-ordered
     columns re-packed when the groups overflow it."""
     if mat is None:
-        mat = out[0].cpu().numpy()
+        mat = to_host(out[0]).numpy()
     g = int(mat[0, 1])
     if g <= mat.shape[1]:
         return _parse_packed(p, slots, mat, g)
@@ -2602,26 +2620,29 @@ def try_fused_aggregate(table, plan_scan, hints, group, key_names, slots,
     cache = getattr(table, "_fused_plan_cache", None)
     if cache is None:
         cache = table._fused_plan_cache = {}
-    # a probe's identity pins its build: a rebuilt probe is a new plan
-    ck = (table.cache.epoch, _plan_cache_key(
-        plan_scan, hints, group, key_names, slots, rew_keys, rew_inputs, q),
-        tuple((sp["key"], sp["probe"].gen) for sp in eprobes))
-    hit = cache.get(ck)
-    if hit is None:
-        try:
-            hit = _plan_query(table, plan_scan, hints, key_names, slots,
-                              rew_keys, rew_inputs, eprobes)
-        except _Bail as e:
-            hit = str(e)
-        # a plan pins its existence builds' tensors: it is cached only
-        # while every one of them is charged to the budget, and leaves the
-        # cache when one of them is evicted
-        if isinstance(hit, str) or all(sp["probe"].cached for sp in eprobes):
-            if len(cache) >= _PLAN_CACHE_CAP:
-                cache.pop(next(iter(cache)))
-            cache[ck] = hit
-            for sp in eprobes:
-                sp["probe"].pin(ck, cache)
+    with TRACER.span("fused.lookup"):
+        # a probe's identity pins its build: a rebuilt probe is a new plan
+        ck = (table.cache.epoch, _plan_cache_key(
+            plan_scan, hints, group, key_names, slots, rew_keys, rew_inputs,
+            q), tuple((sp["key"], sp["probe"].gen) for sp in eprobes))
+        hit = cache.get(ck)
+        if hit is None:
+            with TRACER.span("fused.plan"):
+                try:
+                    hit = _plan_query(table, plan_scan, hints, key_names,
+                                      slots, rew_keys, rew_inputs, eprobes)
+                except _Bail as e:
+                    hit = str(e)
+            # a plan pins its existence builds' tensors: it is cached only
+            # while every one of them is charged to the budget, and leaves
+            # the cache when one of them is evicted
+            if isinstance(hit, str) or all(sp["probe"].cached
+                                           for sp in eprobes):
+                if len(cache) >= _PLAN_CACHE_CAP:
+                    cache.pop(next(iter(cache)))
+                cache[ck] = hit
+                for sp in eprobes:
+                    sp["probe"].pin(ck, cache)
     if isinstance(hit, str):  # a (cached) bailout
         STATS["fused_bailouts"] += 1
         STATS["last_bail"] = hit
@@ -2799,14 +2820,18 @@ def distinct_fused_device(table, plan_scan, hints, group, key_names, slots,
         return None
     # planned once per shape, as the fused aggregate is (None: no route)
     cache = table.__dict__.setdefault("_fused_distinct_cache", {})
-    ck = (table.cache.epoch, _plan_cache_key(
-        plan_scan, hints, group, key_names, slots, rew_keys, rew_inputs, q))
-    if ck not in cache:
-        if len(cache) >= _PLAN_CACHE_CAP:
-            cache.pop(next(iter(cache)))
-        cache[ck] = _plan_distinct(table, plan_scan, hints, group, key_names,
-                                   slots, rew_keys, rew_inputs)
-    planned = cache[ck]
+    with TRACER.span("fused.lookup"):
+        ck = (table.cache.epoch, _plan_cache_key(
+            plan_scan, hints, group, key_names, slots, rew_keys, rew_inputs,
+            q))
+        if ck not in cache:
+            if len(cache) >= _PLAN_CACHE_CAP:
+                cache.pop(next(iter(cache)))
+            with TRACER.span("fused.plan"):
+                cache[ck] = _plan_distinct(table, plan_scan, hints, group,
+                                           key_names, slots, rew_keys,
+                                           rew_inputs)
+        planned = cache[ck]
     if planned is None:
         return None
     p1, p2, recipes, kinds2 = planned
@@ -2821,7 +2846,7 @@ def distinct_fused_device(table, plan_scan, hints, group, key_names, slots,
     stage_hint = table.__dict__.setdefault("_fused_stage_hint", {})
 
     def finish(out, hk, si):
-        if not bool(out[1]):
+        if not bool(to_host(out[1])):
             STATS["fused_retries"] += 1
             return None
         stage_hint[hk] = si
@@ -2829,12 +2854,17 @@ def distinct_fused_device(table, plan_scan, hints, group, key_names, slots,
         STATS["fused_grouped"] += 1
         if topk is not None:
             cols = out[3]
-            mini = _topk_gather_core(cols, _mk_topk_spec(
-                topk, int(cols[0].shape[0])), len(p2.keys), len(p2.rslots))
-            r = _finish_topk(p2, slots, topk, mini.cpu().numpy())
+            with TRACER.span("fused.issue"):
+                mini = _topk_gather_core(cols, _mk_topk_spec(
+                    topk, int(cols[0].shape[0])), len(p2.keys),
+                    len(p2.rslots))
+            mini = to_host(mini).numpy()
+            with TRACER.span("fused.finish"):
+                r = _finish_topk(p2, slots, topk, mini)
             if r is not None:
                 return r
-        return _fetch_result(p2, slots, out)
+        with TRACER.span("fused.finish"):
+            return _fetch_result(p2, slots, out)
 
     # sorted pairs: the table needs only 2x the OUTER keys' cardinality
     kb = _cardinality_bound(p2)
@@ -2845,8 +2875,10 @@ def distinct_fused_device(table, plan_scan, hints, group, key_names, slots,
         if s0 is not None:
             for si in range(s0, len(_STAGES_XL)):
                 n2, s2 = _STAGES_XL[si]
-                r = finish(_fused_core(p1, ("sortpairs", recipes, kinds2, n2,
-                                            s2, 3)), hk, si)
+                with TRACER.span("fused.issue"):
+                    out = _fused_core(p1, ("sortpairs", recipes, kinds2, n2,
+                                           s2, 3))
+                r = finish(out, hk, si)
                 if r is not None:
                     STATS["distinct_sort"] += 1
                     return r
@@ -2859,9 +2891,10 @@ def distinct_fused_device(table, plan_scan, hints, group, key_names, slots,
     start = stage_hint.get(hk, min(start, 2))
     for si in range(start, len(_STAGES_XL)):
         n_slots, salt = _STAGES_XL[si]
-        out = _distinct_chained(
-            p1, recipes, kinds2, (n_slots, salt, 3),
-            (n_slots, salt ^ 0x5851F42D4C957F2D, 3))
+        with TRACER.span("fused.issue"):
+            out = _distinct_chained(
+                p1, recipes, kinds2, (n_slots, salt, 3),
+                (n_slots, salt ^ 0x5851F42D4C957F2D, 3))
         r = finish(out, hk, si)
         if r is not None:
             STATS["distinct_chained"] += 1
@@ -3097,8 +3130,9 @@ def _fused_select(executor, table, q, where) -> pa.Table:
         p.rv_ix = _add(p, _rowvalid(table, blocks))
         count_t, idx_t, ranks_t = _fused_select_run(p, resids, oir, desc, k2)
         # one fetch: [count, ids..., ranks...]
-        packed = torch.cat([count_t.to(torch.float64).reshape(1),
-                            idx_t.to(torch.float64), ranks_t]).cpu().numpy()
+        packed = to_host(torch.cat([count_t.to(torch.float64).reshape(1),
+                                    idx_t.to(torch.float64),
+                                    ranks_t])).numpy()
         count = int(packed[0])
         if count < 0:
             raise _Refused("a NaN order key (the host's NaN order)")

@@ -66,6 +66,7 @@ from liquid_tpu_torch.sql.fused_agg import (
 from liquid_tpu_torch.sql.physical import collect_columns, render
 from liquid_tpu_torch.sql.planner import (
     and_all, plan_scan_filters, split_conjuncts, subqueries)
+from liquid_tpu_torch.utils.tracing import TRACER, to_device, to_host
 
 #: index tables larger than this are refused (2^27 int32 entries, 512 MB)
 MAX_DIM_SPAN = 1 << 27
@@ -758,21 +759,22 @@ def build_exist_probe(table, key_col: str, local_where, mm_col=None,
             _register_col(p, mp, None, c, registered,
                           c in resid_cols and mp.kind_of(c) == "dict")
         p.rv_ix = _add(p, _rowvalid(table, blocks))
-        lo_ix = _add(p, torch.tensor(lo, dtype=torch.int64,
-                                     device=table.cache.device))
+        lo_ix = _add(p, to_device(torch.tensor(lo, dtype=torch.int64),
+                                  table.cache.device))
     except _Bail:
         return None
-    outs = _exist_build(p, key_col, span, mm_col, lo_ix)
-    probe = _ExistProbe(outs[0], int(lo), span, *outs[1:])
-    probe.nbytes = sum(a.numel() * a.element_size() for a in outs)
-    budget = table.cache.budget
-    if budget.try_reserve_memory(probe.nbytes):
-        if len(cache) >= _EXIST_CACHE_CAP:
-            cache.pop(next(iter(cache))).evict(budget)
-        cache[ck] = probe
-        probe.cached = True
-    else:
-        probe.nbytes = 0  # not cached, not charged: no plan may keep it
+    with TRACER.span("fused.dim_build"):
+        outs = _exist_build(p, key_col, span, mm_col, lo_ix)
+        probe = _ExistProbe(outs[0], int(lo), span, *outs[1:])
+        probe.nbytes = sum(a.numel() * a.element_size() for a in outs)
+        budget = table.cache.budget
+        if budget.try_reserve_memory(probe.nbytes):
+            if len(cache) >= _EXIST_CACHE_CAP:
+                cache.pop(next(iter(cache))).evict(budget)
+            cache[ck] = probe
+            probe.cached = True
+        else:
+            probe.nbytes = 0  # not cached, not charged: no plan may keep it
     return probe
 
 
@@ -834,7 +836,7 @@ def _add_probe(p: _Plan, planner: _StarPlanner, pid: int, child: str,
     pcol = planner.tree[child][1]
     reg(pcol)
     entry = (pid, pcol, _add(p, pb.idx),
-             _add(p, torch.tensor(pb.lo, dtype=torch.int64, device=dev)))
+             _add(p, to_device(torch.tensor(pb.lo, dtype=torch.int64), dev)))
     if pb.chain is not None:
         pcol2 = planner.tree2[child][0]
         reg(pcol2)
@@ -948,7 +950,7 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
             if b is not None:
                 pay_bounds[c] = b
     p.rv_ix = _add(p, _rowvalid(table, blocks))
-    klo_ix = _add(p, torch.tensor(lo, dtype=torch.int64, device=dev))
+    klo_ix = _add(p, to_device(torch.tensor(lo, dtype=torch.int64), dev))
 
     # predicates and residuals whole (`repr`: a display name shows an IN
     # list or a CASE by its kind only), the blocks and the key payloads'
@@ -967,38 +969,39 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
         planner.probe_by_dim[tbl] = hit
         return hit
 
-    key2 = None
-    if key2_col is not None:
-        key2 = (key2_col, _add(p, torch.tensor(b2[0], dtype=torch.int64,
-                                               device=dev)))
-    outs = _dim_build(p, key_col, tblsize, pays, klo_ix, key2)
-    probe = _Probe()
-    probe.idx, probe.dup = outs[0], outs[1]
-    probe.lo, probe.hi = int(lo), int(hi)
-    probe.nrows = len(blocks) * BLOCK_ROWS
-    probe.vocabs = vocabs
-    probe.pay_bounds = pay_bounds
-    probe.cache_key = cache_key
-    k = 2
-    if key2 is not None:
-        maxdup = int(outs[5])
-        if maxdup > MAX_COMPOSITE_DUP:
-            raise _Bail(f"composite chain depth {maxdup} on {tbl} (more "
-                        f"than {MAX_COMPOSITE_DUP} rows per {key_col})")
-        probe.chain = (outs[2], outs[3], outs[4], maxdup)
-        k = 6
-    for name, ptype in pays:
-        probe.payload[name] = (outs[k], outs[k + 1], ptype)
-        k += 2
-    probe.nbytes = sum(a.numel() * a.element_size() for a in outs)
-    budget = table.cache.budget
-    if budget.try_reserve_memory(probe.nbytes):
-        if len(cache) >= _PROBE_CACHE_CAP:
-            cache.pop(next(iter(cache))).evict(budget)
-        cache[cache_key] = probe
-        probe.cached = True
-    else:
-        probe.nbytes = 0  # not cached, not charged: no plan may keep it
+    with TRACER.span("fused.dim_build"):
+        key2 = None
+        if key2_col is not None:
+            key2 = (key2_col, _add(p, to_device(
+                torch.tensor(b2[0], dtype=torch.int64), dev)))
+        outs = _dim_build(p, key_col, tblsize, pays, klo_ix, key2)
+        probe = _Probe()
+        probe.idx, probe.dup = outs[0], outs[1]
+        probe.lo, probe.hi = int(lo), int(hi)
+        probe.nrows = len(blocks) * BLOCK_ROWS
+        probe.vocabs = vocabs
+        probe.pay_bounds = pay_bounds
+        probe.cache_key = cache_key
+        k = 2
+        if key2 is not None:
+            maxdup = int(to_host(outs[5]))
+            if maxdup > MAX_COMPOSITE_DUP:
+                raise _Bail(f"composite chain depth {maxdup} on {tbl} (more "
+                            f"than {MAX_COMPOSITE_DUP} rows per {key_col})")
+            probe.chain = (outs[2], outs[3], outs[4], maxdup)
+            k = 6
+        for name, ptype in pays:
+            probe.payload[name] = (outs[k], outs[k + 1], ptype)
+            k += 2
+        probe.nbytes = sum(a.numel() * a.element_size() for a in outs)
+        budget = table.cache.budget
+        if budget.try_reserve_memory(probe.nbytes):
+            if len(cache) >= _PROBE_CACHE_CAP:
+                cache.pop(next(iter(cache))).evict(budget)
+            cache[cache_key] = probe
+            probe.cached = True
+        else:
+            probe.nbytes = 0  # not cached, not charged: no plan may keep it
     planner.all_probes.append(probe)
     planner.probe_by_dim[tbl] = probe
     return probe
@@ -1057,8 +1060,8 @@ def _detect_fd(planner: _StarPlanner, p: _Plan) -> None:
         if len(key_cols) < 2:
             continue  # value mode only pays with derived keys
         idx_ix = _add(p, pb.idx)
-        lo_ix = _add(p, torch.tensor(pb.lo, dtype=torch.int64,
-                                     device=pb.idx.device))
+        lo_ix = _add(p, to_device(torch.tensor(pb.lo, dtype=torch.int64),
+                                  pb.idx.device))
         entries = []
         for i, c in others:
             vals, nulls, ptype = pb.payload[c]
@@ -1290,6 +1293,39 @@ def _star_cache_key(executor, q, group, key_names, slots, rew_keys,
     return (base, tuple(frm), repr(q.where), tuple(tabs), epoch)
 
 
+def _plan_star(executor, q, key_names, slots, rew_keys, rew_inputs, where):
+    """Plan a star query: detect the tree, build its dimensions, plan the
+    fact, and fetch every unverified dimension's duplicate flag at once ->
+    (the cache entry, the planner): (p, mode, empty, fact table), or
+    (reason,) for a shape the route does not take, or None where a
+    dimension repeats a join key."""
+    planner = _StarPlanner(executor, q, key_names, slots, rew_keys,
+                           rew_inputs, where)
+    try:
+        planner.detect()
+        for s in slots:
+            if s.kind not in _AGG_KINDS:
+                raise _Bail(f"aggregate kind {s.kind}")
+        # the dimension tree, bottom-up
+        dims = {child: _build_dim(planner, child)
+                for child in planner.tree
+                if planner.tree[child][0] == planner.fact}
+        p, mode, empty = _plan_fact(planner, dims)
+    except _Bail as e:
+        return (str(e),), planner
+    # one combined uniqueness fetch for every unverified dimension (any
+    # depth: a snowflake's deep dimensions must be unique too)
+    unverified = [pb for pb in planner.all_probes
+                  if not pb.verified and pb.dup is not None]
+    if unverified:
+        flags = to_host(torch.stack([pb.dup for pb in unverified]))
+        if bool(flags.any()):
+            return None, planner
+        for pb in unverified:
+            pb.verified = True
+    return (p, mode, empty, planner.tables[planner.fact]), planner
+
+
 def try_fused_star(executor, q, group, key_names, slots, rew_keys,
                    rew_inputs, where) -> Optional[pa.Table]:
     """Run an aggregate over a star/snowflake join on the device -> the
@@ -1301,50 +1337,32 @@ def try_fused_star(executor, q, group, key_names, slots, rew_keys,
     cache = getattr(executor, "_star_plan_cache", None)
     if cache is None:
         cache = executor._star_plan_cache = {}
-    ck = _star_cache_key(executor, q, group, key_names, slots, rew_keys,
-                         rew_inputs)
-    hit = cache.get(ck)
-    if hit is None:
-        planner = _StarPlanner(executor, q, key_names, slots, rew_keys,
-                               rew_inputs, where)
-        try:
-            planner.detect()
-            for s in slots:
-                if s.kind not in _AGG_KINDS:
-                    raise _Bail(f"aggregate kind {s.kind}")
-            # the dimension tree, bottom-up
-            dims = {child: _build_dim(planner, child)
-                    for child in planner.tree
-                    if planner.tree[child][0] == planner.fact}
-            p, mode, empty = _plan_fact(planner, dims)
-        except _Bail as e:
-            hit = (str(e),)
-        else:
-            # one combined uniqueness fetch for every unverified dimension
-            # (any depth: a snowflake's deep dimensions must be unique too)
-            unverified = [pb for pb in planner.all_probes
-                          if not pb.verified and pb.dup is not None]
-            if unverified:
-                flags = torch.stack([pb.dup for pb in unverified]).cpu()
-                if bool(flags.any()):
-                    # N:M: the classic join keeps the exact multiplicity
-                    STATS["star_dup_bails"] += 1
-                    STATS["star_bailouts"] += 1
-                    return None
-                for pb in unverified:
-                    pb.verified = True
-            hit = (p, mode, empty, planner.tables[planner.fact])
-        # a plan pins its dimensions' tensors: it is cached only while
-        # every built one (an empty dimension has no dup flag) is charged
-        # to the budget, and leaves the cache when one of them is evicted
-        built = [pb for pb in planner.all_probes if pb.dup is not None]
-        built += [sp["probe"] for sp in getattr(planner, "eprobe_specs", ())]
-        if len(hit) == 1 or all(pb.cached for pb in built):
-            if len(cache) >= _PLAN_CACHE_CAP:
-                cache.pop(next(iter(cache)))
-            cache[ck] = hit
-            for pb in built:
-                pb.pin(ck, cache)
+    with TRACER.span("fused.lookup"):
+        ck = _star_cache_key(executor, q, group, key_names, slots, rew_keys,
+                             rew_inputs)
+        hit = cache.get(ck)
+        if hit is None:
+            with TRACER.span("fused.plan"):
+                hit, planner = _plan_star(executor, q, key_names, slots,
+                                          rew_keys, rew_inputs, where)
+            if hit is None:
+                # N:M: the classic join keeps the exact multiplicity
+                STATS["star_dup_bails"] += 1
+                STATS["star_bailouts"] += 1
+                return None
+            # a plan pins its dimensions' tensors: it is cached only while
+            # every built one (an empty dimension has no dup flag) is
+            # charged to the budget, and leaves the cache when one of them
+            # is evicted
+            built = [pb for pb in planner.all_probes if pb.dup is not None]
+            built += [sp["probe"]
+                      for sp in getattr(planner, "eprobe_specs", ())]
+            if len(hit) == 1 or all(pb.cached for pb in built):
+                if len(cache) >= _PLAN_CACHE_CAP:
+                    cache.pop(next(iter(cache)))
+                cache[ck] = hit
+                for pb in built:
+                    pb.pin(ck, cache)
     if len(hit) == 1:  # a (cached) bailout
         STATS["star_bailouts"] += 1
         STATS["star_last_bail"] = hit[0]

@@ -33,6 +33,7 @@ from liquid_tpu_torch.cache.expressions import VariantGet
 from liquid_tpu_torch.device import words_to_tensor
 from liquid_tpu_torch.ops import mask as mops
 from liquid_tpu_torch.sql import ast
+from liquid_tpu_torch.utils.tracing import to_host
 
 AGG_FUNCS = {"count", "sum", "avg", "min", "max", "median",
              "approx_distinct", "stddev", "var"}
@@ -188,8 +189,8 @@ def scan_blocks(table, plan, hints: Dict[str, object],
     def sel_counts(live_sels):
         if all(isinstance(x, np.ndarray) for x in live_sels):
             return np.array([mops.count_host(x) for x in live_sels])
-        return mops.count_many(torch.stack([_words(x, dev)
-                                            for x in live_sels])).cpu().numpy()
+        return to_host(mops.count_many(torch.stack(
+            [_words(x, dev) for x in live_sels]))).numpy()
 
     may = table.batch_may_match
     for rg in table.prune_row_groups(plan.stats_preds):
@@ -300,7 +301,7 @@ def scan_blocks(table, plan, hints: Dict[str, object],
         if fetched:
             fset = set(fetched)
             stacked = torch.stack([x for b, x in final if b in fset])
-            allbits = mops.unpack_bits(stacked).cpu().numpy()
+            allbits = to_host(mops.unpack_bits(stacked)).numpy()
             row = {b: j for j, b in enumerate(fetched)}
         for b, x in final:
             if not touched[b]:

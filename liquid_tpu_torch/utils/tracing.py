@@ -2,24 +2,44 @@
 of `liquid_tpu/utils/tracing.py`).
 
 A process-wide recorder of context-manager / decorator spans on a
-thread-local stack; disabled (one attribute check per span) until
-`TRACER.enable()`.  Each span carries a trace id, its own span id and
-its parent's (`parent` keeps the parent span's name).  Across the
-client / server boundary a span travels as a W3C `traceparent` string
-in the Flight ticket (`current_traceparent` on the client,
-`remote_span` on the server; reference `:106-146`).
-`export_chrome_trace` writes JSON that Perfetto and chrome://tracing
-load; `export_otlp` keeps the reference's contract (`:170-177`).
+thread-local stack; disabled until `TRACER.enable()`, when a span costs
+one attribute check and hands back one shared no-op context.  Each span
+carries a trace id, its own span id and its parent's (`parent` keeps the
+parent span's name).  Span ids come from a per-process counter over a
+random base, in W3C form (16 hex digits); a root span draws a fresh
+128-bit trace id.  Across the client / server boundary a span travels as
+a W3C `traceparent` string in the Flight ticket (`current_traceparent` on
+the client, `remote_span` on the server; reference `:106-146`).
+`export_chrome_trace` writes JSON that Perfetto and chrome://tracing load,
+each span's attributes in its `args`.
+
+`to_host` and `to_device` are the query path's copies between host and
+card under `wait.fetch` and `wait.upload` spans: the time the host waits
+for the card, named by the program.  Spans open and close on the thread
+that runs them and are all read on the host's `time.perf_counter_ns`
+clock.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
 import time
 import uuid
-from contextlib import contextmanager
+from contextlib import nullcontext
 from typing import Dict, List, Optional
+
+#: what a disabled tracer's `span` returns: entering it yields None
+_NOOP = nullcontext()
+#: span ids count up from a random base, so that two processes' ids differ
+_ID_BASE = int.from_bytes(os.urandom(8), "little")
+_IDS = itertools.count(1)
+
+
+def _span_id() -> str:
+    """The next span id of this process: 16 hex digits, as W3C wants."""
+    return f"{(_ID_BASE + next(_IDS)) & ((1 << 64) - 1):016x}"
 
 
 class Span:
@@ -71,23 +91,12 @@ class Tracer:
         with self._lock:
             self._spans = []
 
-    @contextmanager
-    def _open(self, s: Span):
-        stack = self._stack()
-        stack.append(s)
-        try:
-            yield s
-        finally:
-            s.end = time.perf_counter_ns()
-            stack.pop()
-            with self._lock:
-                self._spans.append(s)
-
-    @contextmanager
     def span(self, name: str, **attrs):
+        """A context manager that records the span `name` (entering it
+        gives the Span, whose `attrs` may gain keys while it is open), or
+        the shared no-op context while the tracer is disabled."""
         if not self.enabled:
-            yield None
-            return
+            return _NOOP
         stack = self._stack()
         parent = stack[-1] if stack else None
         if parent is not None:
@@ -96,12 +105,10 @@ class Tracer:
             trace_id = getattr(self._local, "remote_trace", None) \
                 or uuid.uuid4().hex
             parent_id = getattr(self._local, "remote_parent", None)
-        s = Span(name, parent.name if parent else None,
-                 time.perf_counter_ns(), threading.get_ident(),
-                 trace_id, uuid.uuid4().hex[:16], parent_id)
+        s = Span(name, parent.name if parent else None, 0,
+                 threading.get_ident(), trace_id, _span_id(), parent_id)
         s.attrs.update(attrs)
-        with self._open(s):
-            yield s
+        return _Open(self, s, stack)
 
     def trace(self, name: Optional[str] = None):
         """Decorator form of `span`."""
@@ -138,20 +145,17 @@ class Tracer:
             return
         self._local.remote_trace, self._local.remote_parent = ids
 
-    @contextmanager
     def remote_span(self, name: str, traceparent: str, **attrs):
         """A span continuing the trace of `traceparent` (the server side
         of a fetch); a malformed string starts a fresh trace."""
         if not self.enabled:
-            yield None
-            return
+            return _NOOP
         ids = _split_traceparent(traceparent)
         trace_id, parent_id = ids if ids else (uuid.uuid4().hex, None)
-        s = Span(name, None, time.perf_counter_ns(), threading.get_ident(),
-                 trace_id, uuid.uuid4().hex[:16], parent_id)
+        s = Span(name, None, 0, threading.get_ident(), trace_id, _span_id(),
+                 parent_id)
         s.attrs.update(attrs)
-        with self._open(s):
-            yield s
+        return _Open(self, s, self._stack())
 
     # -- export ----------------------------------------------------------------
 
@@ -174,16 +178,48 @@ class Tracer:
             json.dump({"traceEvents": events}, f)
         return len(events)
 
-    def export_otlp(self, endpoint: str) -> bool:
-        """False where the `opentelemetry` package is absent; where it is
-        installed the exporter is not wired, and this raises, as the
-        reference does."""
-        try:
-            from opentelemetry import trace as _  # noqa: F401
-        except ImportError:
-            return False
-        raise NotImplementedError("wire to opentelemetry SDK")
+
+class _Open:
+    """An enabled span as a context: pushed on this thread's stack on
+    entry, stamped, popped and recorded on exit."""
+
+    __slots__ = ("tracer", "span", "stack")
+
+    def __init__(self, tracer: Tracer, span: Span, stack: list):
+        self.tracer, self.span, self.stack = tracer, span, stack
+
+    def __enter__(self) -> Span:
+        self.stack.append(self.span)
+        self.span.start = time.perf_counter_ns()
+        return self.span
+
+    def __exit__(self, *exc) -> bool:
+        s = self.span
+        s.end = time.perf_counter_ns()
+        self.stack.pop()
+        with self.tracer._lock:
+            self.tracer._spans.append(s)
+        return False
 
 
 #: process-global tracer
 TRACER = Tracer()
+
+
+def to_host(t):
+    """`t.cpu()`: a device-to-host copy, so the host waits for the card
+    (for a CPU tensor, `t` itself), under a `wait.fetch` span."""
+    if not TRACER.enabled:
+        return t.cpu()
+    with TRACER.span("wait.fetch"):
+        return t.cpu()
+
+
+def to_device(t, device):
+    """`t.to(device)` under a `wait.upload` span: from pageable host
+    memory the copy waits until the card has run everything enqueued
+    before it (the runtime synchronizes the stream)."""
+    if not TRACER.enabled:
+        return t.to(device)
+    with TRACER.span("wait.upload"):
+        return t.to(device)

@@ -74,6 +74,11 @@ DEPARTURES = {
     "parallel/session.py:hash_rounds_body": (
         ("parallel/session.py::hash_rounds",),
         "the salted rounds run as one loop, no traced body"),
+    "utils/tracing.py:Tracer.export_otlp": (
+        ("utils/tracing.py::Tracer.export_chrome_trace",),
+        "the reference's OTLP export sends nothing (False without the "
+        "opentelemetry package, NotImplementedError with it); spans leave "
+        "the process as Chrome trace-event JSON"),
     "sql/fused_agg.py:eval_ir": (
         ("sql/fused_agg.py::eval_ir_nulls",),
         "one three-valued evaluator: values and NULL masks together"),

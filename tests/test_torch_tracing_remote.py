@@ -1,7 +1,6 @@
 """The port's W3C trace propagation on the CPU: a trace that continues
 across the client / server boundary (the cases of `tests/test_tracing.py`
-that need it), `export_otlp` as the JAX package's on the same host, and
-the cache-trace viewer (`devtools/trace_viz.py`) against the reference's
+that need it) and the cache-trace viewer (`devtools/trace_viz.py`) against the reference's
 on the same trace records.
 """
 import json
@@ -109,17 +108,6 @@ def test_chrome_trace_export_carries_ids(tmp_path):
     assert events["b"]["ph"] == "X" and events["b"]["dur"] >= 0
     assert events["b"]["args"]["parent"] == "a"
     assert events["b"]["args"]["parent_id"] == events["a"]["args"]["span_id"]
-
-
-def test_export_otlp_behaves_as_the_reference():
-    from liquid_tpu.utils.tracing import Tracer as JTracer
-
-    def outcome(tracer):
-        try:
-            return ("returned", tracer.export_otlp("http://localhost:4317"))
-        except Exception as e:
-            return ("raised", type(e).__name__)
-    assert outcome(Tracer()) == outcome(JTracer())
 
 
 def test_end_to_end_propagation_through_server(tmp_path):
