@@ -33,6 +33,13 @@ first block and shares it with the column's later blocks
 (`DefaultCacheMetadata`).  `epoch` moves on every entry mutation, the
 coarse invalidation key of derived caches (fused plans, prep stacks).
 
+Device structures built from cached columns (the star route's dimension
+and existence builds) are charged to the same budget as derived
+reservations (`reserve_derived`), kept in one recency order.  They give
+way before any column: a column insert evicts them, least recently used
+first, before it squeezes a column, and a new one evicts older ones only
+when that alone makes room.
+
 An arrow block is charged its buffers' bytes plus 64, as in the
 reference, with one departure on purpose: a block that is a slice of a
 longer array -- every block parquet reads is a slice of its row group's
@@ -44,6 +51,7 @@ from __future__ import annotations
 
 import os
 import tempfile
+from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -265,6 +273,10 @@ class LiquidCache:
         self._hints: Dict[int, HintVote] = {}
         self._lock = _sync.RLock()
         self.epoch = 0
+        #: derived reservations, least recently used first:
+        #: key -> (bytes, called when evicted)
+        self._derived: "OrderedDict[object, tuple]" = OrderedDict()
+        self._derived_bytes = 0
 
     @property
     def store(self):
@@ -318,9 +330,12 @@ class LiquidCache:
                                     _arrow_memory_bytes(arr), hint)
 
     def _insert_payload(self, entry_id, state, payload, nbytes, hint) -> bool:
-        # the replacement loop: squeeze victims until the reservation fits
+        # the replacement loop: derived reservations give way first, then
+        # squeeze victims until the reservation fits
         while not self.budget.try_reserve_memory(nbytes):
             _sync.yield_now()
+            if self._evict_derived():
+                continue
             victims = [v for v in self.cache_policy.find_memory_victims(8)
                        if v != entry_id]
             if not victims:
@@ -397,6 +412,56 @@ class LiquidCache:
             if freed:
                 self.budget.release_disk(freed)
         self.cache_policy.notify_removed(entry_id)
+
+    # -- derived reservations ----------------------------------------------
+
+    def reserve_derived(self, key, nbytes: int, on_evict) -> bool:
+        """Charge `nbytes` of a device structure built from cached columns
+        to the budget under `key`, most recently used.  When they do not
+        fit but would once every derived reservation were gone, the least
+        recently used ones are evicted until they fit; column data is
+        never displaced.  False (nothing charged) otherwise.
+        `on_evict()` is called when the cache evicts it."""
+        with self._lock:
+            budget = self.budget
+            if not budget.try_reserve_memory(nbytes):
+                if (budget.memory_used - self._derived_bytes + nbytes
+                        > budget.max_memory_bytes):
+                    return False
+                while not budget.try_reserve_memory(nbytes):
+                    if not self._evict_derived():
+                        return False
+            self._derived[key] = (nbytes, on_evict)
+            self._derived_bytes += nbytes
+            return True
+
+    def touch_derived(self, key) -> None:
+        """Mark a derived reservation most recently used."""
+        with self._lock:
+            if key in self._derived:
+                self._derived.move_to_end(key)
+
+    def release_derived(self, key) -> None:
+        """Release a derived reservation its owner dropped."""
+        with self._lock:
+            ent = self._derived.pop(key, None)
+            if ent is not None:
+                self._derived_bytes -= ent[0]
+                self.budget.release_memory(ent[0])
+
+    def _evict_derived(self) -> bool:
+        """Evict the least recently used derived reservation; False when
+        there is none."""
+        if not self._derived:
+            return False
+        with self._lock:
+            if not self._derived:
+                return False
+            _key, (nbytes, on_evict) = self._derived.popitem(last=False)
+            self._derived_bytes -= nbytes
+            self.budget.release_memory(nbytes)
+            on_evict()
+        return True
 
     # -- the squeeze pipeline ----------------------------------------------
 

@@ -61,7 +61,8 @@ class _RowGroupSlice:
     kinds of memo apart:
     - memos keyed by the block set (`_fused_prep`, `_fused_rowvalid`,
       `_star_probe_cache`, `_exist_probe_cache`) are the base's own dicts,
-      shared, so a slice reuses and feeds the base's preps;
+      shared, so a slice reuses and feeds the base's preps and builds
+      (the builds under the base budget's one recency order);
     - memos keyed without it (`_LOCAL`: the fused plan and distinct plan
       caches, the hash stage hint) stay on the slice, since a plan made
       over one row group must never answer for the whole table."""

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import numbers
 import re
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -100,7 +101,12 @@ STATS = {"fused_queries": 0, "fused_grouped": 0, "fused_scalar": 0,
          "fused_bailouts": 0, "fused_retries": 0, "fused_pallas": 0,
          "star_queries": 0, "star_bailouts": 0, "star_dup_bails": 0,
          "fused_selects": 0, "select_bailouts": 0, "distinct_sort": 0,
-         "distinct_chained": 0, "distinct_fold": 0}
+         "distinct_chained": 0, "distinct_fold": 0,
+         # the star route's caches (`sql/fused_star.py`): plan-cache hits,
+         # builds evicted to make room for another, and cached plans
+         # dropped with a build they pin
+         "star_plan_hits": 0, "star_build_evictions": 0,
+         "star_plans_dropped": 0}
 
 _AGG_KINDS = frozenset({"count_star", "count", "sum", "avg", "min", "max",
                         "stddev", "var"})
@@ -1491,7 +1497,7 @@ def release_prep_cache(table) -> None:
         builds = getattr(table, attr, None)
         if builds:  # dimension and existence builds (sql/fused_star.py)
             for probe in builds.values():
-                probe.evict(table.cache.budget)
+                probe.release()
             builds.clear()
 
 
@@ -2586,6 +2592,12 @@ def _finish_topk(p: _Plan, slots, topk: TopKSpec,
 _PLAN_CACHE_CAP = 8
 
 
+class PlanCache(OrderedDict):
+    """Cached plans, oldest or least recently used first.  The builds its
+    plans pin (`fused_star._Build.pin`) refer to it weakly, so it lives no
+    longer than its table or executor."""
+
+
 def _plan_cache_key(plan_scan, hints, group, key_names, slots, rew_keys,
                     rew_inputs, q):
     """Identity of everything _plan_query and the top-k / HAVING planning
@@ -2619,7 +2631,7 @@ def try_fused_aggregate(table, plan_scan, hints, group, key_names, slots,
     `STATS["last_bail"]`): the classic path takes the query."""
     cache = getattr(table, "_fused_plan_cache", None)
     if cache is None:
-        cache = table._fused_plan_cache = {}
+        cache = table._fused_plan_cache = PlanCache()
     with TRACER.span("fused.lookup"):
         # a probe's identity pins its build: a rebuilt probe is a new plan
         ck = (table.cache.epoch, _plan_cache_key(

@@ -43,6 +43,7 @@ Also planned here:
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -55,7 +56,7 @@ from liquid_tpu_torch.ops.hashagg import TRASH, _dropped
 from liquid_tpu_torch.sql import ast
 from liquid_tpu_torch.sql.fused_agg import (
     _AGG_KINDS, _PAYLOAD_GEN, STATS, _add, _as_f64, _Bail, _bool_nonnull,
-    _build_vocab, _gen_of,
+    _build_vocab, _gen_of, PlanCache,
     _compile_bool, _compile_expr, _Decoders, _expr_key_type, _gid_stack,
     _ir_dtype, _kind_or, _like_regex, _Plan, _plan_cache_key, _plan_slots, _rowvalid,
     _scaled_col_info, _schema_kind, _select_blocks, _selection_packed,
@@ -75,12 +76,15 @@ MAX_DIM_SPAN = 1 << 27
 #: a deeper chain belongs on the classic join path
 MAX_COMPOSITE_DUP = 8
 
-#: existence builds cached per inner table
-_EXIST_CACHE_CAP = 8
-
-#: built dimensions cached per table, and star plans per executor
-_PROBE_CACHE_CAP = 4
-_PLAN_CACHE_CAP = 8
+#: star plans kept per executor, least recently used out first.  The
+#: builds a plan pins are charged to the cache budget; the rest of its
+#: arrays (the fact's row validity and column preps, gid stacks, small
+#: uploads of bounds) are not, so plans of a past epoch are dropped on
+#: the next miss and this count bounds the current ones.  It lies above
+#: the star shapes of the largest suite the repo runs: TPC-DS's 99
+#: queries look up 144 keys in a warm pass at SF 0.005, 73 of them
+#: bailouts
+_PLAN_CACHE_CAP = 256
 
 # -- dimension build ----------------------------------------------------------
 
@@ -148,30 +152,72 @@ def _dim_build(p: _Plan, key_name: str, tblsize: int, pays, lo_ix: int,
 # -- planning -----------------------------------------------------------------
 
 class _Build:
-    """A device build held by a table's cache and charged to the budget;
+    """A device build held by a table's cache and charged to the cache's
+    budget as a derived reservation (`LiquidCache.reserve_derived`): the
+    cache evicts it, least recently used first, before any column, and
     the cached plans that pin its tensors are dropped with it."""
 
-    __slots__ = ("nbytes", "cached", "plans")
+    __slots__ = ("nbytes", "cached", "plans", "home")
 
     def __init__(self):
         self.nbytes = 0
         self.cached = False      # held by a table's cache, charged
-        self.plans = {}          # plan key -> the plan cache holding it
+        self.plans = {}          # plan key -> weakref to its plan cache
+        self.home = None         # (column cache, build cache, key), cached
 
-    def evict(self, budget) -> None:
-        """Release the build's charge and drop the cached plans whose
-        arrays pin its tensors, so the budget bounds what stays alive."""
-        budget.release_memory(self.nbytes)
-        for ck, cache in self.plans.items():
-            cache.pop(ck, None)
+    def admit(self, lc, cache: dict, key) -> None:
+        """Cache the build in its table's `cache` under `key` when column
+        cache `lc` can charge its bytes; otherwise it is served uncached
+        and uncharged, so no plan may keep it."""
+        if lc.reserve_derived(self, self.nbytes, self._evicted):
+            cache[key] = self
+            self.cached = True
+            self.home = (lc, cache, key)
+        else:
+            self.nbytes = 0
+
+    def touch(self) -> None:
+        """Mark the build most recently used."""
+        if self.home is not None:
+            self.home[0].touch_derived(self)
+
+    def release(self) -> None:
+        """Release the build's charge (its table's caches are cleared)
+        and drop the cached plans that pin it."""
+        if self.home is not None:
+            self.home[0].release_derived(self)
+        self._drop()
+
+    def _evicted(self) -> None:
+        STATS["star_build_evictions"] += 1
+        self.home[1].pop(self.home[2], None)
+        self._drop()
+
+    def _drop(self) -> None:
+        """Drop the cached plans whose arrays pin the build's tensors, so
+        the budget bounds what stays alive."""
+        for ck, ref in self.plans.items():
+            plans = ref()
+            if plans is not None and plans.pop(ck, None) is not None:
+                STATS["star_plans_dropped"] += 1
         self.plans.clear()
         self.cached = False
+        self.home = None
 
     def pin(self, ck, cache) -> None:
         """Record that cached plan `ck` of `cache` pins this build (keys
-        of plans the cache's cap evicted go)."""
-        self.plans = {k: c for k, c in self.plans.items() if k in c}
-        self.plans[ck] = cache
+        of plans the cache has dropped go)."""
+        self.plans = {k: r for k, r in self.plans.items()
+                      if (c := r()) is not None and k in c}
+        self.plans[ck] = weakref.ref(cache)
+
+
+def _drop_stale(cache: PlanCache, ck) -> None:
+    """Drop the star plans made under another catalog or cache epoch than
+    key `ck` names: no later lookup makes their keys, and their arrays
+    hold device tensors the budget does not charge."""
+    for k in [k for k in cache if k[-2:] != ck[-2:]]:
+        del cache[k]
 
 
 class _Probe(_Build):
@@ -731,6 +777,7 @@ def build_exist_probe(table, key_col: str, local_where, mm_col=None,
         cache = table.__dict__.setdefault("_exist_probe_cache", {})
         hit = cache.get(ck)
         if hit is not None:
+            hit.touch()
             return hit
         p = _Plan()
         registered: set = set()
@@ -767,14 +814,7 @@ def build_exist_probe(table, key_col: str, local_where, mm_col=None,
         outs = _exist_build(p, key_col, span, mm_col, lo_ix)
         probe = _ExistProbe(outs[0], int(lo), span, *outs[1:])
         probe.nbytes = sum(a.numel() * a.element_size() for a in outs)
-        budget = table.cache.budget
-        if budget.try_reserve_memory(probe.nbytes):
-            if len(cache) >= _EXIST_CACHE_CAP:
-                cache.pop(next(iter(cache))).evict(budget)
-            cache[ck] = probe
-            probe.cached = True
-        else:
-            probe.nbytes = 0  # not cached, not charged: no plan may keep it
+        probe.admit(table.cache, cache, ck)
     return probe
 
 
@@ -965,6 +1005,7 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
         cache = table._star_probe_cache = {}
     hit = cache.get(cache_key)
     if hit is not None:
+        hit.touch()
         planner.all_probes.append(hit)
         planner.probe_by_dim[tbl] = hit
         return hit
@@ -994,14 +1035,7 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
             probe.payload[name] = (outs[k], outs[k + 1], ptype)
             k += 2
         probe.nbytes = sum(a.numel() * a.element_size() for a in outs)
-        budget = table.cache.budget
-        if budget.try_reserve_memory(probe.nbytes):
-            if len(cache) >= _PROBE_CACHE_CAP:
-                cache.pop(next(iter(cache))).evict(budget)
-            cache[cache_key] = probe
-            probe.cached = True
-        else:
-            probe.nbytes = 0  # not cached, not charged: no plan may keep it
+        probe.admit(table.cache, cache, cache_key)
     planner.all_probes.append(probe)
     planner.probe_by_dim[tbl] = probe
     return probe
@@ -1336,12 +1370,21 @@ def try_fused_star(executor, q, group, key_names, slots, rew_keys,
     the query."""
     cache = getattr(executor, "_star_plan_cache", None)
     if cache is None:
-        cache = executor._star_plan_cache = {}
+        cache = executor._star_plan_cache = PlanCache()
     with TRACER.span("fused.lookup"):
         ck = _star_cache_key(executor, q, group, key_names, slots, rew_keys,
                              rew_inputs)
-        hit = cache.get(ck)
-        if hit is None:
+        ent = cache.get(ck)
+        if ent is not None:
+            # most recently used last, its builds with it: a hot plan
+            # skips their lookups, which would otherwise leave them cold
+            cache.move_to_end(ck)
+            STATS["star_plan_hits"] += 1
+            hit, built = ent
+            for pb in built:
+                pb.touch()
+        else:
+            _drop_stale(cache, ck)
             with TRACER.span("fused.plan"):
                 hit, planner = _plan_star(executor, q, key_names, slots,
                                           rew_keys, rew_inputs, where)
@@ -1359,8 +1402,9 @@ def try_fused_star(executor, q, group, key_names, slots, rew_keys,
                       for sp in getattr(planner, "eprobe_specs", ())]
             if len(hit) == 1 or all(pb.cached for pb in built):
                 if len(cache) >= _PLAN_CACHE_CAP:
-                    cache.pop(next(iter(cache)))
-                cache[ck] = hit
+                    cache.popitem(last=False)
+                # a cached bailout holds no build's tensors
+                cache[ck] = (hit, tuple(built) if len(hit) > 1 else ())
                 for pb in built:
                     pb.pin(ck, cache)
     if len(hit) == 1:  # a (cached) bailout

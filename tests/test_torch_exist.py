@@ -214,11 +214,13 @@ def test_uncharged_exist_build_leaves_its_plan_uncached(sessions, monkeypatch,
     """With the budget full, an existence build is neither cached nor
     kept alive by a cached fused plan: every run builds it again under a
     new identity, no plan is added for it, and the budget's count stays
-    within its limit."""
+    within its limit.  Every table's builds are released first, so that
+    evicting older builds cannot make room either."""
     _, tctx = sessions
     want = tctx.sql(sql).to_arrow()
     inn, outr = tctx._tables["inn"], tctx._tables["outr"]
-    tfa.release_prep_cache(inn)
+    for t in tctx._tables.values():
+        tfa.release_prep_cache(t)
     budget, plans = tctx.cache.budget, outr._fused_plan_cache
     monkeypatch.setattr(budget, "max_memory_bytes", budget.memory_used)
     n_plans, used = len(plans), budget.memory_used

@@ -11,7 +11,9 @@ the same answer: keys, counts, strings and integers exactly, floats to
 rtol 1e-9.  The TPC-H tables come from each package's own generator with the
 same seed.  Shapes the star route does not take pass to the classic
 join path, which answers as the reference's does.  The probe and the q3 dimension build are held bit for bit
-against the reference's."""
+against the reference's.  The route's caches keep a round robin of
+TPC-H's star shapes whole, and under a tight budget evict the least
+recently used build of any table."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -35,6 +37,7 @@ from liquid_tpu_torch.sql import exec as texec  # noqa: E402
 from liquid_tpu_torch.sql import fused_agg as tfa  # noqa: E402
 from liquid_tpu_torch.sql import fused_star as tstar  # noqa: E402
 from liquid_tpu_torch.sql.session import LiquidCacheLocalBuilder  # noqa: E402
+from liquid_tpu_torch.utils.tracing import TRACER  # noqa: E402
 from tests.test_torch_route_fence import assert_same_answer  # noqa: E402
 
 SF = 0.005
@@ -402,12 +405,14 @@ def test_released_probe_drops_the_plans_that_pin_it(sessions):
 def test_uncharged_probe_leaves_its_plan_uncached(sessions, monkeypatch):
     """A dimension build the budget cannot hold is neither cached nor
     kept alive by a cached plan: every run builds it again, and the
-    budget's count does not move."""
+    budget's count does not move.  Every table's builds are released
+    first, so that evicting older builds cannot make room either."""
     _, tctx = sessions
     sql = CASES[0][1]
     want = tctx.sql(sql).to_arrow()
     dim, plans = tctx._tables["dim"], tctx._exec._star_plan_cache
-    tfa.release_prep_cache(dim)
+    for t in tctx._tables.values():
+        tfa.release_prep_cache(t)
     n_plans, budget = len(plans), tctx.cache.budget
     used = budget.memory_used
     monkeypatch.setattr(budget, "try_reserve_memory", lambda nbytes: False)
@@ -417,3 +422,233 @@ def test_uncharged_probe_leaves_its_plan_uncached(sessions, monkeypatch):
         assert not dim._star_probe_cache and len(plans) == n_plans
     assert tfa.STATS["star_queries"] == t0 + 2
     assert budget.memory_used == used
+
+
+#: TPC-H's star queries, round robin: eleven star shapes, and orders
+#: built under five or more (filter, payload) variants
+STAR_TPCH = (3, 5, 7, 8, 9, 10, 12, 14, 16, 18, 21)
+
+
+def test_round_robin_keeps_every_star_shape(sessions, monkeypatch):
+    """Three passes over TPC-H's star queries: from the second on, no
+    star query plans or builds again (no `fused.plan` or
+    `fused.dim_build` span), every star lookup hits the plan cache, and
+    the answers equal the first pass's and the reference's.  The columns
+    are cached first, as a warm session's are (a plan is keyed by the
+    cache's epoch, which a first read of a column moves)."""
+    jctx, tctx = sessions
+    for name in ("lineitem", "orders", "customer", "supplier", "nation",
+                 "region", "part", "partsupp"):
+        t = tctx._tables[name]
+        for rg in range(t.num_row_groups):
+            for c in t.column_names:
+                t.ensure_cached(rg, c)
+    keys = []
+    star_key = tstar._star_cache_key
+    monkeypatch.setattr(tstar, "_star_cache_key",
+                        lambda *a: keys.append(star_key(*a)) or keys[-1])
+    first = {}
+    e0 = tfa.STATS["star_build_evictions"]
+    for pass_ in range(3):
+        h0, n0 = tfa.STATS["star_plan_hits"], len(keys)
+        TRACER.reset()
+        TRACER.enable()
+        try:
+            for qid in STAR_TPCH:
+                got = tctx.sql(TPCH[qid]).to_arrow()
+                if pass_:
+                    _assert_same_answer(got, first[qid])
+                first.setdefault(qid, got)
+            names = {sp.name for sp in TRACER.spans()}
+        finally:
+            TRACER.disable()
+            TRACER.reset()
+        if pass_ == 0:
+            assert len(set(keys)) >= 9
+            assert "fused.dim_build" in names
+        else:
+            assert not names & {"fused.plan", "fused.dim_build"}
+            assert tfa.STATS["star_plan_hits"] - h0 == len(keys) - n0 > 0
+    assert len(tctx._tables["orders"]._star_probe_cache) >= 5
+    assert tfa.STATS["star_build_evictions"] == e0
+    for qid in STAR_TPCH:
+        _assert_same_answer(first[qid], jctx.sql(TPCH[qid]).to_arrow())
+
+
+def _two_dim_session(tmp_path):
+    """A session over a fact table joined to two 64-row dimensions, and a
+    table `late` no query reads, every column but late's cached."""
+    rng = np.random.default_rng(9)
+    n, dn = 4000, 64
+    keys = np.arange(dn, dtype=np.int64)
+    tables = {
+        "fact": pa.table({"fa": pa.array(rng.integers(0, dn, n)),
+                          "fb": pa.array(rng.integers(0, dn, n)),
+                          "amt": pa.array(rng.random(n))}),
+        "dima": pa.table({"da": pa.array(keys), "ga": pa.array(keys % 7),
+                          "wa": pa.array((keys % 13).astype(np.float64))}),
+        "dimb": pa.table({"db": pa.array(keys), "gb": pa.array(keys % 5),
+                          "wb": pa.array((keys % 11).astype(np.float64))}),
+        "late": pa.table({"x": pa.array(np.arange(32, dtype=np.int64))}),
+    }
+    ctx, _ = (LiquidCacheLocalBuilder(device="cpu")
+              .with_max_memory_bytes(1 << 30).build())
+    for name, t in tables.items():
+        path = str(tmp_path / f"{name}.parquet")
+        pq.write_table(t, path)
+        ctx.register_parquet(name, path)
+        if name != "late":
+            _cache_columns(ctx._tables[name])
+    return ctx
+
+
+def _cache_columns(t):
+    for rg in range(t.num_row_groups):
+        for c in t.column_names:
+            t.ensure_cached(rg, c)
+
+
+def _dim_query(dim: str, k: int) -> str:
+    g, f, d, w = {"a": ("ga", "fa", "da", "wa"),
+                  "b": ("gb", "fb", "db", "wb")}[dim]
+    return (f"SELECT {g}, sum(amt) s FROM fact JOIN dim{dim} ON {f} = {d} "
+            f"WHERE {w} > {k} GROUP BY {g} ORDER BY {g}")
+
+
+def _column_states(ctx) -> dict:
+    return {eid: e.state for eid, e in ctx.cache._entries.items()}
+
+
+def test_tight_budget_evicts_the_least_recently_used_build(tmp_path,
+                                                           monkeypatch):
+    """Under a budget with room for the builds it holds and half of one
+    more, a new build evicts the least recently used build of any table:
+    dima's first build, refreshed by its plan's hit, survives, and
+    dimb's, used after it, goes with the plan that pins it.  The budget
+    holds, and every answer equals the uncapped session's."""
+    ctx = _two_dim_session(tmp_path)
+    qa1, qa2, qb = _dim_query("a", 1), _dim_query("a", 2), _dim_query("b", 1)
+    want = {q: ctx.sql(q).to_arrow() for q in (qa1, qa2, qb)}
+    for name in ctx._tables:
+        tfa.release_prep_cache(ctx._tables[name])
+    plans, budget = ctx._exec._star_plan_cache, ctx.cache.budget
+    dima, dimb = ctx._tables["dima"], ctx._tables["dimb"]
+    _assert_same_answer(ctx.sql(qa1).to_arrow(), want[qa1])
+    _assert_same_answer(ctx.sql(qb).to_arrow(), want[qb])
+    (a1,) = dima._star_probe_cache.values()
+    (b1,) = dimb._star_probe_cache.values()
+    assert a1.cached and b1.cached and a1.nbytes == b1.nbytes > 0
+    b_plans = set(b1.plans)
+    assert b_plans & set(plans)
+    monkeypatch.setattr(budget, "max_memory_bytes",
+                        budget.memory_used + a1.nbytes // 2)
+    s0 = dict(tfa.STATS)
+    _assert_same_answer(ctx.sql(qa1).to_arrow(), want[qa1])  # a hit
+    assert tfa.STATS["star_plan_hits"] == s0["star_plan_hits"] + 1
+    _assert_same_answer(ctx.sql(qa2).to_arrow(), want[qa2])
+    assert tfa.STATS["star_build_evictions"] == s0["star_build_evictions"] + 1
+    assert tfa.STATS["star_plans_dropped"] >= s0["star_plans_dropped"] + 1
+    assert a1.cached and not b1.cached and not dimb._star_probe_cache
+    assert len(dima._star_probe_cache) == 2
+    assert not b_plans & set(plans)
+    assert budget.memory_used <= budget.max_memory_bytes
+    # every plan cached pins only cached builds, and answers as before
+    for q in (qb, qa1, qa2):
+        _assert_same_answer(ctx.sql(q).to_arrow(), want[q])
+        assert budget.memory_used <= budget.max_memory_bytes
+    assert all(pb.cached for _hit, built in plans.values() for pb in built)
+
+
+def test_builds_with_changing_literals_never_displace_columns(tmp_path,
+                                                              monkeypatch):
+    """Star queries whose literals change on every run make a new build
+    each, which is never looked up again.  Under a budget that holds every
+    column and one and a half builds, they evict one another, least
+    recently used first, and give way to a column read after them: no
+    column is squeezed or sent to disk, the budget holds, and every
+    answer equals the uncapped session's."""
+    ctx = _two_dim_session(tmp_path)
+    queries = [_dim_query(d, k) for k in range(6) for d in "ab"]
+    want = {q: ctx.sql(q).to_arrow() for q in queries}
+    (a1, *_) = ctx._tables["dima"]._star_probe_cache.values()
+    for name in ctx._tables:
+        tfa.release_prep_cache(ctx._tables[name])
+    budget, obs = ctx.cache.budget, ctx.cache.observer.stats
+    monkeypatch.setattr(budget, "max_memory_bytes",
+                        budget.memory_used + a1.nbytes * 3 // 2)
+    states = _column_states(ctx)
+    sq0, ev0 = obs.get("squeezes"), obs.get("evict_to_disk")
+    e0 = tfa.STATS["star_build_evictions"]
+    for _ in range(2):
+        for q in queries:
+            _assert_same_answer(ctx.sql(q).to_arrow(), want[q])
+            assert budget.memory_used <= budget.max_memory_bytes
+    assert tfa.STATS["star_build_evictions"] - e0 >= len(queries)
+    assert _column_states(ctx) == states
+    # the builds left fill the budget: a column read now evicts them
+    monkeypatch.setattr(budget, "max_memory_bytes", budget.memory_used)
+    _cache_columns(ctx._tables["late"])
+    now = _column_states(ctx)
+    assert {e: now[e] for e in states} == states
+    assert set(now.values()) <= {"memory_arrow", "memory_liquid"}
+    assert (obs.get("squeezes"), obs.get("evict_to_disk")) == (sq0, ev0)
+    assert budget.memory_used <= budget.max_memory_bytes
+
+
+def test_column_insert_evicts_builds_before_columns(tmp_path, monkeypatch):
+    """With the budget full of columns and builds, a new column's insert
+    evicts the builds, least recently used first, with the plans that pin
+    them, and squeezes no column."""
+    ctx = _two_dim_session(tmp_path)
+    qa, qb = _dim_query("a", 1), _dim_query("b", 1)
+    want = {q: ctx.sql(q).to_arrow() for q in (qa, qb)}
+    plans, budget = ctx._exec._star_plan_cache, ctx.cache.budget
+    (a1,) = ctx._tables["dima"]._star_probe_cache.values()
+    (b1,) = ctx._tables["dimb"]._star_probe_cache.values()
+    a_plans = set(a1.plans)
+    assert a_plans & set(plans)
+    monkeypatch.setattr(budget, "max_memory_bytes", budget.memory_used)
+    states, obs = _column_states(ctx), ctx.cache.observer.stats
+    sq0, ev0 = obs.get("squeezes"), obs.get("evict_to_disk")
+    e0 = tfa.STATS["star_build_evictions"]
+    ctx.sql(qb).to_arrow()  # b1 most recently used
+    late = ctx._tables["late"]
+    _cache_columns(late)
+    assert tfa.STATS["star_build_evictions"] > e0
+    assert not a1.cached and not a_plans & set(plans)
+    assert (obs.get("squeezes"), obs.get("evict_to_disk")) == (sq0, ev0)
+    now = _column_states(ctx)
+    assert {e: now[e] for e in states} == states
+    assert len(now) > len(states) and set(now.values()) <= {
+        "memory_arrow", "memory_liquid"}
+    assert budget.memory_used <= budget.max_memory_bytes
+    for q in (qa, qb):
+        _assert_same_answer(ctx.sql(q).to_arrow(), want[q])
+
+
+def test_stale_plans_leave_with_their_epoch(tmp_path):
+    """A cached column moves the cache's epoch, and no later lookup makes
+    a key of the epoch before: the next miss drops those plans, so their
+    arrays are freed while the builds they pinned stay cached.  Builds
+    refer to a plan cache weakly, so a dropped cache (a transient
+    executor's) is freed too."""
+    import gc
+    import weakref
+    ctx = _two_dim_session(tmp_path)
+    qa, qb = _dim_query("a", 1), _dim_query("b", 1)
+    want = ctx.sql(qa).to_arrow()
+    plans = ctx._exec._star_plan_cache
+    (ck,) = plans
+    plan = weakref.ref(plans[ck][0][0])
+    (a1,) = ctx._tables["dima"]._star_probe_cache.values()
+    _cache_columns(ctx._tables["late"])  # a new epoch
+    ctx.sql(qb).to_arrow()
+    gc.collect()
+    assert ck not in plans and plan() is None
+    assert len(plans) == 1 and a1.cached
+    assert {k[-1] for k in plans} == {ctx.cache.epoch}
+    _assert_same_answer(ctx.sql(qa).to_arrow(), want)
+    held = weakref.ref(plans)
+    ctx._exec._star_plan_cache = plans = None
+    gc.collect()
+    assert held() is None and a1.cached and a1.plans
