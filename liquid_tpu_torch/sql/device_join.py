@@ -33,7 +33,7 @@ import pyarrow.compute as pc
 import torch
 
 from liquid_tpu_torch.sql.device_agg import DeviceUnsupported, KeyCodec
-from liquid_tpu_torch.utils.tracing import to_host
+from liquid_tpu_torch.utils.tracing import to_device, to_host
 
 #: joins by route: "device_joins" sort and probe on the engine's device,
 #: "host_joins" in numpy (small), "fallback_joins" go to pyarrow
@@ -127,8 +127,9 @@ def _sort_merge(build: np.ndarray, probe: np.ndarray, kind: str, device):
     probe row, build rows matched [full joins only]) as numpy."""
     from liquid_tpu_torch.ops import join as jops
     n_b = len(build)
-    skeys, perm = jops.sort_build(torch.from_numpy(build).to(device))
-    lo, hi = jops.probe_bounds(skeys, torch.from_numpy(probe).to(device))
+    skeys, perm = jops.sort_build(to_device(torch.from_numpy(build), device))
+    lo, hi = jops.probe_bounds(skeys,
+                               to_device(torch.from_numpy(probe), device))
     counts_d = hi - lo
     counts = to_host(counts_d).numpy()
     total = int(counts.sum())

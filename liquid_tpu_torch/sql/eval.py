@@ -350,6 +350,12 @@ class Evaluator:
             return pc.utf8_slice_codeunits(v, 0, n)
         if name == "coalesce":
             args = [self.arr(a) for a in e.args]
+            # an empty relation's columns are null-typed (the outer side
+            # of a join with nothing on it): they take the others' type
+            typed = [a.type for a in args if not pa.types.is_null(a.type)]
+            if typed:
+                args = [a.cast(typed[0]) if pa.types.is_null(a.type) else a
+                        for a in args]
             out = args[0]
             for a in args[1:]:
                 out = pc.coalesce(out, a)

@@ -62,10 +62,12 @@ from liquid_tpu_torch.utils.tracing import TRACER
 
 #: the classic path's hand-offs, by shape: an aggregate, a bare SELECT,
 #: a join source materialized (the fused routes' own counters,
-#: `fused_agg.STATS`, say why they passed); and the queries run as
-#: grouping sets or with windows
+#: `fused_agg.STATS`, say why they passed); the queries run as grouping
+#: sets and their grouped passes, one per set; the queries with windows;
+#: the set operations (a UNION / INTERSECT / EXCEPT chain each)
 STATS = {"classic_aggregates": 0, "classic_selects": 0, "classic_joins": 0,
-         "grouping_sets": 0, "windows": 0}
+         "grouping_sets": 0, "grouping_set_passes": 0, "windows": 0,
+         "setops": 0}
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -156,9 +158,17 @@ class QueryExecutor:
 
     def _execute_setop(self, u: ast.SetOp, qualified: bool = False
                        ) -> pa.Table:
-        """UNION / INTERSECT / EXCEPT [ALL] chain.  INTERSECT binds
-        tighter; the rest folds left-associatively.  Columns align by
-        position under the first member's names."""
+        """UNION / INTERSECT / EXCEPT [ALL] chain, under a `sql.setop`
+        span.  INTERSECT binds tighter; the rest folds left-associatively.
+        Columns align by position under the first member's names."""
+        STATS["setops"] += 1
+        ops = list(u.ops) if u.ops else ["union"] * len(u.all_flags)
+        with TRACER.span("sql.setop", op=",".join(dict.fromkeys(ops)),
+                         members=len(u.members)):
+            return self._setop(u, qualified, ops)
+
+    def _setop(self, u: ast.SetOp, qualified: bool, ops: List[str]
+               ) -> pa.Table:
         def run():
             parts = []
             for m in u.members:
@@ -169,7 +179,6 @@ class QueryExecutor:
         parts = self._with_ctes(u.members[0].ctes, run)
         names = parts[0].column_names
         parts = [p.rename_columns(names) for p in parts]
-        ops = list(u.ops) if u.ops else ["union"] * len(u.all_flags)
         alls = list(u.all_flags)
         i = 0
         while i < len(ops):  # INTERSECT first
@@ -597,6 +606,8 @@ class QueryExecutor:
         predicate on every part, so equal to applying it to the union);
         ORDER BY / LIMIT apply to the combined result."""
         STATS["grouping_sets"] += 1
+        kinds = [g.kind for g in q.group_by
+                 if isinstance(g, ast.GroupingSpec)]
         sets_per_elem: List[List[Tuple[ast.Expr, ...]]] = []
         spec_keys: List[ast.Expr] = []
         for g in q.group_by:
@@ -645,24 +656,29 @@ class QueryExecutor:
             return dataclasses.replace(e, **changes) if changes else e
 
         names = [it.alias or render(it.expr) for it in q.items]
+        combos = list(itertools.product(*sets_per_elem))
         parts: List[pa.Table] = []
-        for combo in itertools.product(*sets_per_elem):
-            included: List[ast.Expr] = []
-            for s in combo:
-                for e in s:
-                    if e not in included:
-                        included.append(e)
-            qi = ast.Select()
-            qi.items = [ast.SelectItem(rewrite(it.expr, included), nm)
-                        for it, nm in zip(q.items, names)]
-            qi.from_ = q.from_
-            qi.where = q.where
-            qi.group_by = [k for k in full_keys if k in included]
-            qi.having = (rewrite(q.having, included)
-                         if q.having is not None else None)
-            parts.append(self.execute(qi))
-        combined = pa.concat_tables(parts, promote_options="permissive")
-        return self._order_limit(q, combined, None, {})
+        with TRACER.span("sql.grouping_sets", sets=len(combos),
+                         kind=",".join(dict.fromkeys(kinds))):
+            for combo in combos:
+                included: List[ast.Expr] = []
+                for s in combo:
+                    for e in s:
+                        if e not in included:
+                            included.append(e)
+                qi = ast.Select()
+                qi.items = [ast.SelectItem(rewrite(it.expr, included), nm)
+                            for it, nm in zip(q.items, names)]
+                qi.from_ = q.from_
+                qi.where = q.where
+                qi.group_by = [k for k in full_keys if k in included]
+                qi.having = (rewrite(q.having, included)
+                             if q.having is not None else None)
+                STATS["grouping_set_passes"] += 1
+                with TRACER.span("exec.grouping_set", keys=len(included)):
+                    parts.append(self.execute(qi))
+            combined = pa.concat_tables(parts, promote_options="permissive")
+            return self._order_limit(q, combined, None, {})
 
     def _fused_single(self, q, table, scope, group, key_names, slots,
                       rew_keys, rew_inputs) -> Optional[pa.Table]:
@@ -1036,9 +1052,12 @@ class QueryExecutor:
                                          key=lambda i: remaining[i].num_rows))
                 zl = pa.array(np.zeros(cur.num_rows, np.int8))
                 zr = pa.array(np.zeros(comp.num_rows, np.int8))
-                cur = cur.append_column("__x", zl).join(
-                    comp.append_column("__x", zr), keys=["__x"],
-                    join_type="inner").drop_columns(["__x"])
+                with TRACER.span("exec.join", kind="cross",
+                                 build_rows=comp.num_rows,
+                                 probe_rows=cur.num_rows, device=False):
+                    cur = cur.append_column("__x", zl).join(
+                        comp.append_column("__x", zr), keys=["__x"],
+                        join_type="inner").drop_columns(["__x"])
                 continue
             i, pairs, used = best
             comp = remaining.pop(i)
@@ -1051,7 +1070,22 @@ class QueryExecutor:
                    kind: str) -> pa.Table:
         """One equi-join on (left key, right key) pairs: the device
         sort-merge, else pyarrow's hash join with both sides' key columns
-        kept under their own names."""
+        kept under their own names; under an `exec.join` span (the probe
+        side is the left one but for a right join; `device`: the
+        sort-merge ran on the engine's device)."""
+        from liquid_tpu_torch.sql import device_join
+        build, probe = (left, right) if kind == "right" else (right, left)
+        with TRACER.span("exec.join", kind=kind, build_rows=build.num_rows,
+                         probe_rows=probe.num_rows) as span:
+            before = device_join.STATS["device_joins"]
+            out = self._fold_pair(left, right, pairs, kind)
+            if span is not None:
+                span.attrs["device"] = \
+                    device_join.STATS["device_joins"] > before
+            return out
+
+    def _fold_pair(self, left: pa.Table, right: pa.Table, pairs,
+                   kind: str) -> pa.Table:
         from liquid_tpu_torch.sql.device_join import try_device_join
         lkeys = [p[0] for p in pairs]
         rkeys = [p[1] for p in pairs]

@@ -1,0 +1,285 @@
+"""The benchmark's TPC-DS cell (`tpcds_sf1.olap`) on the CPU at SF 0.01:
+its generator (deterministic by seed, the specification's SF 1 row
+counts and their ratios), each of its 16 plain references against the JAX
+package's pandas oracle on the same tables (SQL's running max for q51,
+`test_torch_route_fence_tpcds.SQL_ORACLES`), one traced run of the cell
+through its own program and traffic, the spans of the grouping-set
+passes, set operations and join folds, and the two readers of them."""
+import time
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import numpy as np  # noqa: E402
+import pyarrow as pa  # noqa: E402
+import pyarrow.parquet as pq  # noqa: E402
+
+from cachebench import compare, data, harness, spec  # noqa: E402
+from cachebench.generators import tpcds  # noqa: E402
+from cachebench.reference.common import Tables  # noqa: E402
+from cachebench.trace import SpanRec  # noqa: E402
+from liquid_tpu.bench import tpcds_ref  # noqa: E402
+from liquid_tpu_torch.sql import exec as texec  # noqa: E402
+from liquid_tpu_torch.sql.session import LiquidCacheLocalBuilder  # noqa: E402
+from liquid_tpu_torch.utils.tracing import TRACER  # noqa: E402
+from tests.test_torch_route_fence_tpcds import SQL_ORACLES  # noqa: E402
+
+CELL = "tpcds_sf1.olap"
+SF = 0.01
+SEED = 2 ** 31 + 4242
+QUERIES = spec.workload(CELL)["queries"]
+#: the mix as issued; the four slowest left the workload by the rule that
+#: keeps one warm pass on the card under 10 s, and keep their texts and
+#: references for when it fits again
+ISSUED = ["q3", "q12", "q20", "q98", "q27", "q36", "q86", "q18", "q5",
+          "q77", "q47", "q51", "q38", "q87", "q97", "q71"]
+DROPPED = ["q47", "q18", "q5", "q77"]
+
+
+def small_config() -> dict:
+    cfg = spec.config("tpcds_sf1")
+    cfg["scale_factor"] = SF
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def cell_data(tmp_path_factory):
+    """(data root, {table: parquet path}) of the cell's tables at SF."""
+    root = str(tmp_path_factory.mktemp("tpcds_cell"))
+    return root, data.prepare(small_config(), SEED, root)
+
+
+@pytest.fixture(scope="module")
+def session(cell_data):
+    _, paths = cell_data
+    ctx, _ = (LiquidCacheLocalBuilder(device="cpu")
+              .with_max_memory_bytes(1 << 30).build())
+    for name, path in paths.items():
+        ctx.register_parquet(name, path)
+    return ctx
+
+
+def test_the_cell_is_the_issued_mix():
+    w = spec.workload(CELL)
+    assert QUERIES == [q for q in ISSUED if q not in DROPPED]
+    why = spec.cell(CELL)["why"]
+    assert all(q + " " in why for q in DROPPED)
+    assert (w["traffic"], w["program"], w["warm_passes"],
+            w["max_memory_bytes"]) == ("round_robin", "session", 1, 1 << 34)
+    c = spec.cell(CELL)
+    assert (c["config"], c["chips"]) == ("tpcds_sf1", 1)
+    assert spec.config("tpcds_sf1")["reduced"] == ["scale_factor"]
+
+
+def test_generator_is_deterministic_by_seed():
+    some = ["store_sales", "store_returns", "item", "customer"]
+    a = tpcds.generate(SF, SEED, some)
+    b = tpcds.generate(SF, SEED, some)
+    c = tpcds.generate(SF, SEED + 1, some)
+    for t in some:
+        assert a[t].equals(b[t]), t
+    assert not a["store_sales"].equals(c["store_sales"])
+    # a table is the same whichever others are drawn with it
+    assert tpcds.generate(SF, SEED, ["store_sales"])["store_sales"].equals(
+        a["store_sales"])
+
+
+def test_row_counts_are_the_specifications(cell_data):
+    cfg = spec.config("tpcds_sf1")
+    assert cfg["scale_factor"] == 1
+    for t in cfg["tables"]:
+        assert tpcds.rows(t, 1) == cfg["table_rows"][t] == \
+            tpcds.SF1_ROWS[t], t
+    # customer_demographics: the cross product of its eight domains
+    assert np.prod([len(d) for d in (
+        tpcds.GENDER, tpcds.MARITAL, tpcds.EDUCATION, tpcds.PURCHASE,
+        tpcds.CREDIT, tpcds.DEPS, tpcds.DEPS, tpcds.DEPS)]) == 1_920_800
+    # at SF 0.01 the written tables have the scaled counts, in the
+    # specification's ratios
+    _, paths = cell_data
+    n = {t: pq.read_metadata(p).num_rows for t, p in paths.items()}
+    assert n == {t: tpcds.rows(t, SF) for t in cfg["tables"]}
+    for fact, ret in (("store_sales", "store_returns"),
+                      ("catalog_sales", "catalog_returns"),
+                      ("web_sales", "web_returns")):
+        spec_ratio = tpcds.SF1_ROWS[ret] / tpcds.SF1_ROWS[fact]
+        assert n[ret] / n[fact] == pytest.approx(spec_ratio, rel=0.01)
+    assert n["date_dim"] == 73_049 and n["time_dim"] == 86_400
+
+
+def _as_arrow(ref, want):
+    """The pandas oracle's answer as Arrow, its timestamps as the dates
+    the reference returns."""
+    t = pa.Table.from_pandas(ref.reset_index(drop=True),
+                             preserve_index=False)
+    cols = [c.cast(w.type) if pa.types.is_timestamp(c.type)
+            and pa.types.is_date(w.type) else c
+            for c, w in zip(t.columns, want)]
+    return pa.table(cols, names=t.column_names)
+
+
+@pytest.fixture(scope="module")
+def pandas_tables(cell_data):
+    _, paths = cell_data
+    return tpcds_ref.to_pandas_tables(
+        {t: pq.read_table(p) for t, p in paths.items()})
+
+
+@pytest.mark.parametrize("query", ISSUED)
+def test_reference_equals_the_pandas_oracle(cell_data, pandas_tables,
+                                            query):
+    _, paths = cell_data
+    mod = spec.reference("tpcds_sf1", query)
+    want = mod.answer(Tables(paths))
+    n = int(query[1:])
+    ref = SQL_ORACLES.get(n, tpcds_ref.REFS[n])(pandas_tables)
+    assert compare.agrees(_as_arrow(ref, want), want,
+                          getattr(mod, "CUT", None), 1e-6), query
+
+
+def test_references_answer_most_queries_with_rows(cell_data):
+    _, paths = cell_data
+    db = Tables(paths)
+    rows = {q: len(spec.reference("tpcds_sf1", q).answer(db)[0])
+            for q in ISSUED}
+    assert sum(r > 0 for r in rows.values()) >= 14, rows
+
+
+def test_cell_reads_correct_through_its_program_and_traffic(cell_data):
+    root, _ = cell_data
+    r = harness.run_cell(CELL, SEED, 0.5, True, time.perf_counter(),
+                         device="cpu", config=small_config(),
+                         data_root=root)
+    assert r["correct"], r["checks"]
+    assert r["failed"] == 0 and r["attempted"] >= len(QUERIES)
+    m = r["metrics"]
+    # three sets for each of q27, q36 and q86
+    assert m["exec.grouping_passes"]["value"] == pytest.approx(3.0)
+    assert m["exec.join_ms"]["value"] > 0
+
+
+def _traced(ctx, sql):
+    TRACER.reset()
+    TRACER.enable()
+    try:
+        ctx.sql(sql).to_arrow()
+    finally:
+        TRACER.disable()
+    spans = TRACER.spans()
+    TRACER.reset()
+    return spans
+
+
+def _held_by(spans, inner, outer):
+    """Is `inner` inside `outer` by the parent ids?"""
+    byid = {s.span_id: s for s in spans}
+    p = byid.get(inner.parent_id)
+    while p is not None:
+        if p is outer:
+            return True
+        p = byid.get(p.parent_id)
+    return False
+
+
+@pytest.mark.parametrize("query,sets", [("q27", 3), ("q18", 5)])
+def test_one_grouping_set_pass_per_set(session, query, sets):
+    before = dict(texec.STATS)
+    spans = _traced(session, spec.query_sql("tpcds_sf1", query))
+    stmts = [s for s in spans if s.name == "sql.grouping_sets"]
+    assert len(stmts) == 1
+    assert stmts[0].attrs == {"sets": sets, "kind": "rollup"}
+    passes = [s for s in spans if s.name == "exec.grouping_set"]
+    assert len(passes) == sets
+    assert all(s.parent_id == stmts[0].span_id for s in passes)
+    assert sorted(s.attrs["keys"] for s in passes) == list(range(sets))
+    # a direct child of the statement's span
+    assert stmts[0].parent == "sql.execute"
+    assert texec.STATS["grouping_sets"] == before["grouping_sets"] + 1
+    assert texec.STATS["grouping_set_passes"] == \
+        before["grouping_set_passes"] + sets
+
+
+def test_setop_span_and_counter(session):
+    before = texec.STATS["setops"]
+    spans = _traced(session, spec.query_sql("tpcds_sf1", "q38"))
+    ops = [s for s in spans if s.name == "sql.setop"]
+    assert [(s.attrs["op"], s.attrs["members"]) for s in ops] == \
+        [("intersect", 3)]
+    assert texec.STATS["setops"] == before + 1
+
+
+def test_join_spans_hold_no_cache_span(session):
+    """Over the whole mix: each pairwise fold is an `exec.join` with its
+    sides' sizes, and none holds a `cache.*` span (the sides' reads stay
+    outside), so `sql.host_self_ms` reads the other cells as before."""
+    joins = 0
+    for q in ISSUED:
+        spans = _traced(session, spec.query_sql("tpcds_sf1", q))
+        js = [s for s in spans if s.name == "exec.join"]
+        joins += len(js)
+        for j in js:
+            assert set(j.attrs) == {"kind", "build_rows", "probe_rows",
+                                    "device"}
+            assert not any(s.name.startswith("cache.")
+                           and _held_by(spans, s, j) for s in spans), q
+    assert joins > len(ISSUED)
+
+
+def _run(spans_, completed=2):
+    return harness.Run(CELL, window_start=0, window_end=10_000,
+                       completed=completed, spans=spans_)
+
+
+#: a ROLLUP of three sets whose passes each fold a join (one holding a
+#: fetch), and a second ROLLUP of five sets
+ROLLUPS = [
+    SpanRec("sql.execute", 0, 1000, "e1", ""),
+    SpanRec("sql.grouping_sets", 10, 900, "g1", "e1"),
+    SpanRec("exec.grouping_set", 20, 300, "p1", "g1"),
+    SpanRec("exec.join", 30, 130, "j1", "p1"),
+    SpanRec("wait.fetch", 100, 120, "w1", "j1"),
+    SpanRec("exec.grouping_set", 300, 600, "p2", "g1"),
+    SpanRec("exec.join", 310, 360, "j2", "p2"),
+    SpanRec("exec.grouping_set", 600, 880, "p3", "g1"),
+    SpanRec("sql.execute", 2000, 3000, "e2", ""),
+    SpanRec("sql.grouping_sets", 2010, 2900, "g2", "e2"),
+] + [SpanRec("exec.grouping_set", 2020 + 100 * i, 2100 + 100 * i, f"q{i}",
+             "g2") for i in range(5)]
+
+
+def test_join_and_grouping_readers():
+    join = spec.metric("exec.join_ms").read(_run(ROLLUPS))
+    assert join == pytest.approx((100 - 20 + 50) / 1e6 / 2)
+    passes = spec.metric("exec.grouping_passes").read(_run(ROLLUPS))
+    assert passes == pytest.approx(8 / 2)
+
+
+@pytest.mark.parametrize("name", ["exec.join_ms", "exec.grouping_passes"])
+def test_readers_read_nothing_without_their_spans(name):
+    reader = spec.metric(name)
+    # a program older than the spans: layer spans, but none of these
+    older = [SpanRec("sql.execute", 0, 10, "e", ""),
+             SpanRec("exec.project", 1, 9, "j", "e")]
+    assert reader.read(_run(older)) is None
+    assert reader.read(_run(ROLLUPS, completed=0)) is None
+    entry = {m["name"]: m for m in spec.benchmark()["per_layer"]}[name]
+    assert (entry["source"], entry["moves"], entry["workloads"]) == (
+        "program_span", "qps", [CELL])
+
+
+def test_coalesce_over_an_empty_outer_side(session):
+    """q77's `coalesce(sr.returns_amt, 0)` where no return fell in the
+    window: the empty join-and-group-by's columns are null-typed, and take
+    the other argument's type."""
+    out = session.sql(
+        "with sr as (select sr_store_sk, sum(sr_return_amt) as returns_amt "
+        " from store_returns, date_dim where sr_returned_date_sk = d_date_sk"
+        " and d_date between date '1950-01-01' and date '1950-01-31'"
+        " group by sr_store_sk) "
+        "select s_store_sk, coalesce(sr.returns_amt, 0) as returns_amt "
+        "from store left join sr on s_store_sk = sr.sr_store_sk "
+        "order by s_store_sk").to_arrow()
+    assert out.column(0).to_pylist() == list(range(1, 13))
+    assert out.column(1).to_pylist() == [0] * 12
