@@ -54,6 +54,7 @@ from __future__ import annotations
 import numbers
 import re
 from collections import OrderedDict
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -75,7 +76,7 @@ from liquid_tpu_torch.ops import hashagg as hops
 from liquid_tpu_torch.ops import mask as mops
 from liquid_tpu_torch.ops.groupby import scalar_reduce
 from liquid_tpu_torch.sql import ast
-from liquid_tpu_torch.utils.tracing import TRACER, to_device, to_host
+from liquid_tpu_torch.utils.tracing import COPIES, TRACER, to_device, to_host
 
 _U64MAX = (1 << 64) - 1
 _W = BLOCK_ROWS // 32
@@ -106,7 +107,11 @@ STATS = {"fused_queries": 0, "fused_grouped": 0, "fused_scalar": 0,
          # builds evicted to make room for another, and cached plans
          # dropped with a build they pin
          "star_plan_hits": 0, "star_build_evictions": 0,
-         "star_plans_dropped": 0}
+         "star_plans_dropped": 0,
+         # constants (IR literals, IN lists, bounds) a planner placed on
+         # the card, and uploads made while a program was being enqueued
+         # (`_issue`): 0 on a cached plan
+         "plan_consts": 0, "issue_uploads": 0}
 
 _AGG_KINDS = frozenset({"count_star", "count", "sum", "avg", "min", "max",
                         "stddev", "var"})
@@ -144,6 +149,12 @@ class KindsWithTypes(dict):
 #   ("incodes", col, gids)   string column membership by vocabulary id
 #   ("band"/"bor", l, r)  ("bnot", x)  ("unknown",)   a NULL literal's
 #                                                     comparison
+# A planned program reads its constants from the card (`bind_consts`):
+#   ("const", aix, dtype)         arrays[aix], a 0-dim view, for a "lit"
+#   ("inconst", col, aix, dtype)  membership in arrays[aix], for "inints"
+#                                 and a non-empty "incodes"
+# so enqueuing a cached plan copies nothing to the card.  Other callers
+# (the mesh) evaluate "lit" and the IN lists, uploaded at each use.
 
 _INT_CASTS = ("int", "integer", "bigint", "smallint")
 
@@ -472,9 +483,9 @@ def _or_unknown(ir, has_null: bool):
 def bool_ir_columns(ir) -> set:
     """Column names referenced by a boolean/value IR tree."""
     tag = ir[0]
-    if tag in ("col", "inints", "incodes", "lut"):
+    if tag in ("col", "inints", "incodes", "lut", "inconst"):
         return {ir[1]}
-    if tag == "lit":
+    if tag in ("lit", "const"):
         return set()
     out: set = set()
     for part in ir[1:]:
@@ -485,6 +496,28 @@ def bool_ir_columns(ir) -> set:
 
 _CMP_FNS = {"==": torch.eq, "!=": torch.ne, "<": torch.lt, "<=": torch.le,
             ">": torch.gt, ">=": torch.ge}
+
+
+#: per device, the null flag of every constant: one shared 0-dim False, so
+#: a constant costs no fill on each run and an OR with it no launch
+_NO_NULLS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _no_nulls(device) -> torch.Tensor:
+    f = _NO_NULLS.get(device)
+    if f is None:
+        f = _NO_NULLS[device] = torch.zeros((), dtype=torch.bool,
+                                            device=device)
+    return f
+
+
+def _or_nulls(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a | b, with no launch where one side is a constant's flag."""
+    if b is _NO_NULLS.get(b.device):
+        return a
+    if a is _NO_NULLS.get(a.device):
+        return b
+    return a | b
 
 
 def _lit(env, v, dt: str) -> torch.Tensor:
@@ -502,6 +535,8 @@ def eval_ir_nulls(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
         return env.decode(ir[1], ir[2]), env.nulls(ir[1])
     if tag == "lut":
         return env.decode(ir[1], ("lut", ir[2], ir[3])), env.nulls(ir[1])
+    if tag == "const":
+        return env.arrays[ir[1]], _no_nulls(env.device)
     if tag == "lit":
         return _lit(env, ir[1], ir[2]), torch.zeros((), dtype=torch.bool,
                                                     device=env.device)
@@ -524,7 +559,7 @@ def eval_ir_nulls(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
     _, op, _, l, r = ir
     lv, ln = eval_ir_nulls(l, env)
     rv, rn = eval_ir_nulls(r, env)
-    n = ln | rn
+    n = _or_nulls(ln, rn)
     if op == "+":
         return lv + rv, n
     if op == "-":
@@ -538,7 +573,8 @@ def eval_ir_nulls(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
     return lv / rv, n
 
 
-_BOOL_TAGS = ("cmp", "inints", "incodes", "band", "bor", "bnot", "unknown")
+_BOOL_TAGS = ("cmp", "inints", "incodes", "inconst", "band", "bor", "bnot",
+              "unknown")
 
 
 def _bool3(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -551,8 +587,13 @@ def _bool3(ir, env) -> Tuple[torch.Tensor, torch.Tensor]:
         _, op, l, r = ir
         lv, ln = eval_ir_nulls(l, env)
         rv, rn = eval_ir_nulls(r, env)
-        unk = ln | rn
+        unk = _or_nulls(ln, rn)
         return _CMP_FNS[op](lv, rv) & ~unk, unk
+    if tag == "inconst":
+        v = env.decode(ir[1], ir[3])
+        want = env.arrays[ir[2]]  # the decode's dtype: int64 or float64
+        unk = env.nulls(ir[1])
+        return torch.isin(v, want) & ~unk, unk
     if tag == "inints":
         v = env.decode(ir[1], ir[3])
         want = to_device(torch.tensor(ir[2], dtype=v.dtype), env.device)
@@ -591,7 +632,7 @@ def _bool_nonnull(ir, env) -> torch.Tensor:
 
 
 def _ir_dtype(ir) -> str:
-    if ir[0] in ("col", "lit", "bin"):
+    if ir[0] in ("col", "lit", "bin", "const"):
         return ir[2]
     if ir[0] == "lut":
         return ir[3]
@@ -1407,6 +1448,16 @@ class _Plan:
         self.phys_keys: List[object] = []
         #: star keys' (lo, hi) value bounds (dimension payloads, probe j)
         self.key_bounds: Dict[object, tuple] = {}
+        #: the direct path's per-key lower bounds, an int64 array index
+        #: (`bind_consts`), or None
+        self.los_ix: Optional[int] = None
+        #: constants awaiting their upload (`_const`, `place_consts`), per
+        #: dtype: (array index, values or one value, is a list)
+        self.pending: Dict[str, list] = {"i64": [], "f64": []}
+        #: the reduction's keys as compiled, before `bind_consts`: a
+        #: table's stage hints are keyed by them, so plans of one key
+        #: expression share a hint whatever their array layouts
+        self.stage_keys: Optional[tuple] = None
 
 
 def _red_keys(p: _Plan) -> list:
@@ -1414,9 +1465,97 @@ def _red_keys(p: _Plan) -> list:
     return p.phys_keys if p.fd else p.keys
 
 
+def _stage_keys(p: _Plan) -> tuple:
+    """The reduction's keys as a stage hint keys them."""
+    return p.stage_keys if p.stage_keys is not None else tuple(_red_keys(p))
+
+
 def _add(plan: _Plan, arr: torch.Tensor) -> int:
     plan.arrays.append(arr)
     return len(plan.arrays) - 1
+
+
+# -- a plan's constants on the card ---------------------------------------------
+#
+# Every literal, IN list and bound a planned program reads goes into one
+# int64 and one float64 tensor per plan, uploaded once when it is planned;
+# the IR reads 0-dim and 1-dim views of them.  A copy from pageable memory
+# synchronizes the stream, so uploading at each use would drain the card
+# once per literal while the host enqueues.  The views keep the dtypes the
+# per-use uploads had: an i64 literal stays an int64 tensor (a Python
+# float times it would promote to float32).
+
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def _const(p: _Plan, v, dt: str) -> int:
+    """Reserve the array index of constant `v` (a number, or a tuple for
+    an IN list) of dtype `dt`; `place_consts` fills it."""
+    ix = _add(p, None)
+    p.pending[dt].append((ix, v, isinstance(v, tuple)))
+    return ix
+
+
+def _fits(v, dt: str) -> bool:
+    """An int64 constant in range (a wider one keeps its per-use upload,
+    which raises as before)."""
+    vals = v if isinstance(v, tuple) else (v,)
+    return dt == "f64" or all(_I64_MIN <= x <= _I64_MAX for x in vals)
+
+
+def bind_ir(p: _Plan, ir):
+    """IR with its literals and IN lists as plan constants ("const",
+    "inconst")."""
+    tag = ir[0]
+    if tag == "lit" and _fits(ir[1], ir[2]):
+        return ("const", _const(p, ir[1], ir[2]), ir[2])
+    if tag == "inints" and _fits(ir[2], ir[3]):
+        return ("inconst", ir[1], _const(p, tuple(ir[2]), ir[3]), ir[3])
+    if tag == "incodes" and ir[2]:
+        return ("inconst", ir[1], _const(p, tuple(ir[2]), "i64"), "i64")
+    return tuple(bind_ir(p, x) if isinstance(x, tuple) and x
+                 and isinstance(x[0], str) else x for x in ir)
+
+
+def bind_consts(p: _Plan, dev) -> None:
+    """Move a planned program's constants onto the card: the literals and
+    IN lists of its residuals, aggregate inputs and expression keys, and
+    the direct path's key bounds."""
+    p.stage_keys = tuple(_red_keys(p))
+    p.resids = [bind_ir(p, ir) for ir in p.resids]
+    p.rslots = [(kind, dt, bind_ir(p, ir), cols)
+                for kind, dt, ir, cols in p.rslots]
+    p.keys = [("expr", bind_ir(p, k[1]), k[2]) if isinstance(k, tuple)
+              and k[0] == "expr" else k for k in p.keys]
+    domains = _phys_domains(p) if p.keys else None
+    if domains is not None:
+        los = tuple(lo for lo, _ in domains)
+        if _fits(los, "i64"):
+            p.los_ix = _const(p, los, "i64")
+    place_consts(p, dev)
+
+
+def place_consts(p: _Plan, dev) -> None:
+    """Upload the pending constants, one tensor per dtype, and point their
+    array indices at views of it."""
+    for dt, items in p.pending.items():
+        if not items:
+            continue
+        flat: list = []
+        for _ix, v, is_list in items:
+            if is_list:
+                flat.extend(v)
+            else:
+                flat.append(v)
+        packed = to_device(torch.tensor(
+            flat, dtype=torch.float64 if dt == "f64" else torch.int64), dev)
+        k = 0
+        for ix, v, is_list in items:
+            n = len(v) if is_list else 1
+            p.arrays[ix] = packed[k:k + n] if is_list else packed[k]
+            k += n
+        STATS["plan_consts"] += len(items)
+        items.clear()
 
 
 def _select_blocks(table, plan_scan) -> tuple:
@@ -1824,7 +1963,7 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
 
     for c in sorted(needed):
         register_col(p, c, prep_of(c), c in remap_cols)
-    add_exist_probes(p, eprobes, dev)
+    add_exist_probes(p, eprobes)
 
     for gi, g in enumerate(plan_scan.pushdown):
         if gi in skip_groups:
@@ -1846,10 +1985,11 @@ def _plan_query(table, plan_scan, hints, key_names, slots, rew_keys,
 
     _plan_slots(p, slots, slot_irs, rew_inputs, table, bounds_of, scaledres,
                 n_upper)
+    bind_consts(p, dev)
     return p, mode, False
 
 
-def add_exist_probes(p: _Plan, eprobes, dev) -> None:
+def add_exist_probes(p: _Plan, eprobes) -> None:
     """Put existence-probe specs into the plan (`exist_probes`)."""
     for sp in eprobes:
         pr = sp["probe"]
@@ -1858,9 +1998,8 @@ def add_exist_probes(p: _Plan, eprobes, dev) -> None:
             if pr.minv is None:
                 raise _Bail("existence probe without its min / max")
             mn, mx = _add(p, pr.minv), _add(p, pr.maxv)
-        p.eprobes.append((sp["col"], _add(p, pr.cnt), _add(p, to_device(
-            torch.tensor(pr.lo, dtype=torch.int64), dev)), sp["mode"], mn,
-            mx, sp["mmcol"] or ""))
+        p.eprobes.append((sp["col"], _add(p, pr.cnt), _const(p, pr.lo, "i64"),
+                          sp["mode"], mn, mx, sp["mmcol"] or ""))
 
 
 def _prep_device(pr: _ColPrep) -> torch.device:
@@ -2139,14 +2278,30 @@ def _finalize_scalar(p: _Plan, slots, outs: np.ndarray,
     return pa.table(cols)
 
 
+@contextmanager
+def _issue():
+    """The `fused.issue` span around one enqueue of a planned program; the
+    uploads made inside it go to `STATS["issue_uploads"]` and, traced, to
+    the span's `uploads`."""
+    with TRACER.span("fused.issue") as span:
+        n0 = COPIES["uploads"]
+        try:
+            yield
+        finally:
+            n = COPIES["uploads"] - n0
+            STATS["issue_uploads"] += n
+            if span is not None:
+                span.attrs["uploads"] = n
+
+
 def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
                  topk=None) -> Optional[pa.Table]:
     """Run a planned aggregate: the empty-scan shortcut, else the scalar
     program, the direct-address program or the hash ladder, and one
     fetch.  Returns the partial result (key columns + slot columns), or
     None when the ladder did not converge.  Spans: `fused.issue` around
-    each enqueue of the program, `fused.finish` around the host's result
-    building after its fetch."""
+    each enqueue of the program (`_issue`), `fused.finish` around the
+    host's result building after its fetch."""
     nv = len(p.rslots)
     if empty:
         # every block pruned by stats/zones: typed result, zero data IO
@@ -2163,7 +2318,7 @@ def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
                                  [np.zeros(0, np.int64)] * nv)
     if mode == "scalar":
         STATS["fused_scalar"] += 1
-        with TRACER.span("fused.issue"):
+        with _issue():
             out = _fused_core(p)
         packed = to_host(out).numpy()
         with TRACER.span("fused.finish"):
@@ -2179,13 +2334,14 @@ def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
         ncols = 1 + 2 * nv + 2 * len(_red_keys(p))
         cap = min(1 << 27, (3 << 30) // (8 * ncols))
         if 0 < m <= cap:
-            grouped = ("direct", tuple(span for _, span in domains),
-                       to_device(torch.tensor([lo for lo, _ in domains],
-                                              dtype=torch.int64),
-                                 p.arrays[p.rv_ix].device),
+            los = (p.arrays[p.los_ix] if p.los_ix is not None else
+                   to_device(torch.tensor([lo for lo, _ in domains],
+                                          dtype=torch.int64),
+                             p.arrays[p.rv_ix].device))
+            grouped = ("direct", tuple(span for _, span in domains), los,
                        _k2_plan(p, m, n_rows), p.having or ())
             tkspec = _mk_topk_spec(topk, m)
-            with TRACER.span("fused.issue"):
+            with _issue():
                 out = _fused_core(p, grouped, tkspec)
             if tkspec:
                 mini = to_host(out[3]).numpy()
@@ -2193,12 +2349,12 @@ def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
                     r = _finish_topk(p, slots, topk, mini)
                 if r is not None:
                     return r
-                with TRACER.span("fused.issue"):  # boundary tie: full fetch
+                with _issue():  # boundary tie: full fetch
                     out = _fused_core(p, grouped)
             with TRACER.span("fused.finish"):
                 return _fetch_result(p, slots, out)
 
-    hint_key = ("stage", tuple(_red_keys(p)))
+    hint_key = ("stage", _stage_keys(p))
     if not hasattr(table, "_fused_stage_hint"):
         table._fused_stage_hint = {}
     stage_hint = table._fused_stage_hint
@@ -2217,7 +2373,7 @@ def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
         rounds = 1 if bound * bound <= n_slots else 3
         grouped = ("hash", n_slots, salt, rounds)
         tkspec = _mk_topk_spec(topk, rounds * n_slots)
-        with TRACER.span("fused.issue"):
+        with _issue():
             out = _fused_core(p, grouped, tkspec)
         # with top-k only the clean flag is fetched first
         mat = None if tkspec else to_host(out[0]).numpy()
@@ -2231,7 +2387,7 @@ def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
                 r = _finish_topk(p, slots, topk, mini)
             if r is not None:
                 return r
-            with TRACER.span("fused.issue"):
+            with _issue():
                 out = _fused_core(p, grouped)
         with TRACER.span("fused.finish"):
             return _fetch_result(p, slots, out, mat)
@@ -2866,7 +3022,7 @@ def distinct_fused_device(table, plan_scan, hints, group, key_names, slots,
         STATS["fused_grouped"] += 1
         if topk is not None:
             cols = out[3]
-            with TRACER.span("fused.issue"):
+            with _issue():
                 mini = _topk_gather_core(cols, _mk_topk_spec(
                     topk, int(cols[0].shape[0])), len(p2.keys),
                     len(p2.rslots))
@@ -2881,13 +3037,13 @@ def distinct_fused_device(table, plan_scan, hints, group, key_names, slots,
     # sorted pairs: the table needs only 2x the OUTER keys' cardinality
     kb = _cardinality_bound(p2)
     if kb is not None:
-        hk = ("stage2sort", tuple(p1.keys))
+        hk = ("stage2sort", _stage_keys(p1))
         s0 = stage_hint.get(hk, next((si for si, (ns, _) in enumerate(
             _STAGES_XL) if ns >= 2 * kb), None))
         if s0 is not None:
             for si in range(s0, len(_STAGES_XL)):
                 n2, s2 = _STAGES_XL[si]
-                with TRACER.span("fused.issue"):
+                with _issue():
                     out = _fused_core(p1, ("sortpairs", recipes, kinds2, n2,
                                            s2, 3))
                 r = finish(out, hk, si)
@@ -2899,11 +3055,11 @@ def distinct_fused_device(table, plan_scan, hints, group, key_names, slots,
     # chained (the outer keys have no bound, or one beyond the ladder): the
     # row-capped bound is pessimistic, so start at 1M slots at most and let
     # the dirty check grow the table; level 2 takes a table as large
-    hk = ("stage2", tuple(p1.keys))
+    hk = ("stage2", _stage_keys(p1))
     start = stage_hint.get(hk, min(start, 2))
     for si in range(start, len(_STAGES_XL)):
         n_slots, salt = _STAGES_XL[si]
-        with TRACER.span("fused.issue"):
+        with _issue():
             out = _distinct_chained(
                 p1, recipes, kinds2, (n_slots, salt, 3),
                 (n_slots, salt ^ 0x5851F42D4C957F2D, 3))
@@ -3140,6 +3296,9 @@ def _fused_select(executor, table, q, where) -> pa.Table:
     idx = np.zeros(0, np.int64)
     if blocks:
         p.rv_ix = _add(p, _rowvalid(table, blocks))
+        resids = [bind_ir(p, ir) for ir in resids]
+        oir = None if oir is None else bind_ir(p, oir)
+        place_consts(p, table.cache.device)
         count_t, idx_t, ranks_t = _fused_select_run(p, resids, oir, desc, k2)
         # one fetch: [count, ids..., ranks...]
         packed = to_host(torch.cat([count_t.to(torch.float64).reshape(1),

@@ -60,14 +60,14 @@ from liquid_tpu_torch.sql.fused_agg import (
     _compile_bool, _compile_expr, _Decoders, _expr_key_type, _gid_stack,
     _ir_dtype, _kind_or, _like_regex, _Plan, _plan_cache_key, _plan_slots, _rowvalid,
     _scaled_col_info, _schema_kind, _select_blocks, _selection_packed,
-    _table_prep, _value_type, add_exist_probes, execute_plan,
-    payload_bounds, plan_having, plan_topk, pred_alt, probe_dims,
-    register_col,
+    _const, _table_prep, _value_type, add_exist_probes, bind_consts, bind_ir,
+    execute_plan, payload_bounds, place_consts, plan_having, plan_topk,
+    pred_alt, probe_dims, register_col,
 )
 from liquid_tpu_torch.sql.physical import collect_columns, render
 from liquid_tpu_torch.sql.planner import (
     and_all, plan_scan_filters, split_conjuncts, subqueries)
-from liquid_tpu_torch.utils.tracing import TRACER, to_device, to_host
+from liquid_tpu_torch.utils.tracing import TRACER, to_host
 
 #: index tables larger than this are refused (2^27 int32 entries, 512 MB)
 MAX_DIM_SPAN = 1 << 27
@@ -806,11 +806,12 @@ def build_exist_probe(table, key_col: str, local_where, mm_col=None,
             _register_col(p, mp, None, c, registered,
                           c in resid_cols and mp.kind_of(c) == "dict")
         p.rv_ix = _add(p, _rowvalid(table, blocks))
-        lo_ix = _add(p, to_device(torch.tensor(lo, dtype=torch.int64),
-                                  table.cache.device))
+        lo_ix = _const(p, lo, "i64")
     except _Bail:
         return None
     with TRACER.span("fused.dim_build"):
+        p.resids = [bind_ir(p, ir) for ir in p.resids]
+        place_consts(p, table.cache.device)
         outs = _exist_build(p, key_col, span, mm_col, lo_ix)
         probe = _ExistProbe(outs[0], int(lo), span, *outs[1:])
         probe.nbytes = sum(a.numel() * a.element_size() for a in outs)
@@ -872,11 +873,9 @@ def _add_probe(p: _Plan, planner: _StarPlanner, pid: int, child: str,
     """Probe `pid` of a child dimension in a parent's plan, in the
     composite form for a chain index, with the child's payload columns;
     reg(column) registers a parent column the probe reads."""
-    dev = pb.idx.device
     pcol = planner.tree[child][1]
     reg(pcol)
-    entry = (pid, pcol, _add(p, pb.idx),
-             _add(p, to_device(torch.tensor(pb.lo, dtype=torch.int64), dev)))
+    entry = (pid, pcol, _add(p, pb.idx), _const(p, pb.lo, "i64"))
     if pb.chain is not None:
         pcol2 = planner.tree2[child][0]
         reg(pcol2)
@@ -990,7 +989,6 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
             if b is not None:
                 pay_bounds[c] = b
     p.rv_ix = _add(p, _rowvalid(table, blocks))
-    klo_ix = _add(p, to_device(torch.tensor(lo, dtype=torch.int64), dev))
 
     # predicates and residuals whole (`repr`: a display name shows an IN
     # list or a CASE by its kind only), the blocks and the key payloads'
@@ -1011,10 +1009,12 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
         return hit
 
     with TRACER.span("fused.dim_build"):
+        klo_ix = _const(p, lo, "i64")
         key2 = None
         if key2_col is not None:
-            key2 = (key2_col, _add(p, to_device(
-                torch.tensor(b2[0], dtype=torch.int64), dev)))
+            key2 = (key2_col, _const(p, b2[0], "i64"))
+        p.resids = [bind_ir(p, ir) for ir in p.resids]
+        place_consts(p, dev)
         outs = _dim_build(p, key_col, tblsize, pays, klo_ix, key2)
         probe = _Probe()
         probe.idx, probe.dup = outs[0], outs[1]
@@ -1094,8 +1094,7 @@ def _detect_fd(planner: _StarPlanner, p: _Plan) -> None:
         if len(key_cols) < 2:
             continue  # value mode only pays with derived keys
         idx_ix = _add(p, pb.idx)
-        lo_ix = _add(p, to_device(torch.tensor(pb.lo, dtype=torch.int64),
-                                  pb.idx.device))
+        lo_ix = _const(p, pb.lo, "i64")
         entries = []
         for i, c in others:
             vals, nulls, ptype = pb.payload[c]
@@ -1281,7 +1280,8 @@ def _plan_fact(planner: _StarPlanner, dims: Dict[str, _Probe]):
     _plan_slots(p, planner.slots, slot_irs, planner.rew_inputs, fields,
                 bounds_of, scaledres, n_upper)
     p.rv_ix = _add(p, _rowvalid(table, blocks))
-    add_exist_probes(p, planner.eprobe_specs, dev)
+    add_exist_probes(p, planner.eprobe_specs)
+    bind_consts(p, dev)
     return p, ("grouped" if planner.key_names else "scalar"), False
 
 

@@ -15,9 +15,9 @@ each span's attributes in its `args`.
 
 `to_host` and `to_device` are the query path's copies between host and
 card under `wait.fetch` and `wait.upload` spans: the time the host waits
-for the card, named by the program.  Spans open and close on the thread
-that runs them and are all read on the host's `time.perf_counter_ns`
-clock.
+for the card, named by the program; `COPIES` counts the uploads, with the
+tracer on or off.  Spans open and close on the thread that runs them and
+are all read on the host's `time.perf_counter_ns` clock.
 """
 from __future__ import annotations
 
@@ -215,10 +215,16 @@ def to_host(t):
         return t.cpu()
 
 
+#: `to_device` calls since the process started, traced or not
+COPIES = {"uploads": 0}
+
+
 def to_device(t, device):
     """`t.to(device)` under a `wait.upload` span: from pageable host
     memory the copy waits until the card has run everything enqueued
-    before it (the runtime synchronizes the stream)."""
+    before it (the runtime synchronizes the stream).  Counted in
+    `COPIES["uploads"]`."""
+    COPIES["uploads"] += 1
     if not TRACER.enabled:
         return t.to(device)
     with TRACER.span("wait.upload"):
