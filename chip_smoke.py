@@ -1411,9 +1411,10 @@ def star_reduction(p, mode: str, tiers: dict) -> dict:
 def dimension_tables(ctx) -> list:
     """Every built dimension in the session's probe caches: table, key
     domain, index entries and bytes, scanned rows."""
+    from liquid_tpu_torch.sql import fused_agg
     out = []
     for name, table in ctx._tables.items():
-        for probe in getattr(table, "_star_probe_cache", {}).values():
+        for probe in fused_agg.table_state(table).dim_builds.values():
             out.append(dict(table=name, key=probe.cache_key[1],
                             lo=probe.lo, hi=probe.hi,
                             idx_entries=int(probe.idx.numel()),
@@ -1464,7 +1465,7 @@ def run_star_path(torch, ctx, expect: dict):
                         pt.ensure_cached(rg, c)
             t_transcode = time.perf_counter() - t0
             torch.cuda.reset_peak_memory_stats()
-            plans = ctx._exec.__dict__.setdefault("_star_plan_cache", {})
+            plans = ctx._exec.star_plans
             cached = set(plans)
 
             def run_once():
@@ -3304,9 +3305,10 @@ def time_k1_single(torch, inputs: list, phase: str = "6e") -> dict:
 def main_path_k1_inputs(ctx):
     """(planes, lo, hi, query table) for every interval the main path's
     cached plans fed to K1."""
+    from liquid_tpu_torch.sql import fused_agg
     out = []
     for name, table in ctx._tables.items():
-        for hit in getattr(table, "_fused_plan_cache", {}).values():
+        for hit in fused_agg.table_state(table).plans.values():
             if isinstance(hit, str) or hit[2]:  # a bailout, an empty scan
                 continue
             p = hit[0]

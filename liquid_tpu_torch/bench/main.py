@@ -245,12 +245,12 @@ def operator_rooflines(ctx):
     from liquid_tpu_torch.ops import bitpack as bp
     from liquid_tpu_torch.ops import grouphist_cuda
     from liquid_tpu_torch.ops import hashagg as hops
-    from liquid_tpu_torch.sql.fused_agg import _in_interval_many
+    from liquid_tpu_torch.sql.fused_agg import _in_interval_many, table_state
     if ctx.device.type != "cuda":
         log("[op] operators: not measured on the CPU")
         return None
     out = {}
-    preps = getattr(ctx._tables["hits"], "_fused_prep", {})
+    preps = table_state(ctx._tables["hits"]).preps
     dev = ctx.device
 
     def prep_of(col):

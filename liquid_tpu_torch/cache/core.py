@@ -814,6 +814,19 @@ class LiquidCache:
             e = self._entries.get(entry_id)
             return e.state if e else None
 
+    def liquid_payloads(self, entry_ids) -> Optional[list]:
+        """The payloads of `entry_ids`, in order, or None when one of them
+        is not resident as MEMORY_LIQUID (the fused routes' inputs).  Bumps
+        no hit or miss counter."""
+        with self._lock:
+            out = []
+            for eid in entry_ids:
+                e = self._entries.get(eid)
+                if e is None or e.state != MEMORY_LIQUID:
+                    return None
+                out.append(e.payload)
+            return out
+
     def flush_all_to_disk(self) -> None:
         """Walk every memory entry down the squeeze ladder to disk."""
         with self._lock:

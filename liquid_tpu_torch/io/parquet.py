@@ -132,6 +132,9 @@ class ParquetTable:
         self._pageindex = PageIndexReader(path, open_file)
         self._pi_seeded: set = set()  # (rg, col) already seeded
         self._lock = threading.Lock()
+        #: the fused routes' device state between queries, owned by
+        #: `sql/fused_agg.TableState` (made by `fused_agg.table_state`)
+        self.route_state = None
 
     @property
     def num_rows(self) -> int:

@@ -44,7 +44,7 @@
 //    128-byte transaction.  Shared memory, TMA and tensor cores buy
 //    nothing for a single-use streaming read with no reuse, and K1's
 //    16-byte layout (four words per thread) measured 0.95-1.05x of one
-//    word per thread (liquid_tpu_torch/bench/k1_layouts.py);
+//    word per thread on an H100 (PERF.md);
 //  - a descriptor's planes come in chunks of kBatch predicated
 //    `ld.global.nc` loads, fully unrolled, all issued before the first
 //    compare of the chunk; the next chunk (the rest of this column, or

@@ -45,6 +45,7 @@ from liquid_tpu_torch.common.object_store import (
 )
 from liquid_tpu_torch.sql import ast
 from liquid_tpu_torch.sql.exec import QueryExecutor, _contains
+from liquid_tpu_torch.sql.fused_agg import table_state
 from liquid_tpu_torch.sql.parser import parse_statement
 from liquid_tpu_torch.sql.physical import find_aggs
 from liquid_tpu_torch.sql.session import SessionContext
@@ -56,43 +57,31 @@ STOP_TIMEOUT_S = 30.0
 
 class _RowGroupSlice:
     """A parquet table seen through a set of its row groups: the unit a
-    partition executes (reference `:37-58`).  Reads, writes and memos go
-    to the base table, which shares its cache and zone maps, with two
-    kinds of memo apart:
-    - memos keyed by the block set (`_fused_prep`, `_fused_rowvalid`,
-      `_star_probe_cache`, `_exist_probe_cache`) are the base's own dicts,
-      shared, so a slice reuses and feeds the base's preps and builds
-      (the builds under the base budget's one recency order);
-    - memos keyed without it (`_LOCAL`: the fused plan and distinct plan
-      caches, the hash stage hint) stay on the slice, since a plan made
-      over one row group must never answer for the whole table."""
-
-    _SHARED = ("_fused_prep", "_fused_rowvalid", "_star_probe_cache",
-               "_exist_probe_cache")
-    _LOCAL = frozenset(("_fused_plan_cache", "_fused_distinct_cache",
-                        "_fused_stage_hint"))
+    partition executes (reference `:37-58`).  Reads and zone-prune counts
+    go to the base table, which shares its cache and zone maps.  Its
+    fused-route state is derived from the base's
+    (`fused_agg.TableState.derive`): the block-keyed preps and builds
+    are the base's own, its plans are not."""
 
     def __init__(self, base, rgs):
-        d = self.__dict__
-        d["_base"] = base
-        d["_rgs"] = frozenset(rgs)
-        for name in self._SHARED:
-            d[name] = base.__dict__.setdefault(name, {})
+        self._base = base
+        self._rgs = frozenset(rgs)
+        self.route_state = table_state(base).derive("slice")
 
     def prune_row_groups(self, preds):
         keep = self._base.prune_row_groups(preds)
         return [rg for rg in keep if rg in self._rgs]
 
-    def __getattr__(self, k):
-        if k in self._LOCAL:
-            raise AttributeError(k)
-        return getattr(self._base, k)
+    @property
+    def zone_prunes(self):
+        return self._base.zone_prunes
 
-    def __setattr__(self, k, v):
-        if k in self._LOCAL:
-            self.__dict__[k] = v
-        else:
-            setattr(self._base, k, v)
+    @zone_prunes.setter
+    def zone_prunes(self, v):
+        self._base.zone_prunes = v
+
+    def __getattr__(self, k):
+        return getattr(self._base, k)
 
 
 def _has_subquery(e) -> bool:
@@ -207,8 +196,8 @@ class LiquidCacheServiceInner:
         return list(range(partition * per, min((partition + 1) * per, nrg)))
 
     def _execute_slice(self, sql: str, name: str, base, rgs) -> pa.Table:
-        tables = {**self.ctx._tables, name: _RowGroupSlice(base, rgs)}
-        with self._engine:
+        with self._engine:  # the slice may make the base's route state
+            tables = {**self.ctx._tables, name: _RowGroupSlice(base, rgs)}
             return QueryExecutor(tables, self.cache.device).execute_sql(sql)
 
     def _plan(self, handle: str) -> dict:

@@ -107,6 +107,12 @@ class QueryExecutor:
         #: and how deep `execute` is nested (1: the outermost query)
         self._span = None
         self._depth = 0
+        from liquid_tpu_torch.sql.fused_agg import PlanCache
+        from liquid_tpu_torch.sql.fused_star import STAR_PLAN_CAP
+        #: the star route's state (`sql/fused_star.py`): its plans, least
+        #: recently used out first, and one aliased view per (table, prefix)
+        self.star_plans = PlanCache(STAR_PLAN_CAP, lru=True)
+        self.alias_tables: Dict[tuple, object] = {}
 
     # -- statements --------------------------------------------------------
 

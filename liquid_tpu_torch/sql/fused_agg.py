@@ -67,6 +67,7 @@ from liquid_tpu_torch.arrays.byteview import LiquidByteViewArray
 from liquid_tpu_torch.arrays.float_alp import LiquidFloatArray
 from liquid_tpu_torch.arrays.linear import LiquidLinearArray, linear_term
 from liquid_tpu_torch.arrays.primitive import LiquidPrimitiveArray
+from liquid_tpu_torch.cache.core import MEMORY_LIQUID
 from liquid_tpu_torch.device import u64_to_i64, words_to_tensor, wrap_i64
 from liquid_tpu_torch.ops import bitpack as bp
 from liquid_tpu_torch.ops import bitpack_cuda
@@ -1577,7 +1578,6 @@ def _select_blocks(table, plan_scan) -> tuple:
 def _collect_payloads(table, col, hint, blocks):
     """The given blocks of `col` as MEMORY_LIQUID payloads (read and
     cached on first use); raises _Bail if one is not liquid-encoded."""
-    from liquid_tpu_torch.cache import core as cache_core
     ids_by_rg: Dict[int, list] = {}
     eids = []
     for rg, b in blocks:
@@ -1586,18 +1586,125 @@ def _collect_payloads(table, col, hint, blocks):
             ids = ids_by_rg[rg] = table.ensure_cached(rg, col, hint)
         eids.append(ids[b])
     cache = table.cache
-    payloads = []
-    with cache._lock:
-        for eid in eids:
-            e = cache._entries.get(eid)
-            if e is None or e.state != cache_core.MEMORY_LIQUID:
-                raise _Bail(f"block {eid} of {col} not MEMORY_LIQUID")
-            payloads.append(e.payload)
+    payloads = cache.liquid_payloads(eids)
+    if payloads is None:
+        bad = next((eid for eid in eids
+                    if cache.entry_state(eid) != MEMORY_LIQUID), None)
+        raise _Bail(f"block {bad} of {col} not MEMORY_LIQUID")
     return payloads
 
 
-#: cached (blocks-set) prep variants kept per column
+# -- the routes' per-table state ------------------------------------------------
+
+#: cached (blocks-set) prep variants kept per column, and row-valid
+#: stacks kept per table, oldest out first
 _PREP_VARIANTS = 4
+
+#: cached fused plans (and count(DISTINCT) plans) kept per table, oldest
+#: out first (plans pin their prep stacks)
+_PLAN_CACHE_CAP = 8
+
+
+class PlanCache(OrderedDict):
+    """Cached plans, at most `cap`, oldest out first; with `lru` a hit
+    moves its plan last, so the least recently used leaves first.  The
+    builds its plans pin (`fused_star._Build.pin`) refer to it weakly, so
+    it lives no longer than its table or executor."""
+
+    def __init__(self, cap: int, lru: bool = False):
+        super().__init__()
+        self.cap, self.lru = cap, lru
+
+    def lookup(self, key):
+        """The plan cached under `key`, or None."""
+        hit = self.get(key)
+        if hit is not None and self.lru:
+            self.move_to_end(key)
+        return hit
+
+    def put(self, key, plan) -> None:
+        if len(self) >= self.cap:
+            self.popitem(last=False)
+        self[key] = plan
+
+    def drop_stale(self, key) -> None:
+        """Drop the plans made under another catalog or cache epoch than
+        `key` names (a star plan's key ends with the two): no later
+        lookup makes their keys, and their arrays hold device tensors the
+        budget does not charge."""
+        for k in [k for k in self if k[-2:] != key[-2:]]:
+            del self[k]
+
+
+class TableState:
+    """The fused routes' device state of one table between queries:
+    `preps` (base column name -> {blocks: (payload generations, prep,
+    bytes)}, each charged to the cache budget) and `rowvalid` (blocks ->
+    live-row stack), `_PREP_VARIANTS` deep, oldest out first; `plans` and
+    `distinct_plans` (the fused aggregate's and the device
+    count(DISTINCT)'s, `PlanCache`); `stage_hints` (the hash ladder's
+    clean stage per key set); `dim_builds` and `exist_builds` (the star
+    route's `fused_star._Build`s, derived reservations of the column
+    cache, least recently used out first).
+
+    A wrapper's state (`derive`) holds its base's very objects for the
+    memos it shares, and fresh ones for the rest (`SHARED`):
+
+        wrapper                          shares with its base
+        row-group slice (server/flight)  preps, rowvalid, dim_builds,
+                                         exist_builds
+        aliased relation (fused_star)    preps, rowvalid, dim_builds
+
+    The shared memos are keyed by the block set, so a wrapper reuses and
+    feeds its base's preps and builds (the builds under the base
+    budget's one recency order).  Plans and stage hints are keyed
+    without it: a plan made over one row group must never answer for
+    the whole table.  A memo not named in `SHARED` stays apart."""
+
+    SHARED = {"slice": ("preps", "rowvalid", "dim_builds", "exist_builds"),
+              "alias": ("preps", "rowvalid", "dim_builds")}
+
+    def __init__(self, cache):
+        self.cache = cache  # the table's column cache (its budget)
+        self.preps: Dict[str, dict] = {}
+        self.rowvalid: Dict[tuple, torch.Tensor] = {}
+        self.plans = PlanCache(_PLAN_CACHE_CAP)
+        self.distinct_plans = PlanCache(_PLAN_CACHE_CAP)
+        self.stage_hints: dict = {}
+        self.dim_builds: dict = {}
+        self.exist_builds: dict = {}
+
+    def derive(self, wrapper: str) -> "TableState":
+        """The state of a `wrapper` ("slice" or "alias") of this table."""
+        st = TableState(self.cache)
+        for name in self.SHARED[wrapper]:
+            setattr(st, name, getattr(self, name))
+        return st
+
+    def release(self) -> None:
+        """Release the preps' budget and the builds' reservations, and
+        clear every memo (call when the table is dropped or replaced)."""
+        for variants in self.preps.values():
+            for ent in variants.values():
+                self.cache.budget.release_memory(ent[2])
+        for builds in (self.dim_builds, self.exist_builds):
+            for probe in builds.values():
+                probe.release()
+        for memo in (self.preps, self.rowvalid, self.plans,
+                     self.distinct_plans, self.stage_hints,
+                     self.dim_builds, self.exist_builds):
+            memo.clear()
+
+
+def table_state(table) -> TableState:
+    """The fused routes' state of `table`, made on first use.  It hangs
+    on the table's `route_state`; a wrapper sets its own when it is made
+    (`TableState.derive`)."""
+    st = table.route_state
+    if st is None:
+        st = table.route_state = TableState(table.cache)
+    return st
+
 
 #: payload-identity generations for the prep and probe caches: `id()` can
 #: be reused once a squeezed or evicted payload is freed; a generation
@@ -1623,41 +1730,20 @@ def _prep_nbytes(prep: _ColPrep) -> int:
     return n
 
 
-def release_prep_cache(table) -> None:
-    """Release the budget held by a table's cached preps (call when the
-    table is dropped or replaced)."""
-    cache = getattr(table, "_fused_prep", None)
-    if cache:
-        for variants in cache.values():
-            for ent in variants.values():
-                table.cache.budget.release_memory(ent[2])
-        cache.clear()
-    for attr in ("_star_probe_cache", "_exist_probe_cache"):
-        builds = getattr(table, attr, None)
-        if builds:  # dimension and existence builds (sql/fused_star.py)
-            for probe in builds.values():
-                probe.release()
-            builds.clear()
-
-
 def _table_prep(table, col, hint, blocks) -> _ColPrep:
-    """Column prep cached on the table per (col, blocks), invalidated when
-    a payload changes (squeeze, eviction, hydration: a new payload has a
-    new generation, `_gen_of`).  A cached prep reserves its device bytes
-    from the cache budget; when the budget is full it is served
-    uncached."""
-    if hasattr(table, "base"):  # an aliased relation: the base's preps
-        table, col = table.base, table.base_name(col)
-    cache = getattr(table, "_fused_prep", None)
-    if cache is None:
-        cache = table._fused_prep = {}
+    """Column prep cached in the table's state per (col, blocks),
+    invalidated when a payload changes (squeeze, eviction, hydration: a
+    new payload has a new generation, `_gen_of`).  A cached prep reserves
+    its device bytes from the cache budget; when the budget is full it is
+    served uncached."""
     payloads = _collect_payloads(table, col, hint, blocks)
     key = tuple(_gen_of(p) for p in payloads)
-    variants = cache.setdefault(col, {})
+    field = table.field(col)  # an aliased relation's: the base's name
+    variants = table_state(table).preps.setdefault(field.name, {})
     hit = variants.get(blocks)
     if hit is not None and hit[0] == key:
         return hit[1]
-    prep = _prep_column(payloads, table.field(col).type, table.cache.device)
+    prep = _prep_column(payloads, field.type, table.cache.device)
     budget = table.cache.budget
     if hit is not None:  # stale: drop and release
         variants.pop(blocks)
@@ -1672,10 +1758,7 @@ def _table_prep(table, col, hint, blocks) -> _ColPrep:
 
 def _rowvalid(table, blocks) -> torch.Tensor:
     """Packed int32 [nb, 256]: the live rows of each block."""
-    table = getattr(table, "base", table)  # aliased: the base's stack
-    cache = getattr(table, "_fused_rowvalid", None)
-    if cache is None:
-        cache = table._fused_rowvalid = {}
+    cache = table_state(table).rowvalid
     rv = cache.get(blocks)
     if rv is None:
         words = np.stack([mops.all_set_host(BLOCK_ROWS,
@@ -2355,9 +2438,7 @@ def execute_plan(p: _Plan, mode: str, empty: bool, slots, table,
                 return _fetch_result(p, slots, out)
 
     hint_key = ("stage", _stage_keys(p))
-    if not hasattr(table, "_fused_stage_hint"):
-        table._fused_stage_hint = {}
-    stage_hint = table._fused_stage_hint
+    stage_hint = table_state(table).stage_hints
     # a static cardinality bound (int domain spans), capped by the row
     # count, picks a stage the ladder converges in without a retry; a
     # stage proven clean for this key set beats it
@@ -2744,16 +2825,6 @@ def _finish_topk(p: _Plan, slots, topk: TopKSpec,
                          [rows[2 * nk + nv + j] for j in range(nv)])
 
 
-#: cached fused plans kept per table (plans pin their prep stacks)
-_PLAN_CACHE_CAP = 8
-
-
-class PlanCache(OrderedDict):
-    """Cached plans, oldest or least recently used first.  The builds its
-    plans pin (`fused_star._Build.pin`) refer to it weakly, so it lives no
-    longer than its table or executor."""
-
-
 def _plan_cache_key(plan_scan, hints, group, key_names, slots, rew_keys,
                     rew_inputs, q):
     """Identity of everything _plan_query and the top-k / HAVING planning
@@ -2785,15 +2856,13 @@ def try_fused_aggregate(table, plan_scan, hints, group, key_names, slots,
     the shape is unsupported or the hash ladder does not resolve the key
     cardinality (`STATS["fused_bailouts"]`, the reason in
     `STATS["last_bail"]`): the classic path takes the query."""
-    cache = getattr(table, "_fused_plan_cache", None)
-    if cache is None:
-        cache = table._fused_plan_cache = PlanCache()
+    cache = table_state(table).plans
     with TRACER.span("fused.lookup"):
         # a probe's identity pins its build: a rebuilt probe is a new plan
         ck = (table.cache.epoch, _plan_cache_key(
             plan_scan, hints, group, key_names, slots, rew_keys, rew_inputs,
             q), tuple((sp["key"], sp["probe"].gen) for sp in eprobes))
-        hit = cache.get(ck)
+        hit = cache.lookup(ck)
         if hit is None:
             with TRACER.span("fused.plan"):
                 try:
@@ -2806,9 +2875,7 @@ def try_fused_aggregate(table, plan_scan, hints, group, key_names, slots,
             # the cache when one of them is evicted
             if isinstance(hit, str) or all(sp["probe"].cached
                                            for sp in eprobes):
-                if len(cache) >= _PLAN_CACHE_CAP:
-                    cache.pop(next(iter(cache)))
-                cache[ck] = hit
+                cache.put(ck, hit)
                 for sp in eprobes:
                     sp["probe"].pin(ck, cache)
     if isinstance(hit, str):  # a (cached) bailout
@@ -2987,18 +3054,17 @@ def distinct_fused_device(table, plan_scan, hints, group, key_names, slots,
     if not any(s.kind == "count_distinct" for s in slots):
         return None
     # planned once per shape, as the fused aggregate is (None: no route)
-    cache = table.__dict__.setdefault("_fused_distinct_cache", {})
+    state = table_state(table)
+    cache = state.distinct_plans
     with TRACER.span("fused.lookup"):
         ck = (table.cache.epoch, _plan_cache_key(
             plan_scan, hints, group, key_names, slots, rew_keys, rew_inputs,
             q))
         if ck not in cache:
-            if len(cache) >= _PLAN_CACHE_CAP:
-                cache.pop(next(iter(cache)))
             with TRACER.span("fused.plan"):
-                cache[ck] = _plan_distinct(table, plan_scan, hints, group,
-                                           key_names, slots, rew_keys,
-                                           rew_inputs)
+                cache.put(ck, _plan_distinct(table, plan_scan, hints, group,
+                                             key_names, slots, rew_keys,
+                                             rew_inputs))
         planned = cache[ck]
     if planned is None:
         return None
@@ -3011,7 +3077,7 @@ def distinct_fused_device(table, plan_scan, hints, group, key_names, slots,
     if start is None:
         return None  # even the largest table cannot promise convergence
     topk = plan_topk(q, slots, p2) if q is not None else None
-    stage_hint = table.__dict__.setdefault("_fused_stage_hint", {})
+    stage_hint = state.stage_hints
 
     def finish(out, hk, si):
         if not bool(to_host(out[1])):

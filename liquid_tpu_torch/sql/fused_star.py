@@ -56,7 +56,7 @@ from liquid_tpu_torch.ops.hashagg import TRASH, _dropped
 from liquid_tpu_torch.sql import ast
 from liquid_tpu_torch.sql.fused_agg import (
     _AGG_KINDS, _PAYLOAD_GEN, STATS, _add, _as_f64, _Bail, _bool_nonnull,
-    _build_vocab, _gen_of, PlanCache,
+    _build_vocab, _gen_of, table_state,
     _compile_bool, _compile_expr, _Decoders, _expr_key_type, _gid_stack,
     _ir_dtype, _kind_or, _like_regex, _Plan, _plan_cache_key, _plan_slots, _rowvalid,
     _scaled_col_info, _schema_kind, _select_blocks, _selection_packed,
@@ -76,15 +76,16 @@ MAX_DIM_SPAN = 1 << 27
 #: a deeper chain belongs on the classic join path
 MAX_COMPOSITE_DUP = 8
 
-#: star plans kept per executor, least recently used out first.  The
-#: builds a plan pins are charged to the cache budget; the rest of its
-#: arrays (the fact's row validity and column preps, gid stacks, small
-#: uploads of bounds) are not, so plans of a past epoch are dropped on
-#: the next miss and this count bounds the current ones.  It lies above
+#: star plans kept per executor (`QueryExecutor.star_plans`), least
+#: recently used out first.  The builds a plan pins are charged to the
+#: cache budget; the rest of its arrays (the fact's row validity and
+#: column preps, gid stacks, small uploads of bounds) are not, so plans
+#: of a past epoch are dropped on the next miss and this count bounds
+#: the current ones.  It lies above
 #: the star shapes of the largest suite the repo runs: TPC-DS's 99
 #: queries look up 144 keys in a warm pass at SF 0.005, 73 of them
 #: bailouts
-_PLAN_CACHE_CAP = 256
+STAR_PLAN_CAP = 256
 
 # -- dimension build ----------------------------------------------------------
 
@@ -210,14 +211,6 @@ class _Build:
         self.plans = {k: r for k, r in self.plans.items()
                       if (c := r()) is not None and k in c}
         self.plans[ck] = weakref.ref(cache)
-
-
-def _drop_stale(cache: PlanCache, ck) -> None:
-    """Drop the star plans made under another catalog or cache epoch than
-    key `ck` names: no later lookup makes their keys, and their arrays
-    hold device tensors the budget does not charge."""
-    for k in [k for k in cache if k[-2:] != ck[-2:]]:
-        del cache[k]
 
 
 class _Probe(_Build):
@@ -619,15 +612,16 @@ def _prep_has_nulls(table, prep, blocks) -> bool:
 class _AliasedTable:
     """A parquet table under an alias prefix (self-joins; TPC-H nation n1 /
     n2, lineitem l1): its column names carry the prefix, everything else
-    is the base table's with the prefix stripped.  Blocks, preps and
-    row-valid stacks are the base's (`fused_agg._table_prep` and
-    `_rowvalid` read through `base`), and so is the dimension-build
-    cache.  One object per (table, prefix) lives on the executor."""
+    is the base table's with the prefix stripped.  Its state shares the
+    base's preps, row-valid stacks and dimension builds
+    (`fused_agg.TableState`).  One object per (table, prefix) lives on
+    the executor (`QueryExecutor.alias_tables`)."""
 
     def __init__(self, base, prefix: str):
         self.base = base
         self.prefix = prefix
         self.column_names = [prefix + c for c in base.column_names]
+        self.route_state = table_state(base).derive("alias")
 
     def base_name(self, c: str) -> str:
         return c[len(self.prefix):] if c.startswith(self.prefix) else c
@@ -660,10 +654,6 @@ class _AliasedTable:
         self.base.zone_prunes = v
 
     @property
-    def _star_probe_cache(self):
-        return self.base.__dict__.setdefault("_star_probe_cache", {})
-
-    @property
     def num_rows(self):
         return self.base.num_rows
 
@@ -677,7 +667,7 @@ class _AliasedTable:
 
 
 def _aliased_table(ex, base, prefix: str) -> _AliasedTable:
-    cache = ex.__dict__.setdefault("_alias_tables", {})
+    cache = ex.alias_tables
     t = cache.get((id(base), prefix))
     if t is None or t.base is not base:
         t = cache[(id(base), prefix)] = _AliasedTable(base, prefix)
@@ -774,7 +764,7 @@ def build_exist_probe(table, key_col: str, local_where, mm_col=None,
               tuple(repr(g.source) for g in plan_scan.pushdown),
               tuple(repr(e) for e in plan_scan.residual), blocks,
               tuple(_gen_of(pp) for pp in kpr.payloads))
-        cache = table.__dict__.setdefault("_exist_probe_cache", {})
+        cache = table_state(table).exist_builds
         hit = cache.get(ck)
         if hit is not None:
             hit.touch()
@@ -998,9 +988,7 @@ def _build_dim(planner: _StarPlanner, tbl: str) -> _Probe:
                  tuple(repr(e) for e in plan_scan.residual), blocks,
                  tuple(_gen_of(pp) for pp in kpr.payloads),
                  tuple(pb.cache_key for _ch, pb in child_probes), key2_col)
-    cache = getattr(table, "_star_probe_cache", None)
-    if cache is None:
-        cache = table._star_probe_cache = {}
+    cache = table_state(table).dim_builds
     hit = cache.get(cache_key)
     if hit is not None:
         hit.touch()
@@ -1368,23 +1356,20 @@ def try_fused_star(executor, q, group, key_names, slots, rew_keys,
     `STATS["star_last_bail"]`) and for a dimension that repeats a join key
     (an N:M join, `STATS["star_dup_bails"]`): the classic join path takes
     the query."""
-    cache = getattr(executor, "_star_plan_cache", None)
-    if cache is None:
-        cache = executor._star_plan_cache = PlanCache()
+    cache = executor.star_plans
     with TRACER.span("fused.lookup"):
         ck = _star_cache_key(executor, q, group, key_names, slots, rew_keys,
                              rew_inputs)
-        ent = cache.get(ck)
+        ent = cache.lookup(ck)
         if ent is not None:
-            # most recently used last, its builds with it: a hot plan
-            # skips their lookups, which would otherwise leave them cold
-            cache.move_to_end(ck)
+            # the lookup moved the plan last; its builds follow, since a
+            # hot plan skips their lookups, which would leave them cold
             STATS["star_plan_hits"] += 1
             hit, built = ent
             for pb in built:
                 pb.touch()
         else:
-            _drop_stale(cache, ck)
+            cache.drop_stale(ck)
             with TRACER.span("fused.plan"):
                 hit, planner = _plan_star(executor, q, key_names, slots,
                                           rew_keys, rew_inputs, where)
@@ -1401,10 +1386,8 @@ def try_fused_star(executor, q, group, key_names, slots, rew_keys,
             built += [sp["probe"]
                       for sp in getattr(planner, "eprobe_specs", ())]
             if len(hit) == 1 or all(pb.cached for pb in built):
-                if len(cache) >= _PLAN_CACHE_CAP:
-                    cache.popitem(last=False)
                 # a cached bailout holds no build's tensors
-                cache[ck] = (hit, tuple(built) if len(hit) > 1 else ())
+                cache.put(ck, (hit, tuple(built) if len(hit) > 1 else ()))
                 for pb in built:
                     pb.pin(ck, cache)
     if len(hit) == 1:  # a (cached) bailout

@@ -61,10 +61,10 @@ class SessionContext:
         (`common/object_store.StoreFile`)."""
         old = self._tables.get(name)
         if old is not None:
-            # the replaced table's prep reservations and cache entries
-            # would otherwise outlive it
-            from liquid_tpu_torch.sql.fused_agg import release_prep_cache
-            release_prep_cache(old)
+            # the replaced table's device state and cache entries would
+            # otherwise outlive it
+            from liquid_tpu_torch.sql.fused_agg import table_state
+            table_state(old).release()
             self.cache.remove_file(old.file_id)
         fid = self._next_file_id
         self._next_file_id += 1

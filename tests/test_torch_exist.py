@@ -160,8 +160,8 @@ def test_exist_build_is_cached_and_charged(sessions):
     b = tstar.build_exist_probe(inn, "k", _where(tparse, "v > 3"), "m")
     assert a is b and a.cached and a.nbytes > 0
     used = tctx.cache.budget.memory_used
-    tfa.release_prep_cache(inn)
-    assert not inn._exist_probe_cache and not a.cached
+    tfa.table_state(inn).release()
+    assert not tfa.table_state(inn).exist_builds and not a.cached
     assert tctx.cache.budget.memory_used <= used - a.nbytes
 
 
@@ -220,14 +220,14 @@ def test_uncharged_exist_build_leaves_its_plan_uncached(sessions, monkeypatch,
     want = tctx.sql(sql).to_arrow()
     inn, outr = tctx._tables["inn"], tctx._tables["outr"]
     for t in tctx._tables.values():
-        tfa.release_prep_cache(t)
-    budget, plans = tctx.cache.budget, outr._fused_plan_cache
+        tfa.table_state(t).release()
+    budget, plans = tctx.cache.budget, tfa.table_state(outr).plans
     monkeypatch.setattr(budget, "max_memory_bytes", budget.memory_used)
     n_plans, used = len(plans), budget.memory_used
     f0 = tfa.STATS["fused_queries"]
     for _ in range(3):
         assert same_table(tctx.sql(sql).to_arrow(), want.columns)
-        assert not inn._exist_probe_cache and len(plans) == n_plans
+        assert not tfa.table_state(inn).exist_builds and len(plans) == n_plans
         assert budget.memory_used == used <= budget.max_memory_bytes
     assert tfa.STATS["fused_queries"] == f0 + 3
 
@@ -254,7 +254,7 @@ def test_partsupp_chain_matches_reference(sessions):
     ref_t, ours_t = jctx.sql(TPCH[9]).to_arrow(), tctx.sql(TPCH[9]).to_arrow()
     assert ours_t.num_rows == ref_t.num_rows > 0
     ref = _chain_probe(jctx._tables["partsupp"]._star_probe_cache)
-    ours = _chain_probe(tctx._tables["partsupp"]._star_probe_cache)
+    ours = _chain_probe(tfa.table_state(tctx._tables["partsupp"]).dim_builds)
     assert (ours.lo, ours.hi, ours.nrows) == (ref.lo, ref.hi, ref.nrows)
     np.testing.assert_array_equal(ours.idx.numpy(), np.asarray(ref.idx))
     (o_ord, o_cnt, o_vals2, o_max), (r_ord, r_cnt, r_vals2, r_max) = \
@@ -277,7 +277,7 @@ def test_chain_of_depth_8_answers(sessions):
     ours = tctx.sql(sql).to_arrow()
     assert tfa.STATS["star_queries"] == s0 + 1
     assert same_table(ours, jctx.sql(sql).to_arrow().columns)
-    probe = _chain_probe(tctx._tables["cdim8"]._star_probe_cache)
+    probe = _chain_probe(tfa.table_state(tctx._tables["cdim8"]).dim_builds)
     assert probe.chain[3] == tstar.MAX_COMPOSITE_DUP == 8
 
 
@@ -303,12 +303,12 @@ def test_aliased_relations_share_their_base_builds(sessions):
     for q in (21, 7):
         assert same_table(tctx.sql(TPCH[q]).to_arrow(),
                           jctx.sql(TPCH[q]).to_arrow().columns)
-    li = tctx._tables["lineitem"]
-    assert li._fused_prep and not any("__" in c for c in li._fused_prep)
-    keys = [(ck[0], ck[1]) for ck in li._exist_probe_cache]
+    li = tfa.table_state(tctx._tables["lineitem"])
+    assert li.preps and not any("__" in c for c in li.preps)
+    keys = [(ck[0], ck[1]) for ck in li.exist_builds]
     assert keys.count(("l_orderkey", "l_suppkey")) == 2  # l2 and l3
-    nation = tctx._tables["nation"]
-    prefixes = {ck[0] for ck in nation._star_probe_cache}
+    nation = tfa.table_state(tctx._tables["nation"])
+    prefixes = {ck[0] for ck in nation.dim_builds}
     assert {"n1", "n2"} <= prefixes
 
 

@@ -175,7 +175,7 @@ def test_linear_key_direct_only_within_the_table_cap(sessions, col, tier):
     ref = jctx.sql(sql).to_arrow()
     tiers = dict(hashagg.TIERS)
     ours = tctx.sql(sql).to_arrow()
-    preps = tctx._tables["lin"]._fused_prep[col].values()
+    preps = tfa.table_state(tctx._tables["lin"]).preps[col].values()
     assert preps and all(ent[1].kind == "linear" for ent in preps)
     moved = {k for k, n in hashagg.TIERS.items() if n != tiers[k]}
     assert moved and ((moved == {"hash"}) == (tier == "hash")), moved

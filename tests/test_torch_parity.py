@@ -82,6 +82,11 @@ DEPARTURES = {
     "sql/fused_agg.py:eval_ir": (
         ("sql/fused_agg.py::eval_ir_nulls",),
         "one three-valued evaluator: values and NULL masks together"),
+    "sql/fused_agg.py:release_prep_cache": (
+        ("sql/fused_agg.py::TableState.release",
+         "sql/fused_agg.py::table_state"),
+        "a table's fused-route memos are one state object: releasing it "
+        "gives back the preps' budget and the builds' reservations"),
     # device properties: a block's fields stay on the host and each
     # method takes the device it runs on
     **{f"{mod}:{cls}.{attr}": (

@@ -243,11 +243,12 @@ def test_full_aggregate_after_partitions_equals_pyarrow(part_file, tmp_path):
                                  "s": pc.sum(keep["v"]).as_py()}]
     # the block-keyed memos are the base's own; the plan memo is not
     sl = _RowGroupSlice(base, [2])
-    assert sl._fused_prep is base._fused_prep
-    assert sl._fused_rowvalid is base._fused_rowvalid
-    assert getattr(sl, "_fused_plan_cache", None) is None
-    sl._fused_plan_cache = {"x": 1}
-    assert base._fused_plan_cache.get("x") is None
+    mine, its = fused_agg.table_state(sl), fused_agg.table_state(base)
+    assert mine.preps is its.preps
+    assert mine.rowvalid is its.rowvalid
+    assert mine.plans is not its.plans and not mine.plans
+    mine.plans.put("x", 1)
+    assert its.plans.get("x") is None
     sl.zone_prunes = sl.zone_prunes + 0  # other writes reach the base
     assert "zone_prunes" not in sl.__dict__
 

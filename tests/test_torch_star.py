@@ -362,7 +362,7 @@ def test_q3_dimension_build_matches_reference(sessions):
     tctx.sql(Q3).to_arrow()
     ref = _orders_probe(jctx._tables["orders"]._star_probe_cache,
                         lambda k: (k[0][4], len(k[1])))
-    ours = _orders_probe(tctx._tables["orders"]._star_probe_cache,
+    ours = _orders_probe(tfa.table_state(tctx._tables["orders"]).dim_builds,
                          lambda k: (k[1], len(k[4])))
     assert (ours.lo, ours.hi, ours.nrows) == (ref.lo, ref.hi, ref.nrows)
     assert ours.idx.dtype == torch.int32
@@ -375,8 +375,8 @@ def test_q3_dimension_build_matches_reference(sessions):
         np.testing.assert_array_equal(tn.numpy(), np.asarray(nulls))
     assert ours.verified and ours.nbytes > 0
     assert tctx.cache.budget.memory_used >= ours.nbytes
-    tfa.release_prep_cache(tctx._tables["orders"])
-    assert not tctx._tables["orders"]._star_probe_cache
+    tfa.table_state(tctx._tables["orders"]).release()
+    assert not tfa.table_state(tctx._tables["orders"]).dim_builds
     assert tstar.MAX_DIM_SPAN == 1 << 27
 
 
@@ -387,19 +387,19 @@ def test_released_probe_drops_the_plans_that_pin_it(sessions):
     _, tctx = sessions
     sql = CASES[0][1]  # fact JOIN dim
     want = tctx.sql(sql).to_arrow()
-    plans, dim = tctx._exec._star_plan_cache, tctx._tables["dim"]
-    probes = list(dim._star_probe_cache.values())
+    plans, dim = tctx._exec.star_plans, tctx._tables["dim"]
+    probes = list(tfa.table_state(dim).dim_builds.values())
     held = {ck for pb in probes for ck in pb.plans}
     assert probes and all(pb.cached for pb in probes)
     assert held & set(plans)
     used = tctx.cache.budget.memory_used
-    tfa.release_prep_cache(dim)
+    tfa.table_state(dim).release()
     assert not held & set(plans)
     assert tctx.cache.budget.memory_used <= used - sum(pb.nbytes
                                                        for pb in probes)
     assert not any(pb.cached or pb.plans for pb in probes)
     _assert_same_answer(tctx.sql(sql).to_arrow(), want)
-    assert any(pb.plans for pb in dim._star_probe_cache.values())
+    assert any(pb.plans for pb in tfa.table_state(dim).dim_builds.values())
 
 
 def test_uncharged_probe_leaves_its_plan_uncached(sessions, monkeypatch):
@@ -410,16 +410,16 @@ def test_uncharged_probe_leaves_its_plan_uncached(sessions, monkeypatch):
     _, tctx = sessions
     sql = CASES[0][1]
     want = tctx.sql(sql).to_arrow()
-    dim, plans = tctx._tables["dim"], tctx._exec._star_plan_cache
+    dim, plans = tctx._tables["dim"], tctx._exec.star_plans
     for t in tctx._tables.values():
-        tfa.release_prep_cache(t)
+        tfa.table_state(t).release()
     n_plans, budget = len(plans), tctx.cache.budget
     used = budget.memory_used
     monkeypatch.setattr(budget, "try_reserve_memory", lambda nbytes: False)
     t0 = tfa.STATS["star_queries"]
     for _ in range(2):
         _assert_same_answer(tctx.sql(sql).to_arrow(), want)
-        assert not dim._star_probe_cache and len(plans) == n_plans
+        assert not tfa.table_state(dim).dim_builds and len(plans) == n_plans
     assert tfa.STATS["star_queries"] == t0 + 2
     assert budget.memory_used == used
 
@@ -469,7 +469,7 @@ def test_round_robin_keeps_every_star_shape(sessions, monkeypatch):
         else:
             assert not names & {"fused.plan", "fused.dim_build"}
             assert tfa.STATS["star_plan_hits"] - h0 == len(keys) - n0 > 0
-    assert len(tctx._tables["orders"]._star_probe_cache) >= 5
+    assert len(tfa.table_state(tctx._tables["orders"]).dim_builds) >= 5
     assert tfa.STATS["star_build_evictions"] == e0
     for qid in STAR_TPCH:
         _assert_same_answer(first[qid], jctx.sql(TPCH[qid]).to_arrow())
@@ -530,13 +530,13 @@ def test_tight_budget_evicts_the_least_recently_used_build(tmp_path,
     qa1, qa2, qb = _dim_query("a", 1), _dim_query("a", 2), _dim_query("b", 1)
     want = {q: ctx.sql(q).to_arrow() for q in (qa1, qa2, qb)}
     for name in ctx._tables:
-        tfa.release_prep_cache(ctx._tables[name])
-    plans, budget = ctx._exec._star_plan_cache, ctx.cache.budget
+        tfa.table_state(ctx._tables[name]).release()
+    plans, budget = ctx._exec.star_plans, ctx.cache.budget
     dima, dimb = ctx._tables["dima"], ctx._tables["dimb"]
     _assert_same_answer(ctx.sql(qa1).to_arrow(), want[qa1])
     _assert_same_answer(ctx.sql(qb).to_arrow(), want[qb])
-    (a1,) = dima._star_probe_cache.values()
-    (b1,) = dimb._star_probe_cache.values()
+    (a1,) = tfa.table_state(dima).dim_builds.values()
+    (b1,) = tfa.table_state(dimb).dim_builds.values()
     assert a1.cached and b1.cached and a1.nbytes == b1.nbytes > 0
     b_plans = set(b1.plans)
     assert b_plans & set(plans)
@@ -548,8 +548,8 @@ def test_tight_budget_evicts_the_least_recently_used_build(tmp_path,
     _assert_same_answer(ctx.sql(qa2).to_arrow(), want[qa2])
     assert tfa.STATS["star_build_evictions"] == s0["star_build_evictions"] + 1
     assert tfa.STATS["star_plans_dropped"] >= s0["star_plans_dropped"] + 1
-    assert a1.cached and not b1.cached and not dimb._star_probe_cache
-    assert len(dima._star_probe_cache) == 2
+    assert a1.cached and not b1.cached and not tfa.table_state(dimb).dim_builds
+    assert len(tfa.table_state(dima).dim_builds) == 2
     assert not b_plans & set(plans)
     assert budget.memory_used <= budget.max_memory_bytes
     # every plan cached pins only cached builds, and answers as before
@@ -570,9 +570,9 @@ def test_builds_with_changing_literals_never_displace_columns(tmp_path,
     ctx = _two_dim_session(tmp_path)
     queries = [_dim_query(d, k) for k in range(6) for d in "ab"]
     want = {q: ctx.sql(q).to_arrow() for q in queries}
-    (a1, *_) = ctx._tables["dima"]._star_probe_cache.values()
+    (a1, *_) = tfa.table_state(ctx._tables["dima"]).dim_builds.values()
     for name in ctx._tables:
-        tfa.release_prep_cache(ctx._tables[name])
+        tfa.table_state(ctx._tables[name]).release()
     budget, obs = ctx.cache.budget, ctx.cache.observer.stats
     monkeypatch.setattr(budget, "max_memory_bytes",
                         budget.memory_used + a1.nbytes * 3 // 2)
@@ -602,9 +602,9 @@ def test_column_insert_evicts_builds_before_columns(tmp_path, monkeypatch):
     ctx = _two_dim_session(tmp_path)
     qa, qb = _dim_query("a", 1), _dim_query("b", 1)
     want = {q: ctx.sql(q).to_arrow() for q in (qa, qb)}
-    plans, budget = ctx._exec._star_plan_cache, ctx.cache.budget
-    (a1,) = ctx._tables["dima"]._star_probe_cache.values()
-    (b1,) = ctx._tables["dimb"]._star_probe_cache.values()
+    plans, budget = ctx._exec.star_plans, ctx.cache.budget
+    (a1,) = tfa.table_state(ctx._tables["dima"]).dim_builds.values()
+    (b1,) = tfa.table_state(ctx._tables["dimb"]).dim_builds.values()
     a_plans = set(a1.plans)
     assert a_plans & set(plans)
     monkeypatch.setattr(budget, "max_memory_bytes", budget.memory_used)
@@ -637,10 +637,10 @@ def test_stale_plans_leave_with_their_epoch(tmp_path):
     ctx = _two_dim_session(tmp_path)
     qa, qb = _dim_query("a", 1), _dim_query("b", 1)
     want = ctx.sql(qa).to_arrow()
-    plans = ctx._exec._star_plan_cache
+    plans = ctx._exec.star_plans
     (ck,) = plans
     plan = weakref.ref(plans[ck][0][0])
-    (a1,) = ctx._tables["dima"]._star_probe_cache.values()
+    (a1,) = tfa.table_state(ctx._tables["dima"]).dim_builds.values()
     _cache_columns(ctx._tables["late"])  # a new epoch
     ctx.sql(qb).to_arrow()
     gc.collect()
@@ -649,6 +649,6 @@ def test_stale_plans_leave_with_their_epoch(tmp_path):
     assert {k[-1] for k in plans} == {ctx.cache.epoch}
     _assert_same_answer(ctx.sql(qa).to_arrow(), want)
     held = weakref.ref(plans)
-    ctx._exec._star_plan_cache = plans = None
+    ctx._exec.star_plans = plans = None
     gc.collect()
     assert held() is None and a1.cached and a1.plans
