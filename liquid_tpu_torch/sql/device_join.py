@@ -3,24 +3,32 @@
 
 Key tuples of both sides are encoded to int64 code images with one
 shared `device_agg.KeyCodec` per key pair (string vocabulary ids agree
-across the sides), dense-ranked over the union and packed into ONE int64
-sort key.  The sort-merge build and probe run on the engine's device
-(`ops/join.py`: a stable sort, two searchsorted, a prefix-sum
-expansion); the key codes go up once and the matched row indices come
-back once, and the rows are taken on the host.  A NULL key never
-matches: each side's NULL rows get a sentinel code the other side lacks.
+across the sides) and packed into ONE int64 sort key (`_pack_keys`).
+Where the value spans of all key pairs fit the pack budget together,
+each pair packs its offset from the pair's least non-NULL code: one
+pass over the rows, no sort.  Surrogate, date, boolean and vocabulary
+keys take this range packing.  Otherwise (float keys as IEEE bits, ints
+spread over more than the budget) each pair is dense-ranked over the
+union of both sides and the ranks are packed, as in the reference.
+The sort-merge build and probe run on the engine's device (`ops/join.py`:
+a stable sort, two searchsorted, a prefix-sum expansion); the key codes
+go up once and the matched row indices come back once, and the rows are
+taken on the host.  A NULL key never matches: each side's NULL rows get
+a sentinel code the other side lacks.
 
 Inner, left, right and full joins; the output carries both sides' key
 columns (outer rows null-extend the missing side), a same-name key pair
 coalesced.  Below HOST_JOIN_MAX rows in all the sort and probe run in
 numpy, as in the reference.  Colliding non-key column names or a key
-tuple too wide to pack return None (the caller joins with pyarrow).
-The reference sends every such join to pyarrow on a TPU (`_prefer_host`,
-a TPU-era measurement); the port keeps the device route on every device.
+tuple whose ranks are too wide to pack return None (the caller joins
+with pyarrow).  The reference sends every such join to pyarrow on a TPU
+(`_prefer_host`, a TPU-era measurement); the port keeps the device route
+on every device.
 
 Row order: probe-major (left-major for inner and left, right-major for
 right), matches in build sort order, unmatched outer rows after in side
-order.
+order.  Both packings are injective on key tuples and the build sort is
+stable, so the order does not depend on which one a join took.
 """
 from __future__ import annotations
 
@@ -36,14 +44,17 @@ from liquid_tpu_torch.sql.device_agg import DeviceUnsupported, KeyCodec
 from liquid_tpu_torch.utils.tracing import to_device, to_host
 
 #: joins by route: "device_joins" sort and probe on the engine's device,
-#: "host_joins" in numpy (small), "fallback_joins" go to pyarrow
-STATS = {"device_joins": 0, "host_joins": 0, "fallback_joins": 0}
+#: "host_joins" in numpy (small), "fallback_joins" go to pyarrow; folds
+#: by key packing: "range_packs" offsets from each pair's least code,
+#: "rank_packs" dense ranks (`_pack_keys`)
+STATS = {"device_joins": 0, "host_joins": 0, "fallback_joins": 0,
+         "range_packs": 0, "rank_packs": 0}
 
 #: below this many rows in all the sort and probe run in numpy: a device
 #: round trip per small dimension join costs more than the join
 HOST_JOIN_MAX = 1 << 16
 
-_PACK_BITS = 62  # packed rank budget; the two sentinels live above it
+_PACK_BITS = 62  # packed key budget; the two sentinels live above it
 
 
 def try_device_join(left: pa.Table, right: pa.Table, lkeys: List[str],
@@ -67,7 +78,7 @@ def _device_join(left: pa.Table, right: pa.Table, lkeys: List[str],
     shared = (set(left.column_names) & set(right.column_names)) - coalesce
     if shared:
         raise DeviceUnsupported(f"colliding columns {shared}")
-    packed = _pack_ranks(*_encode_keys(left, right, lkeys, rkeys))
+    packed = _pack_keys(*_encode_keys(left, right, lkeys, rkeys))
     if packed is None:
         raise DeviceUnsupported("key cardinality exceeds the pack budget")
     lpacked, rpacked = packed
@@ -173,15 +184,73 @@ def _encode_keys(left, right, lkeys, rkeys):
     return lcodes, lnulls, rcodes, rnulls
 
 
-def _pack_ranks(lcodes, lnulls, rcodes, rnulls):
+def _pack_keys(lcodes, lnulls, rcodes, rnulls):
+    """Pack each row's key tuple into one int64 below 2^62; a row with
+    any NULL key gets its side's sentinel above the budget (never
+    matched).  None when the tuple's ranks need more than 62 bits.
+
+    A pair whose non-NULL codes span [lo, hi] takes the width of
+    hi - lo + 2: room for every offset from lo, and never narrower than
+    the pair's dense ranks (at most hi - lo + 1 values and the NULL
+    rows' code).  If the widths of all pairs fit the budget, each pair
+    packs `code - lo` (no sort); so a tuple packed by range always has
+    ranks that fit too, and the range packing never joins where the rank
+    packing would return None.  Otherwise every pair packs its rank,
+    which may still fit.  One choice for the whole tuple: a mix could
+    run out of bits where the ranks alone would not."""
+    spans = [_span(lc, ln, rc, rn)
+             for lc, ln, rc, rn in zip(lcodes, lnulls, rcodes, rnulls)]
+    widths = [(hi - lo + 2).bit_length() for lo, hi in spans]
+    if sum(widths) <= _PACK_BITS:
+        STATS["range_packs"] += 1
+        lpack = _pack_offsets(lcodes, spans, widths)
+        rpack = _pack_offsets(rcodes, spans, widths)
+    else:
+        STATS["rank_packs"] += 1
+        packed = _pack_ranks(lcodes, rcodes)
+        if packed is None:
+            return None
+        lpack, rpack = packed
+    lnull = np.zeros(len(lpack), bool)
+    rnull = np.zeros(len(rpack), bool)
+    for ln, rn in zip(lnulls, rnulls):
+        lnull |= ln
+        rnull |= rn
+    lpack[lnull] = np.int64(1) << 62
+    rpack[rnull] = (np.int64(1) << 62) | 1
+    return lpack, rpack
+
+
+def _span(lc, ln, rc, rn):
+    """(least, greatest) non-NULL code of a key pair over both sides, as
+    Python ints; (0, 0) when it has none."""
+    parts = [c[~n] if n.any() else c for c, n in ((lc, ln), (rc, rn))]
+    parts = [c for c in parts if len(c)]
+    if not parts:
+        return 0, 0
+    return (min(int(c.min()) for c in parts),
+            max(int(c.max()) for c in parts))
+
+
+def _pack_offsets(codes, spans, widths):
+    """One side's key tuples as each pair's `code - lo`, shifted and
+    OR-ed.  A NULL row's bits are garbage here: its sentinel replaces
+    them."""
+    pack = None
+    for c, (lo, _), bits in zip(codes, spans, widths):
+        off = c - np.int64(lo)
+        pack = off if pack is None else (pack << bits) | off
+    return pack
+
+
+def _pack_ranks(lcodes, rcodes):
     """Dense-rank each key column over the union of both sides and pack
-    the ranks into one int64 per row; a row with any NULL key gets its
-    side's sentinel above the pack budget (never matched).  None when
-    the ranks need more than 62 bits."""
-    n_l = len(lcodes[0]) if lcodes else 0
-    n_r = len(rcodes[0]) if rcodes else 0
+    the ranks into one int64 per row, or None when they need more than
+    62 bits.  A NULL row ranks as its code 0 here; `_pack_keys` puts
+    its sentinel over it."""
+    n_l = len(lcodes[0])
     lpack = np.zeros(n_l, np.int64)
-    rpack = np.zeros(n_r, np.int64)
+    rpack = np.zeros(len(rcodes[0]), np.int64)
     used_bits = 0
     for lc, rc in zip(lcodes, rcodes):
         uniq, inv = np.unique(np.concatenate([lc, rc]), return_inverse=True)
@@ -191,13 +260,6 @@ def _pack_ranks(lcodes, lnulls, rcodes, rnulls):
             return None
         lpack = (lpack << bits) | inv[:n_l].astype(np.int64)
         rpack = (rpack << bits) | inv[n_l:].astype(np.int64)
-    lnull = np.zeros(n_l, bool)
-    rnull = np.zeros(n_r, bool)
-    for ln, rn in zip(lnulls, rnulls):
-        lnull |= ln
-        rnull |= rn
-    lpack = np.where(lnull, np.int64(1) << 62, lpack)
-    rpack = np.where(rnull, (np.int64(1) << 62) | 1, rpack)
     return lpack, rpack
 
 

@@ -1078,16 +1078,21 @@ class QueryExecutor:
         sort-merge, else pyarrow's hash join with both sides' key columns
         kept under their own names; under an `exec.join` span (the probe
         side is the left one but for a right join; `device`: the
-        sort-merge ran on the engine's device)."""
+        sort-merge ran on the engine's device; `pack`: "range" or "rank",
+        how the keys were packed, absent where they were not)."""
         from liquid_tpu_torch.sql import device_join
         build, probe = (left, right) if kind == "right" else (right, left)
         with TRACER.span("exec.join", kind=kind, build_rows=build.num_rows,
                          probe_rows=probe.num_rows) as span:
-            before = device_join.STATS["device_joins"]
+            stats = device_join.STATS
+            before = dict(stats)
             out = self._fold_pair(left, right, pairs, kind)
             if span is not None:
                 span.attrs["device"] = \
-                    device_join.STATS["device_joins"] > before
+                    stats["device_joins"] > before["device_joins"]
+                for pack in ("range", "rank"):
+                    if stats[pack + "_packs"] > before[pack + "_packs"]:
+                        span.attrs["pack"] = pack
             return out
 
     def _fold_pair(self, left: pa.Table, right: pa.Table, pairs,

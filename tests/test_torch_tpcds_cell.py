@@ -220,11 +220,48 @@ def test_join_spans_hold_no_cache_span(session):
         js = [s for s in spans if s.name == "exec.join"]
         joins += len(js)
         for j in js:
-            assert set(j.attrs) == {"kind", "build_rows", "probe_rows",
-                                    "device"}
+            assert set(j.attrs) - {"pack"} == {"kind", "build_rows",
+                                               "probe_rows", "device"}
             assert not any(s.name.startswith("cache.")
                            and _held_by(spans, s, j) for s in spans), q
     assert joins > len(ISSUED)
+
+
+#: the cell's queries that fold classic joins (the others take the star
+#: route)
+CLASSIC = ["q12", "q20", "q98", "q51", "q38", "q87", "q97", "q71"]
+
+
+def test_classic_folds_pack_keys_by_range(cell_data, session):
+    """The cell's classic folds join surrogate and date keys, whose spans
+    fit the pack budget: every fold that packs keys packs offsets, none
+    ranks, and the answers are the references'."""
+    from liquid_tpu_torch.sql import device_join
+    _, paths = cell_data
+    cfg = small_config()
+    expect = harness.reference_answers(cfg, CLASSIC, paths)
+    rank0 = device_join.STATS["rank_packs"]
+    answers, folds = [], 0
+    for q in CLASSIC:
+        TRACER.reset()
+        TRACER.enable()
+        try:
+            out = session.sql(spec.query_sql("tpcds_sf1", q)).to_arrow()
+        finally:
+            TRACER.disable()
+        answers.append((q, out))
+        js = [s for s in TRACER.spans()
+              if s.name == "exec.join" and s.attrs["kind"] != "cross"]
+        TRACER.reset()
+        assert js, q
+        assert all(j.attrs.get("pack") == "range" for j in js), q
+        folds += len(js)
+    assert device_join.STATS["rank_packs"] == rank0
+    assert folds >= len(CLASSIC)
+    wrong, gap = harness.judge(answers, expect,
+                               cfg["limits"]["float_rel_gap"])
+    assert wrong == 0
+    assert gap < cfg["limits"]["float_rel_gap"]
 
 
 def _run(spans_, completed=2):
